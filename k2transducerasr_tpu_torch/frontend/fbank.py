@@ -1,0 +1,228 @@
+"""Kaldi-compatible log-mel filterbank, PyTorch port of
+``k2transducerasr_tpu/frontend/fbank.py``.
+
+Same design: with dither == 0 every per-frame op before the power spectrum
+(DC removal, preemphasis, window, zero-padded rDFT) is linear in the frame,
+so the chain is pre-composed (numpy, float64, then float32) into one
+``[frame_len, 2*(nfft//2+1)]`` matrix ``A``:
+
+    power[k] = (x @ A)[k]^2 + (x @ A)[k + n_bins]^2
+    fbank    = log(max(power @ Mel, eps))
+
+Both matmuls are true float32: TF32 is turned off around them on the card
+(``runtime.device.exact_f32``), as the reference keeps them at
+``precision=HIGHEST``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from k2transducerasr_tpu_torch.runtime.device import exact_f32
+
+_EPS = float(np.finfo(np.float32).eps)  # kaldi's energy floor for log
+
+
+@dataclasses.dataclass(frozen=True)
+class FbankConfig:
+    """Kaldi frame options; the same fields as the JAX package's config, so
+    a model dir's ``config.json`` loads into either."""
+
+    sample_rate: int = 16000
+    frame_length_ms: float = 25.0
+    frame_shift_ms: float = 10.0
+    num_mel_bins: int = 80
+    window_type: str = "hamming"  # povey | hamming | hanning | rectangular | blackman
+    dither: float = 0.0
+    preemph_coeff: float = 0.97
+    remove_dc_offset: bool = True
+    round_to_power_of_two: bool = True
+    snip_edges: bool = True
+    low_freq: float = 20.0
+    high_freq: float = 0.0  # <=0 means Nyquist + high_freq
+    use_power: bool = True
+    use_log_fbank: bool = True
+    blackman_coeff: float = 0.42
+    input_scale: float = 1.0
+
+    @property
+    def frame_length(self) -> int:
+        return int(self.sample_rate * self.frame_length_ms / 1000.0)
+
+    @property
+    def frame_shift(self) -> int:
+        return int(self.sample_rate * self.frame_shift_ms / 1000.0)
+
+    @property
+    def padded_window_size(self) -> int:
+        n = self.frame_length
+        if self.round_to_power_of_two:
+            p = 1
+            while p < n:
+                p *= 2
+            return p
+        return n
+
+
+def num_frames_for(num_samples: int, cfg: FbankConfig) -> int:
+    """Frame count under snip_edges semantics (kaldi NumFrames)."""
+    fl, fs = cfg.frame_length, cfg.frame_shift
+    if cfg.snip_edges:
+        if num_samples < fl:
+            return 0
+        return 1 + (num_samples - fl) // fs
+    return (num_samples + fs // 2) // fs
+
+
+def num_frames_tensor(num_samples: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
+    """Tensor version of ``num_frames_for``."""
+    fl, fs = cfg.frame_length, cfg.frame_shift
+    if cfg.snip_edges:
+        return torch.where(num_samples < fl, 0, 1 + (num_samples - fl) // fs)
+    return (num_samples + fs // 2) // fs
+
+
+def _window(cfg: FbankConfig) -> np.ndarray:
+    n = cfg.frame_length
+    a = 2.0 * math.pi / (n - 1)
+    i = np.arange(n, dtype=np.float64)
+    if cfg.window_type == "hanning":
+        return 0.5 - 0.5 * np.cos(a * i)
+    if cfg.window_type == "hamming":
+        return 0.54 - 0.46 * np.cos(a * i)
+    if cfg.window_type == "povey":
+        return (0.5 - 0.5 * np.cos(a * i)) ** 0.85
+    if cfg.window_type == "rectangular":
+        return np.ones(n)
+    if cfg.window_type == "blackman":
+        c = cfg.blackman_coeff
+        return c - 0.5 * np.cos(a * i) + (0.5 - c) * np.cos(2 * a * i)
+    raise ValueError(f"unknown window type {cfg.window_type!r}")
+
+
+def mel_scale(f):
+    return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def mel_banks(cfg: FbankConfig) -> np.ndarray:
+    """Kaldi MelBanks: triangular filters in mel space over fft bins
+    ``0 .. nfft/2 - 1`` (the Nyquist bin is never covered).  Returns
+    ``[nfft//2 + 1, num_mel_bins]`` with a zero Nyquist row."""
+    nfft = cfg.padded_window_size
+    n_bins = nfft // 2 + 1
+    high_freq = cfg.high_freq if cfg.high_freq > 0 else cfg.sample_rate / 2.0 + cfg.high_freq
+    mel_low, mel_high = mel_scale(cfg.low_freq), mel_scale(high_freq)
+    delta = (mel_high - mel_low) / (cfg.num_mel_bins + 1)
+    fft_freqs = np.arange(n_bins, dtype=np.float64) * (cfg.sample_rate / nfft)
+    mel_f = mel_scale(fft_freqs)
+
+    out = np.zeros((n_bins, cfg.num_mel_bins), dtype=np.float64)
+    for m in range(cfg.num_mel_bins):
+        left = mel_low + m * delta
+        center, right = left + delta, left + 2 * delta
+        up = (mel_f - left) / (center - left)
+        down = (right - mel_f) / (right - center)
+        out[:, m] = np.maximum(0.0, np.minimum(up, down))
+    out[nfft // 2, :] = 0.0  # kaldi never reads the Nyquist bin
+    return out
+
+
+def _build_matrices(cfg: FbankConfig):
+    """Pre-compose DC-removal, preemphasis, window, and padded rDFT into a
+    single real matrix ``A [frame_len, 2*n_bins]`` (cos block | sin block);
+    returns (A, Mel) as float32 numpy arrays."""
+    n = cfg.frame_length
+    nfft = cfg.padded_window_size
+    n_bins = nfft // 2 + 1
+
+    m = np.eye(n, dtype=np.float64)
+    if cfg.remove_dc_offset:
+        m = m - np.full((n, n), 1.0 / n)
+    if cfg.preemph_coeff != 0.0:
+        p = np.eye(n, dtype=np.float64)
+        idx = np.arange(1, n)
+        p[idx, idx - 1] = -cfg.preemph_coeff
+        p[0, 0] = 1.0 - cfg.preemph_coeff  # kaldi: x[0] -= coeff * x[0]
+        m = p @ m
+    m = _window(cfg)[:, None] * m  # diag(window) @ preemph @ dc
+
+    k = np.arange(n_bins, dtype=np.float64)
+    t = np.arange(n, dtype=np.float64)
+    ang = 2.0 * math.pi * np.outer(t, k) / nfft
+    a_cos = m.T @ np.cos(ang)
+    a_sin = m.T @ -np.sin(ang)
+    dft = np.concatenate([a_cos, a_sin], axis=1)  # [frame_len, 2*n_bins]
+    return dft.astype(np.float32), mel_banks(cfg).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def fbank_matrices(cfg: FbankConfig):
+    """The composed (dft, mel) matrices as host numpy arrays (cached per
+    config; callers move them to their device once)."""
+    return _build_matrices(cfg)
+
+
+def frame_signal(samples: torch.Tensor, cfg: FbankConfig, num_frames: int) -> torch.Tensor:
+    """snip_edges framing: frame t covers [t*shift, t*shift + frame_len).
+    A buffer shorter than the last frame is zero-padded, as the reference's
+    reshape-based framing does.  Returns [B, num_frames, frame_len]."""
+    fs, fl = cfg.frame_shift, cfg.frame_length
+    need = (num_frames - 1) * fs + fl
+    if samples.shape[1] < need:
+        samples = torch.nn.functional.pad(samples, (0, need - samples.shape[1]))
+    return samples[:, :need].unfold(1, fl, fs)
+
+
+def _reflected_frames(x: torch.Tensor, cfg: FbankConfig, num_frames: int,
+                      n_valid: torch.Tensor) -> torch.Tensor:
+    """snip_edges=False framing: frame t is centred at t*shift + shift/2 and
+    indices reflect at the lane's true sample count (kaldi: s<0 -> -s-1,
+    s>=n -> 2n-1-s)."""
+    dev = x.device
+    starts = torch.arange(num_frames, device=dev) * cfg.frame_shift
+    starts = starts + (cfg.frame_shift // 2 - cfg.frame_length // 2)
+    idx = starts[:, None] + torch.arange(cfg.frame_length, device=dev)[None, :]
+    idx = torch.where(idx < 0, -idx - 1, idx)
+    n = n_valid.to(dev, torch.int64)[:, None, None]
+    idx = idx[None].expand(x.shape[0], -1, -1)
+    idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
+    idx = idx.clamp(0, x.shape[1] - 1)
+    return torch.gather(x, 1, idx.reshape(x.shape[0], -1)).reshape(idx.shape)
+
+
+def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
+                  n_valid: torch.Tensor | None = None, tables=None) -> torch.Tensor:
+    """samples: [B, N] float32 -> feats [B, num_frames, num_mel_bins].
+
+    n_valid: [B] true sample counts — used when snip_edges=False (frame
+    centring reflects at the true signal boundaries).  tables: (dft, mel)
+    tensors on the samples' device, as ``fbank_matrices`` gives them."""
+    if cfg.dither > 0.0:
+        raise NotImplementedError(
+            "dither > 0 is not ported yet (ROADMAP: dither); use dither=0"
+        )
+    if tables is None:
+        tables = tuple(torch.from_numpy(m).to(samples.device) for m in fbank_matrices(cfg))
+    dft, mel = tables
+    x = samples.float() * cfg.input_scale
+    if cfg.snip_edges:
+        frames = frame_signal(x, cfg, num_frames)
+    else:
+        if n_valid is None:
+            n_valid = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64)
+        frames = _reflected_frames(x, cfg, num_frames, n_valid)
+    with exact_f32():
+        spec = torch.matmul(frames, dft)
+        n_bins = dft.shape[1] // 2
+        power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
+        if not cfg.use_power:
+            power = torch.sqrt(torch.clamp(power, min=0.0))
+        feats = torch.matmul(power, mel)
+    if cfg.use_log_fbank:
+        feats = torch.log(torch.clamp(feats, min=_EPS))
+    return feats

@@ -1,0 +1,34 @@
+"""Encoder-family registry (port of ``k2transducerasr_tpu/models/registry.py``).
+
+Only zipformer2 is ported so far; every other family of the reference
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_PORTED = {"zipformer2": "k2transducerasr_tpu_torch.models.zipformer2"}
+
+_NOT_YET = {
+    "conformer": "ROADMAP 'Modules to port': conformer (with kernel K2, relpos_attn_ctx)",
+    "lstm": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
+    "zipformer": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
+    "zipformer2ctc": "ROADMAP 'Modules to port': CTC",
+}
+
+
+def get_encoder(model_type: str):
+    if model_type in _PORTED:
+        return importlib.import_module(_PORTED[model_type])
+    if model_type in _NOT_YET:
+        raise NotImplementedError(
+            f"model_type {model_type!r} is not ported to PyTorch yet ({_NOT_YET[model_type]})"
+        )
+    raise ValueError(
+        f"unknown model_type {model_type!r}; expected one of {sorted({**_PORTED, **_NOT_YET})}"
+    )
+
+
+def is_ctc(model_type: str) -> bool:
+    return model_type.endswith("ctc")

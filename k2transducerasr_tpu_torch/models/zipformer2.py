@@ -1,0 +1,513 @@
+"""Zipformer2 encoder, offline — PyTorch port of
+``k2transducerasr_tpu/models/zipformer2.py`` (icefall "zipformer" 2023).
+
+The structure and names follow the reference function for function; see its
+module docstring for the architecture.  Differences of form, not of value:
+  * attention always takes the shared-probs route: ``_attn_shared`` calls
+    ``ops.attention_cuda.relpos_attn_probs`` once per layer (the CUDA kernel
+    on the card, its plain version on the CPU) and the three consumers
+    (self_attn1, self_attn2, the nonlin-attention gate) read those probs;
+  * the embed convs are plain 3x3 conv2d (the reference's banded-matmul
+    forms compute the same conv), and the ConvNeXt depthwise conv uses the
+    diagonal of its dense ``[7, 7, C, C]`` weight at call time;
+  * the parameters live in an ``nn.Module`` (``Zipformer2``) whose
+    ``state_dict`` keys are the reference's dotted paths.
+
+Streaming (``init_state``/``streaming_step``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from k2transducerasr_tpu_torch.ops import layers as L
+from k2transducerasr_tpu_torch.ops.attention import descending_rel_positions
+from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_probs
+from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
+
+
+@dataclasses.dataclass(frozen=True)
+class Zipformer2Config:
+    feature_dim: int = 80
+    num_encoder_layers: tuple = (2, 2, 3, 4, 3, 2)
+    encoder_dims: tuple = (192, 256, 384, 512, 384, 256)
+    downsampling_factors: tuple = (1, 2, 4, 8, 4, 2)
+    num_heads: tuple = (4, 4, 4, 8, 4, 4)
+    feedforward_dims: tuple = (512, 768, 1024, 1536, 1024, 768)
+    cnn_module_kernels: tuple = (31, 31, 15, 15, 15, 31)
+    query_head_dim: int = 32
+    value_head_dim: int = 12
+    pos_head_dim: int = 4
+    pos_dim: int = 48
+    # embed conv channels
+    embed_channels: tuple = (8, 32, 128)
+    causal: bool = False
+    chunk_size: int = 32  # encoder-rate (post-embed) frames per step
+    left_context_frames: int = 128  # encoder-rate frames of attention memory
+
+    def __post_init__(self):
+        # config.json stores tuples as JSON lists
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, list):
+                object.__setattr__(self, f.name, tuple(v))
+
+    @property
+    def num_stacks(self) -> int:
+        return len(self.encoder_dims)
+
+    @property
+    def output_downsampling_factor(self) -> int:
+        return 2
+
+    @property
+    def encoder_out_dim(self) -> int:
+        return max(self.encoder_dims)
+
+    @property
+    def embed_freq_out(self) -> int:
+        """Frequency width after the conv stack (80 -> 39 -> 19)."""
+        f2 = (self.feature_dim - 3) // 2 + 1
+        return (f2 - 3) // 2 + 1
+
+    def stack_chunk(self, i: int) -> int:
+        return self.chunk_size // self.downsampling_factors[i]
+
+    def stack_left(self, i: int) -> int:
+        return max(1, self.left_context_frames // self.downsampling_factors[i])
+
+
+Config = Zipformer2Config
+
+
+def output_dim(cfg: Zipformer2Config) -> int:
+    return cfg.encoder_out_dim
+
+
+# ---------------------------------------------------------------------------
+# Random init (numpy-seeded; the JAX init's shapes and scales)
+# ---------------------------------------------------------------------------
+
+
+def _init_embed(rng, cfg: Zipformer2Config) -> dict:
+    c1, c2, c3 = cfg.embed_channels
+    return {
+        "conv1": L.init_conv2d(rng, 1, c1, (3, 3)),
+        "conv2": L.init_conv2d(rng, c1, c2, (3, 3)),
+        "conv3": L.init_conv2d(rng, c2, c3, (3, 3)),
+        "convnext_dw": L.init_conv2d(rng, c3, c3, (7, 7)),  # dense; diagonal used
+        "convnext_pw1": L.init_linear(rng, c3, 3 * c3),
+        "convnext_pw2": L.init_linear(rng, 3 * c3, c3),
+        "out": L.init_linear(rng, c3 * cfg.embed_freq_out, cfg.encoder_dims[0]),
+        "out_norm": L.init_biasnorm(cfg.encoder_dims[0]),
+    }
+
+
+def _init_conv_mod(rng, dim: int, kernel: int, causal: bool) -> dict:
+    p = {"in_proj": L.init_linear(rng, dim, 2 * dim), "out": L.init_linear(rng, dim, dim)}
+    if causal:
+        p["causal_dw"] = L.init_conv1d(rng, dim, dim, kernel // 2 + 1, groups=dim)
+        p["chunk_dw"] = L.init_conv1d(rng, dim, dim, kernel, groups=dim)
+        p["chunk_scale"] = np.zeros((2, kernel, dim), np.float32)
+    else:
+        p["dw"] = L.init_conv1d(rng, dim, dim, kernel, groups=dim)
+    return p
+
+
+def _init_layer(rng, cfg: Zipformer2Config, si: int) -> dict:
+    dim, heads = cfg.encoder_dims[si], cfg.num_heads[si]
+    ff, kernel = cfg.feedforward_dims[si], cfg.cnn_module_kernels[si]
+    qd, pd, vd = cfg.query_head_dim, cfg.pos_head_dim, cfg.value_head_dim
+    hidden = 3 * dim // 4
+    return {
+        "attn_weights": {
+            "in_proj": L.init_linear(rng, dim, heads * (2 * qd + pd)),
+            "pos_proj": L.init_linear(rng, cfg.pos_dim, heads * pd, bias=False),
+        },
+        "self_attn1": {"v": L.init_linear(rng, dim, heads * vd),
+                       "out": L.init_linear(rng, heads * vd, dim)},
+        "self_attn2": {"v": L.init_linear(rng, dim, heads * vd),
+                       "out": L.init_linear(rng, heads * vd, dim)},
+        "nonlin_attn": {"in_proj": L.init_linear(rng, dim, 3 * hidden),
+                        "out": L.init_linear(rng, hidden, dim)},
+        "conv1": _init_conv_mod(rng, dim, kernel, cfg.causal),
+        "conv2": _init_conv_mod(rng, dim, kernel, cfg.causal),
+        "ff1": {"w1": L.init_linear(rng, dim, ff), "w2": L.init_linear(rng, ff, dim)},
+        "ff2": {"w1": L.init_linear(rng, dim, ff), "w2": L.init_linear(rng, ff, dim)},
+        "ff3": {"w1": L.init_linear(rng, dim, ff), "w2": L.init_linear(rng, ff, dim)},
+        "norm": L.init_biasnorm(dim),
+        "bypass": np.full((dim,), 0.5, np.float32),
+        "bypass_mid": np.full((dim,), 0.5, np.float32),
+    }
+
+
+def init_params(rng: np.random.Generator, cfg: Zipformer2Config) -> dict:
+    """numpy tree with the reference ``init_params``' structure, shapes and
+    uniform(+-1/sqrt(fan_in)) scales.  The values differ from the JAX
+    init's (another generator); it lets the card build any config without
+    JAX."""
+    stacks = []
+    for si in range(cfg.num_stacks):
+        p = {"layers": [_init_layer(rng, cfg, si) for _ in range(cfg.num_encoder_layers[si])]}
+        ds = cfg.downsampling_factors[si]
+        if ds > 1:
+            p["downsample_weights"] = np.zeros((ds,), np.float32)
+            p["bypass_out"] = np.full((cfg.encoder_dims[si],), 0.5, np.float32)
+        stacks.append(p)
+    return {
+        "embed": _init_embed(rng, cfg),
+        "stacks": stacks,
+        "downsample_output_weights": np.zeros((cfg.output_downsampling_factor,), np.float32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Embed (Conv2dSubsampling + ConvNeXt)
+# ---------------------------------------------------------------------------
+
+
+def _embed_conv_stack(p, x, compute_dtype=None):
+    """Conv 3-stack: x [B, T, F] -> stage tensor [B, (T-7)//2, F', c3]
+    (conv1: freq pad 1, time VALID; conv2: stride 2 VALID; conv3: stride
+    (1, 2) VALID; SwooshR after each)."""
+    h = L.swoosh_r(L.apply_conv2d(p["conv1"], x[..., None], padding=(0, 1),
+                                  compute_dtype=compute_dtype))
+    h = L.swoosh_r(L.apply_conv2d(p["conv2"], h, strides=(2, 2), compute_dtype=compute_dtype))
+    h = L.swoosh_r(L.apply_conv2d(p["conv3"], h, strides=(1, 2), compute_dtype=compute_dtype))
+    return h
+
+
+def _embed_tail(p, h, compute_dtype=None):
+    """ConvNeXt (time-VALID over a pre-extended stage tensor) + out linear +
+    BiasNorm.  h: [B, T0+6, F', c3] -> [B, T0, dims[0]].  The flatten
+    before ``out`` is channel-major [C, F]."""
+    residual = h[:, 3:-3]
+    hh = F.pad(h, (0, 0, 3, 3))  # freq SAME
+    w = p["convnext_dw"]["w"]  # [7, 7, c3, c3] — applied depthwise (diagonal)
+    dw_w = torch.diagonal(w, dim1=2, dim2=3)[:, :, None, :]  # HWIO [7, 7, 1, C]
+    dw = L.apply_conv2d(p["convnext_dw"], hh, groups=hh.shape[-1], compute_dtype=compute_dtype,
+                        weight=dw_w)
+    hh = L.apply_linear(p["convnext_pw1"], dw, compute_dtype)
+    hh = L.swoosh_l(hh)
+    hh = L.apply_linear(p["convnext_pw2"], hh, compute_dtype)
+    h = residual + hh
+    b, t0, f, c = h.shape
+    h = h.transpose(2, 3).reshape(b, t0, c * f)
+    h = L.apply_linear(p["out"], h, compute_dtype)
+    return L.apply_biasnorm(p["out_norm"], h)
+
+
+def _embed_forward(p, x, compute_dtype=None, x_lens=None):
+    """Offline embed: x [B, T, F] -> [B, (T-7)//2, dims[0]] (ConvNeXt SAME
+    in time via 3 zero stage frames each side)."""
+    h = _embed_conv_stack(p, x, compute_dtype)
+    if x_lens is not None:
+        # zero stage frames derived from padding so they cannot bleed into
+        # valid frames through the ConvNeXt receptive field
+        stage_valid = torch.clamp((x_lens - 7) // 2, min=0)
+        mask = L.length_mask(stage_valid, h.shape[1])
+        h = torch.where(mask[:, :, None, None], h, 0.0)
+    h = F.pad(h, (0, 0, 0, 0, 3, 3))
+    return _embed_tail(p, h, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Compact relative positional encoding
+# ---------------------------------------------------------------------------
+
+
+def _compact_rel_pos(t_q: int, s_kv: int, pos_dim: int, device=None,
+                     length_factor: float = 1.0) -> torch.Tensor:
+    """[R, pos_dim] compact relative positional embedding (icefall's
+    CompactRelPositionalEncoding), rows in DESCENDING relative position —
+    row for row the reference's ``_compact_rel_pos``."""
+    p = -descending_rel_positions(t_q, s_kv, device)  # ascending -(s_kv-1)..(t_q-1)
+    comp = math.sqrt(pos_dim)
+    x_compressed = comp * torch.sign(p) * (torch.log(torch.abs(p) + comp) - math.log(comp))
+    length_scale = length_factor * pos_dim / (2.0 * math.pi)
+    x_atan = torch.atan(x_compressed / length_scale)
+    freqs = 1.0 + torch.arange(pos_dim // 2, dtype=torch.float32, device=device)
+    ang = x_atan[:, None] * freqs[None, :]
+    pe = torch.stack([torch.cos(ang), torch.sin(ang)], dim=2).reshape(-1, pos_dim)
+    pe[:, -1] = 1.0
+    return pe
+
+
+# ---------------------------------------------------------------------------
+# Layer sub-modules
+# ---------------------------------------------------------------------------
+
+
+def _apply_ff(p, x, compute_dtype):
+    return L.apply_linear(
+        p["w2"], L.swoosh_l(L.apply_linear(p["w1"], x, compute_dtype)), compute_dtype
+    )
+
+
+def _attn_shared(p, cfg: Zipformer2Config, si: int, x_q, compute_dtype,
+                 pad_lens=None, chunk_left=None):
+    """Project q/k/pos from the layer input and compute the attention probs
+    [B, H, T, S] once; self_attn1, self_attn2 and the nonlin-attention gate
+    share them.  ``pad_lens``: valid key counts per lane (non-causal);
+    ``chunk_left``: the static (chunk, left) pattern (causal)."""
+    heads, qd, pd = cfg.num_heads[si], cfg.query_head_dim, cfg.pos_head_dim
+    b, t, _ = x_q.shape
+    # in_proj column layout is flat [q (H*qd) | k (H*qd) | pos (H*pd)]
+    proj = L.apply_linear(p["in_proj"], x_q, compute_dtype)
+    q = proj[..., : heads * qd].reshape(b, t, heads, qd)
+    k = proj[..., heads * qd : 2 * heads * qd].reshape(b, t, heads, qd)
+    pos_q = proj[..., 2 * heads * qd :].reshape(b, t, heads, pd)
+    pe = _compact_rel_pos(t, t, cfg.pos_dim, x_q.device)
+    pos_k = L.apply_linear(p["pos_proj"], pe, compute_dtype).reshape(-1, heads, pd)
+    ch, lf = chunk_left if chunk_left is not None else (0, 0)
+    # all four are in the compute dtype; the kernel takes contiguous inputs
+    return relpos_attn_probs(q.contiguous(), k.contiguous(), pos_q.contiguous(),
+                             pos_k.contiguous(), pad_lens, chunk=ch, left=lf)
+
+
+def _attn_apply(probs, v):
+    """probs @ v for all heads.  v: [B, S, H, vd] -> ctx [B, T, H, vd]
+    (float32; the product runs in v's dtype)."""
+    ctx = torch.matmul(probs.to(v.dtype), v.permute(0, 2, 1, 3))  # [B, H, T, vd]
+    return ctx.permute(0, 2, 1, 3).float()
+
+
+def _attn_apply_head0(probs, v):
+    """Head-0 probs @ v (the nonlin-attention gate).  v: [B, S, hidden] ->
+    [B, T, hidden] (float32)."""
+    return torch.matmul(probs[:, 0].to(v.dtype), v).float()
+
+
+def _self_attn(p, cfg, si, v_src, probs, compute_dtype):
+    """v_src: [B, S, H*vd] pre-projected values."""
+    heads, vd = cfg.num_heads[si], cfg.value_head_dim
+    b, s, _ = v_src.shape
+    ctx = _attn_apply(probs, v_src.reshape(b, s, heads, vd))
+    t = ctx.shape[1]
+    return L.apply_linear(p["out"], ctx.reshape(b, t, heads * vd), compute_dtype)
+
+
+def _nonlin_attention(p, dim, x, probs, compute_dtype):
+    """Attention-gated nonlinearity.  x: [B, T, D] -> [B, T, D]."""
+    hidden = 3 * dim // 4
+    proj = L.apply_linear(p["in_proj"], x, compute_dtype)
+    s_gate, xv, y = torch.split(proj, [hidden, hidden, proj.shape[-1] - 2 * hidden], dim=-1)
+    v = xv * torch.tanh(s_gate)
+    attended = _attn_apply_head0(probs, v)
+    return L.apply_linear(p["out"], attended * y, compute_dtype)
+
+
+def _chunkwise_scale(scale, chunk: int):
+    """scale [2, k, D] -> [chunk, D]: 1 + left-edge + right-edge corrections
+    (icefall ChunkCausalDepthwiseConv1d._get_chunk_scale)."""
+    left, right = scale[0], scale[1]
+    k, d = left.shape
+    if chunk < k:
+        l_e, r_e = left[:chunk], right[k - chunk :]
+    else:
+        pad = torch.zeros((chunk - k, d), dtype=left.dtype, device=left.device)
+        l_e = torch.cat([left, pad], dim=0)
+        r_e = torch.cat([pad, right], dim=0)
+    return 1.0 + l_e + r_e
+
+
+def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None):
+    """zipformer2 ConvolutionModule (in_proj -> value*sigmoid(gate) ->
+    depthwise -> SwooshR -> out_proj).  chunk == 0: SAME depthwise conv with
+    padded positions zeroed first (``valid``).  chunk > 0: icefall's
+    ChunkCausalDepthwiseConv1d over zero left context and T split into
+    chunks."""
+    half = kernel // 2
+    h = L.apply_linear(p["in_proj"], x, compute_dtype)
+    a, g = torch.chunk(h, 2, dim=-1)
+    h = a * torch.sigmoid(g)
+    if valid is not None:
+        h = torch.where(valid[:, :, None], h, 0.0)
+    if chunk == 0:
+        y = L.apply_conv1d(p["dw"], h, groups=dim, padding="SAME", compute_dtype=compute_dtype)
+    else:
+        b, t, d = h.shape
+        left = torch.zeros((b, half, d), dtype=h.dtype, device=h.device)
+        y_causal = L.apply_conv1d(
+            p["causal_dw"], torch.cat([left, h], dim=1), groups=dim, padding="VALID",
+            compute_dtype=compute_dtype,
+        )  # [B, T, D]
+        n = t // chunk
+        win = F.pad(h.reshape(b * n, chunk, d), (0, 0, half, half))
+        y_chunk = L.apply_conv1d(
+            p["chunk_dw"], win, groups=dim, padding="VALID", compute_dtype=compute_dtype
+        ).reshape(b, n, chunk, d)
+        y_chunk = y_chunk * _chunkwise_scale(p["chunk_scale"], chunk)[None, None]
+        y = y_causal + y_chunk.reshape(b, t, d)
+    y = L.swoosh_r(y)
+    return L.apply_linear(p["out"], y, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Bypass / downsample / channel stitch
+# ---------------------------------------------------------------------------
+
+
+def _bypass(scale, x_orig, x):
+    return x_orig + scale * (x - x_orig)
+
+
+def _simple_downsample(weights, x, ds: int, lens=None):
+    """[B, T, D] -> [B, ceil(T/ds), D]: learned softmax weights over each
+    window; the tail window repeats the last frame.  With ``lens``, frames
+    at index >= lens are first replaced by each lane's LAST VALID frame (the
+    reference's padding-invariant form, not icefall's)."""
+    b, t, d = x.shape
+    t_out = -(-t // ds)
+    pad = t_out * ds - t
+    if lens is not None:
+        idx = torch.clamp(lens - 1, min=0)
+        last = x[torch.arange(b, device=x.device), idx][:, None, :]  # [B, 1, D]
+        keep = torch.arange(t, device=x.device)[None, :, None] < lens[:, None, None]
+        x = torch.where(keep, x, last)
+    if pad:
+        x = torch.cat([x, x[:, -1:].expand(b, pad, d)], dim=1)
+    w = torch.softmax(weights, dim=0).to(x.dtype).float()
+    y = (x.reshape(b, t_out, ds, d).float() * w[None, None, :, None]).sum(dim=2)
+    return y.to(x.dtype)
+
+
+def _simple_upsample(x, ds: int, t_target: int):
+    return torch.repeat_interleave(x, ds, dim=1)[:, :t_target]
+
+
+def _convert_channels(x, dim: int):
+    cur = x.shape[-1]
+    if cur == dim:
+        return x
+    if cur > dim:
+        return x[..., :dim]
+    return F.pad(x, (0, dim - cur))
+
+
+# ---------------------------------------------------------------------------
+# Layer / stack / forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dtype,
+                   valid=None, pad_lens=None, chunk_left=None):
+    """One Zipformer2 layer, offline.  ``chunk``: conv chunk size (0 =
+    non-causal); op order ff1, nonlin_attn, attn1, conv1, ff2, bypass_mid,
+    attn2, conv2, ff3, BiasNorm, bypass."""
+    dim = cfg.encoder_dims[si]
+    kernel = cfg.cnn_module_kernels[si]
+    x_orig = x
+    probs = _attn_shared(p["attn_weights"], cfg, si, x, compute_dtype,
+                         pad_lens=pad_lens, chunk_left=chunk_left)
+    x = x + _apply_ff(p["ff1"], x, compute_dtype)
+    x = x + _nonlin_attention(p["nonlin_attn"], dim, x, probs, compute_dtype)
+    v1 = L.apply_linear(p["self_attn1"]["v"], x, compute_dtype)
+    x = x + _self_attn(p["self_attn1"], cfg, si, v1, probs, compute_dtype)
+    x = x + _conv_module(p["conv1"], dim, kernel, x, chunk, compute_dtype, valid)
+    x = x + _apply_ff(p["ff2"], x, compute_dtype)
+    x = _bypass(p["bypass_mid"], x_orig, x)
+    v2 = L.apply_linear(p["self_attn2"]["v"], x, compute_dtype)
+    x = x + _self_attn(p["self_attn2"], cfg, si, v2, probs, compute_dtype)
+    x = x + _conv_module(p["conv2"], dim, kernel, x, chunk, compute_dtype, valid)
+    x = x + _apply_ff(p["ff3"], x, compute_dtype)
+    x = L.apply_biasnorm(p["norm"], x)
+    return _bypass(p["bypass"], x_orig, x)
+
+
+def _stack_forward(p, cfg: Zipformer2Config, si: int, x, valid, compute_dtype):
+    """One (possibly downsampled) stack, offline."""
+    ds = cfg.downsampling_factors[si]
+    t_full = x.shape[1]
+    x = _convert_channels(x, cfg.encoder_dims[si])
+    src = x
+    if ds > 1:
+        lens = valid.sum(dim=1) if valid is not None else None
+        src = _simple_downsample(p["downsample_weights"], src, ds, lens)
+        # a downsampled frame is valid if its first source frame is valid
+        v = valid[:, ::ds][:, : src.shape[1]] if valid is not None else None
+    else:
+        v = valid
+    pad_lens = v.sum(dim=1, dtype=torch.int32) if v is not None else None
+    chunk_left = (max(1, cfg.stack_chunk(si)), cfg.stack_left(si)) if cfg.causal else None
+    chunk = cfg.stack_chunk(si) if cfg.causal else 0
+    for layer in p["layers"]:
+        src = _layer_forward(layer, cfg, si, src, chunk, compute_dtype, v, pad_lens,
+                             chunk_left=chunk_left)
+        if v is not None:
+            src = torch.where(v[:, :, None], src, 0.0)
+    if ds > 1:
+        src = _simple_upsample(src, ds, t_full)
+        src = _bypass(p["bypass_out"], x, src)  # out_combiner (ds>1 only)
+    return src
+
+
+def forward(params, cfg: Zipformer2Config, x, x_lens, compute_dtype=None):
+    """x: [B, T, F] raw fbank -> (enc_out [B, T', max_dim], out_lens [B]).
+
+    Causal mode computes what chunked streaming over the zero-extended input
+    would (whole windows of 2*chunk+13 raw frames, no lane masking inside
+    the stacks); non-causal mode masks padded keys and zeroes padded
+    positions, as icefall's offline forward does."""
+    lens0 = torch.clamp((x_lens - 7) // 2, min=0)
+    if cfg.causal:
+        t_raw = x.shape[1]
+        c = cfg.chunk_size
+        t0 = max(1, (t_raw - 7) // 2)
+        kwin = -(-t0 // c)
+        t_need = 2 * c * kwin + 13
+        if t_need > t_raw:
+            x = F.pad(x, (0, 0, 0, t_need - t_raw))
+        stage = _embed_conv_stack(params["embed"], x, compute_dtype)
+        stage = F.pad(stage, (0, 0, 0, 0, 3, 0))
+        h = _embed_tail(params["embed"], stage, compute_dtype)  # [B, c*kwin, D]
+        valid = None
+    else:
+        h = _embed_forward(params["embed"], x, compute_dtype, x_lens=x_lens)
+        valid = L.length_mask(lens0, h.shape[1])
+        h = torch.where(valid[:, :, None], h, 0.0)
+
+    outputs = []
+    for si in range(cfg.num_stacks):
+        h = _stack_forward(params["stacks"][si], cfg, si, h, valid, compute_dtype)
+        if valid is not None:
+            h = torch.where(valid[:, :, None], h, 0.0)
+        outputs.append(h)
+
+    # channel stitch to max dim (icefall _get_full_dim_output)
+    dims = cfg.encoder_dims
+    pieces = [outputs[-1]]
+    cur = dims[-1]
+    for i in range(cfg.num_stacks - 2, -1, -1):
+        if dims[i] > cur:
+            pieces.append(outputs[i][..., cur : dims[i]])
+            cur = dims[i]
+    full = torch.cat(pieces, dim=-1)
+
+    out = _simple_downsample(
+        params["downsample_output_weights"], full, cfg.output_downsampling_factor,
+        lens0 if valid is not None else None,
+    )
+    out_lens = -((-lens0) // cfg.output_downsampling_factor)
+    ovalid = L.length_mask(out_lens, out.shape[1])
+    return torch.where(ovalid[:, :, None], out, 0.0), out_lens
+
+
+class Zipformer2(ParamTree):
+    """The encoder's parameters as an ``nn.Module`` (``state_dict`` keys are
+    the reference's dotted paths) with the offline forward."""
+
+    def __init__(self, cfg: Zipformer2Config, tree: dict, device="cpu"):
+        super().__init__(tree, device)
+        self.cfg = cfg
+
+    def forward(self, x, x_lens, compute_dtype=None):
+        return forward(self, self.cfg, x, x_lens, compute_dtype)
+
+
+Encoder = Zipformer2

@@ -1,0 +1,256 @@
+"""Relative-position attention probabilities — the CUDA counterpart of
+``k2transducerasr_tpu/ops/attention_pallas.py::relpos_attn_probs``.
+
+    probs = softmax(mask(q @ k^T + rel_shift(pos_q @ pos_k^T)))   [B, H, T, S]
+
+``relpos_attn_probs`` launches the hand-written Hopper kernel in
+``csrc/relpos_attn_probs.cu`` for CUDA tensors and runs
+``relpos_attn_probs_reference`` (plain PyTorch, the same function) for CPU
+tensors.  On a CUDA tensor it launches the kernel or raises; there is no
+fallback.  The kernel is compiled with ``nvcc`` at first use into
+``_build/`` beside this package (keyed by the source's hash) and loaded with
+ctypes, so importing this module needs neither ``nvcc`` nor a card.
+
+Masks are key-side only, as in the TPU kernel: ``s < min(lens[b], S)``,
+``s >= kv_start[b]``, and the static chunk window (``chunk``/``left``; needs
+T == S).  Invalid query rows therefore differ from a query+key mask
+(``mask_from_specs``); every caller zeroes those rows downstream.
+
+``relpos_attn_probs.launches`` counts kernel launches (the CPU path does not
+count), so a run can show that the main path went through the kernel.
+
+Limit: a block keeps whole score rows in shared memory, so S is at most
+11,249 keys (pd = 4): about 3.7 minutes of audio in one utterance at the
+zipformer2's stack 0.  Longer inputs raise ValueError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+from k2transducerasr_tpu_torch.ops.attention import chunk_causal_mask, rel_shift
+from k2transducerasr_tpu_torch.ops.layers import NEG_INF, length_mask
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "relpos_attn_probs.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel holds one key's q-dim vector in registers (templated at 32/64)
+# and the pos-dim vectors in shared memory
+_MAX_QD = 64
+_MAX_PD = 8
+_ROWS = 8  # query rows per block
+_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a block may use (bytes)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernel's shared library if this source has not been built
+    yet; returns its path.  The file name carries the source hash, so an
+    edited source never reuses a stale build."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"librelpos_attn_probs_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    return out
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.k2t_relpos_attn_probs
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _rows_for(s: int, t: int, pd: int) -> int:
+    """Query rows per block: up to ``_ROWS``, fewer when a long key axis
+    would not fit the block's score rows in shared memory."""
+    rows = min(_ROWS, t)
+    while rows > 0 and _smem_bytes(rows, s, pd) > _SMEM_BUDGET:
+        rows -= 1
+    if rows == 0:
+        raise ValueError(f"S={s} too long for relpos_attn_probs' shared-memory score rows")
+    return rows
+
+
+def _smem_bytes(rows: int, s: int, pd: int) -> int:
+    # must match smem_bytes() in csrc/relpos_attn_probs.cu
+    pd4 = -(-pd // 4) * 4
+    return 4 * (rows * _MAX_QD + rows * _MAX_PD + (s + rows - 1) * pd4 + rows * s)
+
+
+def _check_contract(q, k, pos_q, pos_k, chunk):
+    t = q.shape[1]
+    s = k.shape[1]
+    r = pos_k.shape[0]
+    # ValueError (not assert): a mismatch would silently misalign positions
+    if r != t + s - 1:
+        raise ValueError(f"pos_k rows {r} != t+s-1 ({t}+{s}-1)")
+    if chunk and t != s:
+        raise ValueError(f"chunk-causal requires t == s, got t={t} s={s}")
+
+
+def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
+                      left: int = 0, kv_start=None):
+    """Fused softmax(q@k^T + rel_shift(pos_q@pos_k^T)) with key-side masks.
+
+    q:     [B, T, H, qd]   queries
+    k:     [B, S, H, qd]   keys
+    pos_q: [B, T, H, pd]   position-query projections
+    pos_k: [R, H, pd]      projected rel-pos table, R = T+S-1, descending
+                           relative positions
+    lens:  [B] int         valid key counts (None = all S valid)
+    chunk/left:            static chunk-causal pattern (requires T == S):
+                           query t attends keys in
+                           [(t//chunk)*chunk - left, (t//chunk)*chunk + chunk)
+    kv_start: [B] int      first valid key column per lane
+    Returns probs [B, H, T, S] in ``out_dtype`` (default: q.dtype).
+    """
+    _check_contract(q, k, pos_q, pos_k, chunk)
+    if q.device.type == "cpu":
+        return relpos_attn_probs_reference(q, k, pos_q, pos_k, lens, out_dtype, chunk, left,
+                                           kv_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"relpos_attn_probs: unsupported device {q.device}")
+
+    b, t, h, qd = q.shape
+    s = k.shape[1]
+    pd = pos_q.shape[-1]
+    out_dtype = out_dtype or q.dtype
+    tensors = {"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k}
+    for name, x in tensors.items():
+        if x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {x.dtype} != q dtype {q.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtypes must be float32/bfloat16, got {q.dtype} -> {out_dtype}")
+    if k.shape != (b, s, h, qd) or pos_q.shape != (b, t, h, pd) or pos_k.shape[1:] != (h, pd):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"pos_q {tuple(pos_q.shape)} pos_k {tuple(pos_k.shape)}"
+        )
+    if qd > _MAX_QD or pd > _MAX_PD:
+        raise ValueError(f"kernel takes qd <= {_MAX_QD} and pd <= {_MAX_PD}, got {qd}, {pd}")
+    if min(b, t, s, h) == 0:
+        raise ValueError(f"empty attention (B={b} T={t} S={s} H={h})")
+    lens = _lane_ints(lens, b, s, q.device)
+    kv_start = _lane_ints(kv_start, b, 0, q.device)
+    rows = _rows_for(s, t, pd)
+
+    out = torch.empty((b, h, t, s), dtype=out_dtype, device=q.device)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.k2t_relpos_attn_probs(
+            q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
+            lens.data_ptr(), kv_start.data_ptr(), out.data_ptr(),
+            b, t, s, h, qd, pd, int(chunk), int(left), rows,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"relpos_attn_probs kernel launch failed: cudaError {err}")
+    relpos_attn_probs.launches += 1
+    return out
+
+
+relpos_attn_probs.launches = 0
+
+
+def _lane_ints(x, b: int, fill: int, device) -> torch.Tensor:
+    """[B] int32 contiguous on ``device`` (``fill`` for None)."""
+    if x is None:
+        return torch.full((b,), fill, dtype=torch.int32, device=device)
+    x = torch.as_tensor(x)
+    if x.shape != (b,):
+        raise ValueError(f"per-lane tensor shape {tuple(x.shape)} != ({b},)")
+    if x.device != device:
+        raise ValueError(f"per-lane tensor on {x.device}, expected {device}")
+    return x.to(torch.int32).contiguous()
+
+
+def relpos_attn_probs_reference(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
+                                left: int = 0, kv_start=None):
+    """Plain PyTorch version of ``relpos_attn_probs`` (same contract): float32
+    scores and softmax, key-side masks, cast to ``out_dtype`` at the end."""
+    _check_contract(q, k, pos_q, pos_k, chunk)
+    b, t = q.shape[:2]
+    s = k.shape[1]
+    out_dtype = out_dtype or q.dtype
+    dev = q.device
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    pos_full = torch.einsum("bthd,rhd->bhtr", pos_q.float(), pos_k.float())
+    scores = scores + rel_shift(pos_full, s)
+    col = torch.arange(s, device=dev)
+    limit = torch.full((b,), s, device=dev) if lens is None else torch.clamp(lens.to(dev), max=s)
+    valid = col[None, :] < limit[:, None]  # [B, S]
+    if kv_start is not None:
+        valid = valid & (col[None, :] >= kv_start.to(dev)[:, None])
+    valid = valid[:, None, None, :]  # [B, 1, 1, S]
+    if chunk:
+        valid = valid & chunk_causal_mask(t, chunk, left, dev)[None, None]
+    scores = torch.where(valid, scores, NEG_INF)
+    return torch.softmax(scores, dim=-1).to(out_dtype)
+
+
+def mask_from_specs(b: int, t: int, s: int, pad_lens=None, chunk_left=None, kv_start=None):
+    """Boolean mask [B, T, S] equivalent to the mask specs of the reference's
+    XLA path: ``pad_lens`` adds the query+key padding mask (the kernel masks
+    only keys — the difference lives on invalid query rows, which callers
+    zero), ``chunk_left`` the static chunk-causal pattern (T == S),
+    ``kv_start`` per-lane first-valid-column gating.  None if no spec."""
+    lane = pad_lens if pad_lens is not None else kv_start
+    dev = lane.device if lane is not None else None
+    mask = None
+    if pad_lens is not None:
+        mask = length_mask(pad_lens, s)[:, None, :] & length_mask(pad_lens, t)[:, :, None]
+    if chunk_left is not None:
+        cmask = chunk_causal_mask(t, chunk_left[0], chunk_left[1], dev)[None]
+        mask = cmask if mask is None else (mask & cmask)
+    if kv_start is not None:
+        smask = (torch.arange(s, device=dev)[None, None, :]
+                 >= kv_start[:, None, None]).expand(b, t, s)
+        mask = smask if mask is None else (mask & smask)
+    return mask

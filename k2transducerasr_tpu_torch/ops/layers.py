@@ -1,0 +1,151 @@
+"""The neural-net ops the zipformer2 path uses, as plain functions on
+tensors — PyTorch port of the matching subset of
+``k2transducerasr_tpu/ops/layers.py``.
+
+Conventions (as in the reference):
+  * params are ``ParamTree`` nodes (or dicts) of float32 tensors in the JAX
+    package's layouts (see ``runtime/checkpoint.py``);
+  * ``compute_dtype`` (bf16, or None for float32) is the dtype operands are
+    cast to; products accumulate in float32, the bias is added in float32,
+    and the result is cast back to ``compute_dtype``.
+
+One rounding differs from the reference under bf16: ``apply_linear`` takes
+PyTorch's bf16 matmul, whose float32 accumulator is rounded to bf16 before
+the float32 bias add (the reference rounds once, after the add).  That is a
+one-bf16-ulp-level difference, stated in the bf16 tolerances of the tests.
+Convolutions instead run in float32 on bf16-rounded operands — exact
+products with float32 accumulation, as the reference computes them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e9  # attention mask fill (f32-safe, bf16-safe)
+
+
+# Initializers: numpy-seeded, the reference initializers' shapes and
+# uniform(+-1/sqrt(fan_in)) scales (the values differ from jax.random's).
+
+
+def _uniform(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
+    return rng.uniform(-scale, scale, size=shape).astype(np.float32)
+
+
+def init_linear(rng, in_dim: int, out_dim: int, bias: bool = True) -> dict:
+    scale = 1.0 / math.sqrt(in_dim)
+    p = {"w": _uniform(rng, (in_dim, out_dim), scale)}
+    if bias:
+        p["b"] = _uniform(rng, (out_dim,), scale)
+    return p
+
+
+def init_conv1d(rng, in_ch: int, out_ch: int, kernel: int, groups: int = 1,
+                bias: bool = True) -> dict:
+    scale = 1.0 / math.sqrt(in_ch // groups * kernel)
+    p = {"w": _uniform(rng, (kernel, in_ch // groups, out_ch), scale)}
+    if bias:
+        p["b"] = _uniform(rng, (out_ch,), scale)
+    return p
+
+
+def init_conv2d(rng, in_ch: int, out_ch: int, kernel: tuple) -> dict:
+    scale = 1.0 / math.sqrt(in_ch * kernel[0] * kernel[1])
+    return {"w": _uniform(rng, (*kernel, in_ch, out_ch), scale),
+            "b": _uniform(rng, (out_ch,), scale)}
+
+
+def init_biasnorm(dim: int) -> dict:
+    return {"bias": np.zeros((dim,), np.float32), "log_scale": np.zeros((), np.float32)}
+
+
+def _cast(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
+def apply_linear(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """x [..., in] @ w [in, out] (+ b) — see the module docstring for the
+    bf16 rounding."""
+    w = p["w"]
+    if compute_dtype is None:
+        y = torch.matmul(x.to(w.dtype), w)
+    else:
+        y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).float()
+    if "b" in p:
+        y = y + p["b"]
+    return _cast(y, compute_dtype)
+
+
+def apply_biasnorm(p, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """icefall Zipformer BiasNorm: x / rms(x - bias) * exp(log_scale)."""
+    x32 = x.float()
+    centered = x32 - p["bias"]
+    rms = torch.sqrt(torch.mean(centered * centered, dim=-1, keepdim=True) + eps)
+    return (x32 / rms * torch.exp(p["log_scale"])).to(x.dtype)
+
+
+def _softplus(z: torch.Tensor) -> torch.Tensor:
+    """logaddexp(0, z) in the reference's form: max(z, 0) + log1p(exp(-|z|))."""
+    return torch.clamp(z, min=0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def swoosh_l(x: torch.Tensor) -> torch.Tensor:
+    """SwooshL(x) = log(1 + exp(x-4)) - 0.08x - 0.035 (icefall zipformer2)."""
+    return _softplus(x - 4.0) - 0.08 * x - 0.035
+
+
+def swoosh_r(x: torch.Tensor) -> torch.Tensor:
+    """SwooshR(x) = log(1 + exp(x-1)) - 0.08x - 0.313261687."""
+    return _softplus(x - 1.0) - 0.08 * x - 0.313261687
+
+
+def apply_conv1d(p, x: torch.Tensor, groups: int = 1, padding: str = "SAME",
+                 compute_dtype=None) -> torch.Tensor:
+    """x: [B, T, C_in] -> [B, T', C_out].  Weight layout [K, C_in/g, C_out].
+    Depthwise (groups == C) and grouped convs alike; float32 accumulation
+    over operands rounded to ``compute_dtype``."""
+    w = p["w"]
+    k = w.shape[0]
+    xc = _cast(x, compute_dtype).float()
+    wc = _cast(w, compute_dtype).float().permute(2, 1, 0)  # [C_out, C_in/g, K]
+    if padding == "SAME":
+        lo = (k - 1) // 2
+        xc = F.pad(xc, (0, 0, lo, k - 1 - lo))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    y = F.conv1d(xc.transpose(1, 2), wc, groups=groups).transpose(1, 2)
+    if "b" in p:
+        y = y + p["b"]
+    return _cast(y, compute_dtype)
+
+
+def apply_conv2d(p, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int = 1,
+                 compute_dtype=None, weight=None) -> torch.Tensor:
+    """x: [B, H, W, C_in] (NHWC, as the reference) -> [B, H', W', C_out].
+    Weight HWIO ``[kh, kw, C_in/g, C_out]`` (``weight`` overrides ``p["w"]``);
+    ``padding`` is the symmetric (H, W) zero padding.  Covers the reference's
+    ``apply_conv2d`` and its banded-matmul forms of the embed convs
+    (``apply_conv2d_c1_banded``, ``apply_conv2d_banded_s2``), which compute
+    this same 3x3 conv."""
+    w = p["w"] if weight is None else weight
+    xc = _cast(x, compute_dtype).float().permute(0, 3, 1, 2)  # NCHW view
+    wc = _cast(w, compute_dtype).float().permute(3, 2, 0, 1)  # OIHW
+    y = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(padding), groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in p:
+        y = y + p["b"]
+    return _cast(y, compute_dtype)
+
+
+def apply_embedding(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> [B, max_len] bool mask (True = valid)."""
+    pos = torch.arange(max_len, device=lengths.device)[None, :]
+    return pos < lengths[:, None]

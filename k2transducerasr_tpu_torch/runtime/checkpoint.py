@@ -1,0 +1,142 @@
+"""Param persistence (.npz with dotted-path keys) + model config JSON, and
+the one bridge from a numpy parameter tree to the port's modules.
+
+A model directory holds
+
+    config.json    — model_type + per-family hyperparameters
+    params.npz     — flat { "encoder.stacks.0.layers.0.ff1.w1.w": array, ... }
+    tokens.txt     — "<symbol> <id>" per line
+
+exactly as the JAX package's ``ModelBundle.save`` writes it.
+
+Layout choice of ``params_from_numpy``: NONE.  Every array keeps the JAX
+package's layout (linear ``w`` is ``[in, out]``, conv1d ``w`` is
+``[K, C_in/groups, C_out]``, conv2d ``w`` is HWIO, the ConvNeXt weight stays
+the dense ``[7, 7, C, C]`` of which only the diagonal is used), and the
+``state_dict`` keys are the JAX dotted paths.  Loading is therefore one tree
+walk, ``state_dict`` round-trips to the very arrays of ``params.npz``, and
+the ops in ``ops/layers.py`` take each weight in that layout at call time.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flatten_params(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, f"{path}.{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, f"{path}.{i}" if path else str(i))
+        else:
+            out[path] = np.asarray(node)
+
+    visit(tree, prefix)
+    return out
+
+
+def unflatten_params(flat: dict[str, np.ndarray]) -> Any:
+    """Rebuild nested dict/list structure from dotted paths (numeric path
+    components become list indices)."""
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [listify(node[str(i)]) for i in range(len(keys))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def load_params(path: str) -> Any:
+    """params.npz -> numpy tree; ``::q8``/``::scale`` pairs (int8 storage)
+    are dequantized to float32."""
+    with np.load(path) as data:
+        flat: dict[str, np.ndarray] = {}
+        for k in data.files:
+            if k.endswith("::q8"):
+                base = k[: -len("::q8")]
+                flat[base] = data[k].astype(np.float32) * data[base + "::scale"]
+            elif k.endswith("::scale"):
+                continue
+            else:
+                flat[k] = data[k]
+    return unflatten_params(flat)
+
+
+def load_config(path: str) -> dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def model_dir_files(model_dir: str, accuracy: str = "") -> dict[str, str]:
+    """Locate config/params/tokens in a model directory; ``accuracy`` (e.g.
+    "int8") selects ``params.int8.npz`` when present."""
+    params = os.path.join(model_dir, "params.npz")
+    if accuracy:
+        preferred = os.path.join(model_dir, f"params.{accuracy}.npz")
+        if os.path.exists(preferred):
+            params = preferred
+    files = {
+        "config": os.path.join(model_dir, "config.json"),
+        "params": params,
+        "tokens": os.path.join(model_dir, "tokens.txt"),
+    }
+    missing = [k for k, v in files.items() if not os.path.exists(v)]
+    if missing:
+        raise FileNotFoundError(f"model dir {model_dir} missing: {missing}")
+    return files
+
+
+class ParamTree(nn.Module):
+    """A parameter tree as an ``nn.Module``: dict nodes become child
+    modules, lists of dicts become ``nn.ModuleList``s, arrays become frozen
+    ``nn.Parameter``s.  ``node["key"]`` and ``"key" in node`` work as on the
+    JAX package's dicts, so the model code reads like the reference."""
+
+    def __init__(self, tree: dict, device: torch.device | str = "cpu"):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value, device))
+            elif isinstance(value, (list, tuple)):
+                if not all(isinstance(v, dict) for v in value):
+                    raise TypeError(f"list node {key!r} must hold dicts")
+                self.add_module(key, nn.ModuleList(ParamTree(v, device) for v in value))
+            else:
+                t = torch.from_numpy(np.array(value, copy=True)).to(device)
+                self.register_parameter(key, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def params_from_numpy(tree: dict, device: torch.device | str = "cpu") -> ParamTree:
+    """Carry the JAX package's parameters (a tree of numpy arrays, as
+    ``jax.device_get(bundle.params)`` or ``load_params`` gives it) into the
+    port.  ``state_dict`` keys are the JAX dotted paths and the arrays keep
+    their layout (see the module docstring)."""
+    return ParamTree(tree, device)

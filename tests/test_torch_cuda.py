@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  This file
+imports neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: float32 probs to atol 1e-5 (summation order); bf16 probs to one
+bf16 ulp of the plain value (both round one float32 value).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from k2transducerasr_tpu_torch.ops import attention_cuda as AC
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    mm, cd = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = mm, cd
+
+
+def _inputs(seed, b, t, s, h, qd, pd, dtype):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    return mk(b, t, h, qd), mk(b, s, h, qd), mk(b, t, h, pd), mk(t + s - 1, h, pd)
+
+
+def _assert_close(out, ref):
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        return
+    d = (out.float() - ref.float()).abs()
+    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    assert bool((d <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,t,s,h,qd,pd,lens,kw",
+    [
+        (2, 100, 100, 4, 32, 4, [100, 57], {}),
+        (1, 130, 130, 8, 32, 4, [93], {}),
+        (3, 48, 48, 4, 16, 4, [48, 1, 20], {}),
+        (2, 96, 96, 4, 32, 4, None, {"chunk": 16, "left": 32}),
+        (3, 8, 40, 4, 32, 4, None, {"kv_start": [32, 10, 0]}),
+        (2, 37, 37, 2, 4, 2, [37, 20], {"chunk": 8, "left": 16}),  # the pin's widths
+        (1, 20, 20, 2, 64, 8, None, {}),  # the widest q and pos dims taken
+    ],
+)
+def test_kernel_matches_plain(cuda, dtype, b, t, s, h, qd, pd, lens, kw):
+    q, k, pq, pk = _inputs(b + t + s, b, t, s, h, qd, pd, dtype)
+    lens = None if lens is None else torch.tensor(lens, device=cuda, dtype=torch.int32)
+    if "kv_start" in kw:
+        kw = dict(kw, kv_start=torch.tensor(kw["kv_start"], device=cuda, dtype=torch.int32))
+    before = AC.relpos_attn_probs.launches
+    out = AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
+    torch.cuda.synchronize()
+    assert AC.relpos_attn_probs.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, h, t, s)
+    _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw))
+
+
+def test_kernel_out_dtype(cuda):
+    q, k, pq, pk = _inputs(0, 2, 16, 16, 2, 32, 4, torch.bfloat16)
+    out = AC.relpos_attn_probs(q, k, pq, pk, None, out_dtype=torch.float32)
+    ref = AC.relpos_attn_probs_reference(q, k, pq, pk, None, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, pq, pk = _inputs(0, 1, 8, 8, 2, 32, 4, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        AC.relpos_attn_probs(q.transpose(1, 2).contiguous().transpose(1, 2), k, pq, pk, None)
+    with pytest.raises(ValueError, match="dtype"):
+        AC.relpos_attn_probs(q, k.to(torch.bfloat16), pq, pk, None)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        AC.relpos_attn_probs(q.half(), k.half(), pq.half(), pk.half(), None)
+    wide = _inputs(0, 1, 8, 8, 2, 72, 4, torch.float32)
+    with pytest.raises(ValueError, match="qd <= 64"):
+        AC.relpos_attn_probs(*wide, None)
