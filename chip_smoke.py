@@ -5,17 +5,20 @@
 
 Phases (any failure exits non-zero; none is caught):
   1. the card's name and power limit (nvidia-smi), TF32 flags set off;
-  2. build the CUDA kernels from csrc/ with nvcc and load them;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the flagship main path gives it, with its time, the plain
-     version's time and the bound;
-  4. the committed zipformer2 pin model dir, float32 on the card, must give
-     the pinned transcript and timestamps exactly;
-  5. the full-width Zipformer2Config() from a seed, one 5 s utterance in
-     float32: card (kernel) against CPU (plain) — encoder output within
-     tolerance, tokens identical;
-  6. the main path at full width: bf16, batches of 16 x 30 s through
-     begin_decode/end_decode, kernel launches counted.
+  2. build the CUDA kernels from csrc/ with nvcc (one process per source,
+     started together);
+  3. K1 (relpos_attn_probs) against its plain PyTorch version on the card,
+     at the shapes the zipformer2 main path gives it, with its time, the
+     plain version's time and the bound;
+  3b. K2 (relpos_attn_ctx) the same at the conformer's shapes, plus the
+     time of scaled_dot_product_attention on the same function (yardstick);
+  4. each committed pin model dir (zipformer2, conformer), float32 on the
+     card, must give its pinned transcript and timestamps exactly;
+  5. each family at full width from a seed, one 5 s utterance in float32:
+     card (kernel) against CPU (plain) — encoder output within tolerance,
+     tokens identical;
+  6. each main path at full width: bf16, batches of 16 x 30 s through
+     begin_decode/end_decode, every kernel's launches counted from 0.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
 """
@@ -31,15 +34,29 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer
+from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
+from k2transducerasr_tpu_torch.ops import cuda_build
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PIN_DIR = os.path.join(REPO, "tests", "torch_port_data", "zipformer2_pin")
-PIN_TEXT = "tok25tok25tok18tok8tok12tok6tok25tok6"
-PIN_TIMESTAMPS = [0, 1, 2, 3, 4, 5, 6, 7]
+PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
+
+# family -> its config, the kernel its attention launches (and how often per
+# flagship batch), and its pin (tests/test_pinned_transcripts.py)
+FAMILIES = {
+    "zipformer2": dict(cfg=Zipformer2Config, kernel="relpos_attn_probs",
+                       per_batch=sum(Zipformer2Config().num_encoder_layers),
+                       pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
+                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7]),
+    "conformer": dict(cfg=ConformerConfig, kernel="relpos_attn_ctx",
+                      per_batch=ConformerConfig().num_layers,
+                      pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7]),
+}
+KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx}
 
 # flagship (Zipformer2Config()) at 16 x 30 s: t_pad 3072 frames -> 1532
 # encoder-rate frames; (T, heads, layers) per stack at downsampling 1,2,4,8,4,2
@@ -47,9 +64,17 @@ FLAGSHIP_B = 16
 FLAGSHIP_STACKS = [(1532, 4, 2), (766, 4, 2), (383, 4, 3), (192, 8, 4), (383, 4, 3),
                    (766, 4, 2)]
 QD, PD = 32, 4
+# conformer flagship (ConformerConfig()) at 16 x 30 s: t_pad 3072 frames ->
+# ((3072-1)//2 - 1)//2 = 767 frames after the subsampling, 8 heads of 64,
+# 12 layers
+CONF_T, CONF_H, CONF_D = 767, 8, 64
 
-F32_ATOL = 1e-5  # kernel vs plain, float32 probs: summation order only
-BF16_ULPS = 1    # kernel vs plain, bf16 probs: both round one f32 value
+F32_ATOL = 1e-5  # kernel vs plain, float32: summation order only
+BF16_ULPS = 1    # K1 vs plain, bf16 probs: both round one f32 value
+# K2 vs plain, bf16: the kernel keeps the probabilities in f32, the plain
+# version rounds them to bf16 before the product (at most 2^-9 * max|v| per
+# output), then both round the output once (one bf16 ulp)
+K2_PROB_ROUNDING = 2.0**-9
 
 
 def log(*a):
@@ -116,6 +141,20 @@ def streams_for(rec, pcms):
     return out
 
 
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def bound(nbytes, ops, dtype, bw):
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / peak_flops(dtype) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -136,10 +175,10 @@ def phase_card():
 
 def phase_build():
     t0 = time.time()
-    path = AC.build(verbose=True)
-    AC._load()
+    paths = cuda_build.build(*KERNELS, verbose=True)
     secs = time.time() - t0
-    log(f"[2] built and loaded {os.path.relpath(path, REPO)} in {secs:.1f} s")
+    log(f"[2] built {', '.join(os.path.relpath(p, REPO) for p in paths.values())} "
+        f"in {secs:.1f} s (loaded at first launch)")
     return secs
 
 
@@ -150,13 +189,14 @@ def _k1_inputs(b, t, s, h, dtype, seed, ragged=True):
     k = torch.randn((b, s, h, QD), generator=g, device=dev).to(dtype)
     pq = torch.randn((b, t, h, PD), generator=g, device=dev).to(dtype)
     pk = torch.randn((t + s - 1, h, PD), generator=g, device=dev).to(dtype)
-    if ragged:
-        lens = torch.tensor([s - (i * s) // (2 * b) for i in range(b)], device=dev,
-                            dtype=torch.int32)
-        lens[-1] = 1  # a lane with one valid key
-    else:
-        lens = None
-    return q, k, pq, pk, lens
+    return q, k, pq, pk, _ragged_lens(b, s) if ragged else None
+
+
+def _ragged_lens(b, s):
+    lens = torch.tensor([s - (i * s) // (2 * b) for i in range(b)], device="cuda",
+                        dtype=torch.int32)
+    lens[-1] = 1  # a lane with one valid key
+    return lens
 
 
 def _k1_bytes_ops(b, t, s, h, in_dtype, out_dtype):
@@ -174,10 +214,20 @@ def _max_err(out, ref, dtype):
     err = float(d.max())
     if dtype == torch.float32:
         return err, err <= F32_ATOL
-    # one bf16 ulp of the plain value: 2^(floor(log2|ref|) - 7)
+    return err, bool((d <= BF16_ULPS * _bf16_ulp(ref)).all())
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp of each plain value: 2^(floor(log2|ref|) - 7)."""
     mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return err, bool((d <= BF16_ULPS * ulp).all())
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _kv_start(b, t, s):
+    kv = torch.randint(0, s - t + 1, (b,), device="cuda", dtype=torch.int32,
+                       generator=torch.Generator(device="cuda").manual_seed(b + s))
+    kv[0] = 0
+    return kv
 
 
 def phase_k1(bw):
@@ -199,8 +249,7 @@ def phase_k1(bw):
         q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows))
         kw = dict(kw)
         if kw.pop("kv_start", False):
-            kw["kv_start"] = torch.randint(0, s - t, (b,), device="cuda", dtype=torch.int32)
-            kw["kv_start"][0] = 0
+            kw["kv_start"] = _kv_start(b, t, s)
         out = AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
         ref = AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw)
         torch.cuda.synchronize()
@@ -211,64 +260,165 @@ def phase_k1(bw):
         ms = cuda_ms(lambda: AC.relpos_attn_probs(q, k, pq, pk, lens, **kw), reps=20)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw),
                            reps=5, warm=1)
-        nbytes, ops = _k1_bytes_ops(b, t, s, h, dtype, dtype)
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / peak_flops(dtype) * 1e3
-        bound = max(t_bytes, t_ops)
+        bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype), dtype, bw)
         rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": t, "S": s,
                      "H": h, "layers": layers, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"[3] K1 {name:24s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h}: "
             f"max_err {err:.3e} ok | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-            f"bound {bound:.4f} ms ({rows[-1]['bound_by']})")
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         del q, k, pq, pk, lens, out, ref
         torch.cuda.empty_cache()
     return rows, worst
 
 
-def phase_golden():
-    bundle = ModelBundle.from_dir(PIN_DIR, device="cuda")
+def _k2_inputs(b, t, s, h, d, vd, dtype, seed):
+    """Conformer-like operands: q and pos_q carry the folded 1/sqrt(d)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = (torch.randn((b, t, h, d), generator=g, device=dev) * d**-0.5).to(dtype)
+    k = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+    pq = (torch.randn((b, t, h, d), generator=g, device=dev) * d**-0.5).to(dtype)
+    pk = torch.randn((t + s - 1, h, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, h, vd), generator=g, device=dev).to(dtype)
+    return q, k, pq, pk, v
+
+
+def _k2_err(out, ref, v, dtype):
+    d = (out.float() - ref.float()).abs()
+    err = float(d.max())
+    if dtype == torch.float32:
+        return err, err <= F32_ATOL
+    tol = K2_PROB_ROUNDING * float(v.float().abs().max()) + _bf16_ulp(ref)
+    return err, bool((d <= tol).all())
+
+
+def _k2_bytes_ops(b, t, s, h, d, vd, dtype):
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * t * h * d + b * s * h * d + (t + s - 1) * h * d + b * s * h * vd
+              + b * t * h * vd) * e + 2 * 4 * b
+    ops = 2 * b * h * t * s * (2 * d + vd)
+    return nbytes, ops
+
+
+def _sdpa_backend(fn) -> str:
+    """Which SDPA backend ran fn(), from the device kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    # cuDNN's kernel names also carry "flash": look for it first
+    for tag, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient")):
+        hits = [n for n in names if tag in n.lower()]
+        if hits:
+            return f"{backend}: {hits[0][:80]}"
+    return f"math: {names[:3]}" if names else "not identified (no device kernels seen)"
+
+
+def phase_k2(bw):
+    """K2 against its plain version, and SDPA's time on the same function
+    (the skewed position term with NEG_INF at masked keys as its bias, built
+    before the timed call and not timed)."""
+    b, t, h, d = FLAGSHIP_B, CONF_T, CONF_H, CONF_D
+    layers = FAMILIES["conformer"]["per_batch"]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(("flagship-ragged", t, t, d, dtype, {"lens": True}, layers))
+        cases.append(("flagship-chunk16-left64", t, t, d, dtype,
+                      {"lens": True, "chunk": 16, "left": 64}, 0))
+        cases.append(("kv_start-T16-S80", 16, 80, d, dtype, {"kv_start": True}, 0))
+    cases.append(("flagship-vd32", t, t, 32, torch.bfloat16, {"lens": True}, 0))
+
+    rows = []
+    worst = 0.0
+    for name, tq, s, vd, dtype, kw, n_layers in cases:
+        q, k, pq, pk, v = _k2_inputs(b, tq, s, h, d, vd, dtype, seed=100 + len(rows))
+        kw = dict(kw)
+        lens = _ragged_lens(b, s) if kw.pop("lens", False) else None
+        if kw.pop("kv_start", False):
+            kw["kv_start"] = _kv_start(b, tq, s)
+        out = AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw)
+        ref = AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, **kw)
+        torch.cuda.synchronize()
+        err, ok = _k2_err(out, ref, v, dtype)
+        if not ok:
+            raise AssertionError(f"K2 {name} {dtype}: kernel disagrees with plain (max {err})")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, **kw),
+                           reps=5, warm=1)
+        bias = AC._masked_scores(torch.zeros_like(q), k, pq, pk, lens, kw.get("chunk", 0),
+                                 kw.get("left", 0), kw.get("kv_start")).to(dtype)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=1.0)
+
+        lib_ms = cuda_ms(sdpa, reps=20)
+        lib_err = float((sdpa().transpose(1, 2).float() - ref.float()).abs().max())
+        backend = _sdpa_backend(sdpa)
+        bound_ms, bound_by = bound(*_k2_bytes_ops(b, tq, s, h, d, vd, dtype), dtype, bw)
+        rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": tq,
+                     "S": s, "H": h, "d": d, "vd": vd, "layers": n_layers,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "library_backend": backend})
+        log(f"[3b] K2 {name:24s} {rows[-1]['dtype']:8s} B={b} T={tq} S={s} H={h} d={d} "
+            f"vd={vd}: max_err {err:.3e} ok | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            f"bound {bound_ms:.4f} ms ({bound_by}) | SDPA {lib_ms:.4f} ms "
+            f"[{backend}; bias build not timed; max diff vs plain {lib_err:.3e}]")
+        del q, k, pq, pk, v, lens, out, ref, bias, qh, kh, vh
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_golden(family):
+    spec = FAMILIES[family]
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
     rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
-    AC.relpos_attn_probs.launches = 0
+    reset_counts()
     res = rec.get_result(streams_for(rec, [pin_pcm(6400)])[0])
-    launches = AC.relpos_attn_probs.launches
-    log(f"[4] pin on card: {res.text!r} {res.timestamps} (K1 launches {launches})")
-    if res.text != PIN_TEXT or res.timestamps != PIN_TIMESTAMPS:
-        raise AssertionError(f"pin mismatch: {res.text!r} {res.timestamps}")
-    if launches == 0:
-        raise AssertionError("pin decode did not launch K1")
+    counts = read_counts()
+    log(f"[4] {family} pin on card: {res.text!r} {res.timestamps} (launches {counts})")
+    if res.text != spec["pin_text"] or res.timestamps != spec["pin_timestamps"]:
+        raise AssertionError(f"{family} pin mismatch: {res.text!r} {res.timestamps}")
+    if counts[spec["kernel"]] == 0:
+        raise AssertionError(f"{family} pin decode did not launch {spec['kernel']}")
 
 
-def phase_full_width_vs_cpu():
-    cfg = Zipformer2Config()
+def phase_full_width_vs_cpu(family):
+    cfg = FAMILIES[family]["cfg"]()
     pcm = [synth_pcm(5 * 16000, 101)]
     outs = {}
     for dev in ("cuda", "cpu"):
-        bundle = ModelBundle.random("zipformer2", cfg, vocab_size=500, seed=0, device=dev)
+        bundle = ModelBundle.random(family, cfg, vocab_size=500, seed=0, device=dev)
         rec = OfflineRecognizer(bundle, compute_dtype=None, device=dev)
         t0 = time.time()
         samples, counts = rec.pcm_batch(streams_for(rec, pcm))
         enc, lens = rec.encode(samples, counts)
         res = rec.get_results(streams_for(rec, pcm))[0]
         outs[dev] = (enc.float().cpu(), lens.cpu(), res)
-        log(f"[5] full width f32 on {dev}: enc {tuple(enc.shape)}, "
+        log(f"[5] {family} full width f32 on {dev}: enc {tuple(enc.shape)}, "
             f"{len(res.tokens)} tokens, {time.time() - t0:.1f} s")
     (eg, lg, rg), (ec, lc, rc) = outs["cuda"], outs["cpu"]
     if not torch.equal(lg, lc):
-        raise AssertionError(f"enc lens differ: {lg} vs {lc}")
+        raise AssertionError(f"{family} enc lens differ: {lg} vs {lc}")
     diff = float((eg - ec).abs().max())
     scale = float(ec.abs().max())
-    log(f"[5] encoder card vs CPU: max abs diff {diff:.3e} (max |enc| {scale:.3f}); "
+    log(f"[5] {family} encoder card vs CPU: max abs diff {diff:.3e} (max |enc| {scale:.3f}); "
         f"tokens identical: {rg.tokens == rc.tokens}")
     if not torch.allclose(eg, ec, rtol=1e-3, atol=1e-3):
-        raise AssertionError(f"encoder output card vs CPU beyond rtol/atol 1e-3 ({diff})")
+        raise AssertionError(f"{family} encoder output card vs CPU beyond rtol/atol 1e-3 ({diff})")
     if rg.tokens != rc.tokens or rg.timestamps != rc.timestamps:
-        raise AssertionError("tokens differ between card and CPU")
+        raise AssertionError(f"{family}: tokens differ between card and CPU")
 
 
-def phase_main_path(n_batches=2):
-    cfg = Zipformer2Config()
-    bundle = ModelBundle.random("zipformer2", cfg, vocab_size=500, seed=0, device="cuda")
+def phase_main_path(family, n_batches=2):
+    spec = FAMILIES[family]
+    bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
     rec = OfflineRecognizer(bundle, device="cuda")  # bf16 compute
     n = 30 * 16000
     batches = [streams_for(rec, [synth_pcm(n, k * FLAGSHIP_B + i) for i in range(FLAGSHIP_B)])
@@ -277,45 +427,72 @@ def phase_main_path(n_batches=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    AC.relpos_attn_probs.launches = 0
+    reset_counts()
     t0 = time.time()
     results = []
     for k in range(1, n_batches + 1):
         results.extend(rec.end_decode(rec.begin_decode(batches[k])))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = AC.relpos_attn_probs.launches
+    counts = read_counts()
 
-    per_batch = sum(cfg.num_encoder_layers)
-    if launches != per_batch * n_batches:
-        raise AssertionError(f"K1 launched {launches} times, expected {per_batch * n_batches}")
+    want = {name: (spec["per_batch"] * n_batches if name == spec["kernel"] else 0)
+            for name in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{family} main path launched {counts}, expected {want}")
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
     toks = [len(r.tokens) for r in results]
 
     # one more batch split into stages (not part of the counted run)
-    samples, counts = rec.pcm_batch(batches[1])
+    samples, sample_counts = rec.pcm_batch(batches[1])
     torch.cuda.synchronize()
     t1 = time.time()
-    enc, lens = rec.encode(samples, counts)
+    enc, lens = rec.encode(samples, sample_counts)
     torch.cuda.synchronize()
     t2 = time.time()
     if not bool(torch.isfinite(enc).all()) or enc.shape[0] != FLAGSHIP_B:
-        raise AssertionError("encoder output not finite or wrong batch")
+        raise AssertionError(f"{family} encoder output not finite or wrong batch")
     rec.end_decode(rec.begin_decode(batches[1]))
     torch.cuda.synchronize()
     t3 = time.time()
     enc_ms, full_ms = (t2 - t1) * 1e3, (t3 - t2) * 1e3
     if min(toks) == 0 or max(toks) > rec.max_tokens:
-        raise AssertionError(f"implausible token counts {min(toks)}..{max(toks)}")
-    log(f"[6] main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: {ms_batch:.1f} ms/batch, "
-        f"{audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, K1 launches {launches} "
-        f"({per_batch}/batch), tokens/utt {statistics.mean(toks):.1f} "
-        f"(min {min(toks)} max {max(toks)}), enc out {tuple(enc.shape)}")
-    log(f"[6] stage split (host clock, one batch): fbank+encoder {enc_ms:.1f} ms; "
+        raise AssertionError(f"{family}: implausible token counts {min(toks)}..{max(toks)}")
+    log(f"[6] {family} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
+        f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
+        f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
+        f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), "
+        f"enc out {tuple(enc.shape)}")
+    log(f"[6] {family} stage split (host clock, one batch): fbank+encoder {enc_ms:.1f} ms; "
         f"whole decode {full_ms:.1f} ms -> joiner+greedy ~{full_ms - enc_ms:.1f} ms")
-    return launches, ms_batch, audio_rate
+    return counts[spec["kernel"]]
+
+
+def kernel_line(name, source, replaces, launches, rows, worst, per):
+    """One kernel's entry: per flagship batch, its calls at the bf16 main-path
+    shapes (``layers`` calls of each such case)."""
+    main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
+    per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
+                 for key in ("ms", "plain_ms", "bound_ms")}
+    lib = [r.get("library_ms") for r in main_rows]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": per_batch["ms"],
+        "plain_ms": per_batch["plain_ms"],
+        "bound_ms": per_batch["bound_ms"],
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
+                     else "operations"),
+        "library_ms": (None if None in lib
+                       else sum(x * r["layers"] for x, r in zip(lib, main_rows))),
+        "per": per,
+    }
 
 
 def main() -> int:
@@ -327,30 +504,27 @@ def main() -> int:
     phase_card()
     bw = card_bandwidth(torch.cuda.get_device_name(0))
     phase_build()
-    rows, worst = phase_k1(bw)
-    phase_golden()
-    phase_full_width_vs_cpu()
-    launches, _, _ = phase_main_path()
+    k1_rows, k1_worst = phase_k1(bw)
+    k2_rows, k2_worst = phase_k2(bw)
+    for family in FAMILIES:
+        phase_golden(family)
+    for family in FAMILIES:
+        phase_full_width_vs_cpu(family)
+    launches = {family: phase_main_path(family) for family in FAMILIES}
 
-    # K1 per flagship batch: its 16 calls at the bf16 main-path shapes
-    main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
-    per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
-                 for key in ("ms", "plain_ms", "bound_ms")}
-    kernels = [{
-        "name": "relpos_attn_probs",
-        "route": "cuda",
-        "source": "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
-        "replaces": "k2transducerasr_tpu/ops/attention_pallas.py:158",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": per_batch["ms"],
-        "plain_ms": per_batch["plain_ms"],
-        "bound_ms": per_batch["bound_ms"],
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
-                     else "operations"),
-        "library_ms": None,
-        "per": "one flagship batch (16 x 30 s): 16 calls at the bf16 stack shapes",
-    }]
+    kernels = [
+        kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
+                    "k2transducerasr_tpu/ops/attention_pallas.py:158", launches["zipformer2"],
+                    k1_rows, k1_worst,
+                    "one zipformer2 flagship batch (16 x 30 s): 16 calls at the bf16 stack "
+                    "shapes; library_ms null: no PyTorch call returns rel-pos probs"),
+        kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
+                    "k2transducerasr_tpu/ops/attention_pallas.py:242", launches["conformer"],
+                    k2_rows, k2_worst,
+                    "one conformer flagship batch (16 x 30 s): 12 calls at B=16 T=S=767 H=8 "
+                    "d=64 bf16; library_ms: scaled_dot_product_attention with the skewed "
+                    "position bias precomputed (not timed)"),
+    ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

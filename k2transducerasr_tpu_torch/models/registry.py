@@ -1,17 +1,20 @@
 """Encoder-family registry (port of ``k2transducerasr_tpu/models/registry.py``).
 
-Only zipformer2 is ported so far; every other family of the reference
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+zipformer2 and conformer are ported so far; every other family of the
+reference raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_PORTED = {"zipformer2": "k2transducerasr_tpu_torch.models.zipformer2"}
+_PORTED = {
+    "conformer": "k2transducerasr_tpu_torch.models.conformer",
+    "zipformer2": "k2transducerasr_tpu_torch.models.zipformer2",
+}
 
 _NOT_YET = {
-    "conformer": "ROADMAP 'Modules to port': conformer (with kernel K2, relpos_attn_ctx)",
     "lstm": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
     "zipformer": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
     "zipformer2ctc": "ROADMAP 'Modules to port': CTC",

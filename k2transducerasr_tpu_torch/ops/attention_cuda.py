@@ -1,109 +1,59 @@
-"""Relative-position attention probabilities — the CUDA counterpart of
-``k2transducerasr_tpu/ops/attention_pallas.py::relpos_attn_probs``.
+"""Relative-position attention kernels — the CUDA counterparts of
+``k2transducerasr_tpu/ops/attention_pallas.py``:
 
-    probs = softmax(mask(q @ k^T + rel_shift(pos_q @ pos_k^T)))   [B, H, T, S]
+    K1  relpos_attn_probs:  probs = softmax(mask(q @ k^T + rel_shift(pos_q @ pos_k^T)))
+                            [B, H, T, S]            (csrc/relpos_attn_probs.cu)
+    K2  relpos_attn_ctx:    ctx = probs @ v          [B, T, H, vd]
+                            (csrc/relpos_attn_ctx.cu; no [T, S] tensor is written)
 
-``relpos_attn_probs`` launches the hand-written Hopper kernel in
-``csrc/relpos_attn_probs.cu`` for CUDA tensors and runs
-``relpos_attn_probs_reference`` (plain PyTorch, the same function) for CPU
+Each wrapper launches its hand-written Hopper kernel for CUDA tensors and
+runs its plain PyTorch version (``*_reference``, the same function) for CPU
 tensors.  On a CUDA tensor it launches the kernel or raises; there is no
-fallback.  The kernel is compiled with ``nvcc`` at first use into
-``_build/`` beside this package (keyed by the source's hash) and loaded with
-ctypes, so importing this module needs neither ``nvcc`` nor a card.
+fallback.  The kernels are compiled with ``nvcc`` at first use
+(``ops/cuda_build.py``) and loaded with ctypes, so importing this module
+needs neither ``nvcc`` nor a card.  Both plain versions share one
+masked-scores body, as the TPU kernels share ``_masked_scores``.
 
-Masks are key-side only, as in the TPU kernel: ``s < min(lens[b], S)``,
+Masks are key-side only, as in the TPU kernels: ``s < min(lens[b], S)``,
 ``s >= kv_start[b]``, and the static chunk window (``chunk``/``left``; needs
 T == S).  Invalid query rows therefore differ from a query+key mask
 (``mask_from_specs``); every caller zeroes those rows downstream.
 
-``relpos_attn_probs.launches`` counts kernel launches (the CPU path does not
-count), so a run can show that the main path went through the kernel.
+``relpos_attn_probs.launches`` and ``relpos_attn_ctx.launches`` count kernel
+launches (the CPU path does not count), so a run can show that the main path
+went through the kernels.
 
-Limit: a block keeps whole score rows in shared memory, so S is at most
-11,249 keys (pd = 4): about 3.7 minutes of audio in one utterance at the
-zipformer2's stack 0.  Longer inputs raise ValueError.
+Limits: K1 keeps whole score rows in shared memory, so S is at most 11,249
+keys (pd = 4): about 3.7 minutes of audio in one utterance at the
+zipformer2's stack 0; longer inputs raise ValueError.  K2 tiles the key axis
+and takes any S; it takes qd, pd and vd up to 64.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
+from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.ops.attention import chunk_causal_mask, rel_shift
 from k2transducerasr_tpu_torch.ops.layers import NEG_INF, length_mask
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "relpos_attn_probs.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel holds one key's q-dim vector in registers (templated at 32/64)
-# and the pos-dim vectors in shared memory
+# K1 holds one key's q-dim vector in registers (templated at 32/64) and the
+# pos-dim vectors in shared memory
 _MAX_QD = 64
 _MAX_PD = 8
-_ROWS = 8  # query rows per block
-_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a block may use (bytes)
+_ROWS = 8  # K1: query rows per block
+_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a K1 block may use (bytes)
+_CTX_MAX_D = 64  # K2: widest q, pos and value head
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile the kernel's shared library if this source has not been built
-    yet; returns its path.  The file name carries the source hash, so an
-    edited source never reuses a stale build."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"librelpos_attn_probs_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.k2t_relpos_attn_probs
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+_PROBS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_CTX_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _rows_for(s: int, t: int, pd: int) -> int:
-    """Query rows per block: up to ``_ROWS``, fewer when a long key axis
+    """K1's query rows per block: up to ``_ROWS``, fewer when a long key axis
     would not fit the block's score rows in shared memory."""
     rows = min(_ROWS, t)
     while rows > 0 and _smem_bytes(rows, s, pd) > _SMEM_BUDGET:
@@ -119,8 +69,8 @@ def _smem_bytes(rows: int, s: int, pd: int) -> int:
     return 4 * (rows * _MAX_QD + rows * _MAX_PD + (s + rows - 1) * pd4 + rows * s)
 
 
-def _check_contract(q, k, pos_q, pos_k, chunk):
-    t = q.shape[1]
+def _check_contract(q, k, pos_q, pos_k, chunk, v=None):
+    b, t, h = q.shape[:3]
     s = k.shape[1]
     r = pos_k.shape[0]
     # ValueError (not assert): a mismatch would silently misalign positions
@@ -128,11 +78,46 @@ def _check_contract(q, k, pos_q, pos_k, chunk):
         raise ValueError(f"pos_k rows {r} != t+s-1 ({t}+{s}-1)")
     if chunk and t != s:
         raise ValueError(f"chunk-causal requires t == s, got t={t} s={s}")
+    if v is not None and tuple(v.shape[:3]) != (b, s, h):
+        raise ValueError(f"v shape {tuple(v.shape)} != {(b, s, h, v.shape[-1])}")
+
+
+def _check_operands(name_to_tensor: dict, q, out_dtype):
+    """Device, dtype and contiguity of a kernel's operands."""
+    for name, x in name_to_tensor.items():
+        if x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {x.dtype} != q dtype {q.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtypes must be float32/bfloat16, got {q.dtype} -> {out_dtype}")
+
+
+def _check_shapes(q, k, pos_q, pos_k, v=None):
+    b, t, h, qd = q.shape
+    s = k.shape[1]
+    pd = pos_q.shape[-1]
+    if (k.shape != (b, s, h, qd) or pos_q.shape != (b, t, h, pd) or pos_k.shape[1:] != (h, pd)
+            or (v is not None and v.dim() != 4)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"pos_q {tuple(pos_q.shape)} pos_k {tuple(pos_k.shape)}"
+            + ("" if v is None else f" v {tuple(v.shape)}")
+        )
+    if min(b, t, s, h) == 0:
+        raise ValueError(f"empty attention (B={b} T={t} S={s} H={h})")
+
+
+def _launch_error(name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
                       left: int = 0, kv_start=None):
-    """Fused softmax(q@k^T + rel_shift(pos_q@pos_k^T)) with key-side masks.
+    """K1: fused softmax(q@k^T + rel_shift(pos_q@pos_k^T)) with key-side masks.
 
     q:     [B, T, H, qd]   queries
     k:     [B, S, H, qd]   keys
@@ -157,46 +142,79 @@ def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
     s = k.shape[1]
     pd = pos_q.shape[-1]
     out_dtype = out_dtype or q.dtype
-    tensors = {"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k}
-    for name, x in tensors.items():
-        if x.device != q.device:
-            raise ValueError(f"{name} on {x.device}, q on {q.device}")
-        if x.dtype != q.dtype:
-            raise ValueError(f"{name} dtype {x.dtype} != q dtype {q.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"dtypes must be float32/bfloat16, got {q.dtype} -> {out_dtype}")
-    if k.shape != (b, s, h, qd) or pos_q.shape != (b, t, h, pd) or pos_k.shape[1:] != (h, pd):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"pos_q {tuple(pos_q.shape)} pos_k {tuple(pos_k.shape)}"
-        )
+    _check_operands({"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k}, q, out_dtype)
+    _check_shapes(q, k, pos_q, pos_k)
     if qd > _MAX_QD or pd > _MAX_PD:
         raise ValueError(f"kernel takes qd <= {_MAX_QD} and pd <= {_MAX_PD}, got {qd}, {pd}")
-    if min(b, t, s, h) == 0:
-        raise ValueError(f"empty attention (B={b} T={t} S={s} H={h})")
     lens = _lane_ints(lens, b, s, q.device)
     kv_start = _lane_ints(kv_start, b, 0, q.device)
     rows = _rows_for(s, t, pd)
 
     out = torch.empty((b, h, t, s), dtype=out_dtype, device=q.device)
-    lib = _load()
+    fn = cuda_build.function("relpos_attn_probs", "k2t_relpos_attn_probs", _PROBS_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = lib.k2t_relpos_attn_probs(
+        err = fn(
             q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
             lens.data_ptr(), kv_start.data_ptr(), out.data_ptr(),
             b, t, s, h, qd, pd, int(chunk), int(left), rows,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"relpos_attn_probs kernel launch failed: cudaError {err}")
+    _launch_error("relpos_attn_probs", err)
     relpos_attn_probs.launches += 1
     return out
 
 
 relpos_attn_probs.launches = 0
+
+
+def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
+                    left: int = 0, kv_start=None):
+    """K2: softmax(mask(q@k^T + rel_shift(pos_q@pos_k^T))) @ v, the probs
+    never written out.  Same inputs and masks as ``relpos_attn_probs``, plus
+
+    v:     [B, S, H, vd]   per-head values (vd may differ from qd)
+    Returns ctx [B, T, H, vd] in ``out_dtype`` (default: q.dtype).
+
+    The kernel keeps the probabilities in float32 (online softmax); the plain
+    version rounds them to v's dtype first, as the TPU kernel does — see the
+    rounding note in ``csrc/relpos_attn_ctx.cu``.
+    """
+    _check_contract(q, k, pos_q, pos_k, chunk, v)
+    if q.device.type == "cpu":
+        return relpos_attn_ctx_reference(q, k, pos_q, pos_k, v, lens, out_dtype, chunk, left,
+                                         kv_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"relpos_attn_ctx: unsupported device {q.device}")
+
+    b, t, h, qd = q.shape
+    s = k.shape[1]
+    pd = pos_q.shape[-1]
+    vd = v.shape[-1]
+    out_dtype = out_dtype or q.dtype
+    _check_operands({"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k, "v": v}, q, out_dtype)
+    _check_shapes(q, k, pos_q, pos_k, v)
+    if max(qd, pd, vd) > _CTX_MAX_D:
+        raise ValueError(f"kernel takes qd, pd and vd <= {_CTX_MAX_D}, got {qd}, {pd}, {vd}")
+    lens = _lane_ints(lens, b, s, q.device)
+    kv_start = _lane_ints(kv_start, b, 0, q.device)
+
+    out = torch.empty((b, t, h, vd), dtype=out_dtype, device=q.device)
+    fn = cuda_build.function("relpos_attn_ctx", "k2t_relpos_attn_ctx", _CTX_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
+            lens.data_ptr(), kv_start.data_ptr(), out.data_ptr(),
+            b, t, s, h, qd, pd, vd, int(chunk), int(left),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _launch_error("relpos_attn_ctx", err)
+    relpos_attn_ctx.launches += 1
+    return out
+
+
+relpos_attn_ctx.launches = 0
 
 
 def _lane_ints(x, b: int, fill: int, device) -> torch.Tensor:
@@ -211,14 +229,11 @@ def _lane_ints(x, b: int, fill: int, device) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
-def relpos_attn_probs_reference(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
-                                left: int = 0, kv_start=None):
-    """Plain PyTorch version of ``relpos_attn_probs`` (same contract): float32
-    scores and softmax, key-side masks, cast to ``out_dtype`` at the end."""
-    _check_contract(q, k, pos_q, pos_k, chunk)
+def _masked_scores(q, k, pos_q, pos_k, lens, chunk: int, left: int, kv_start):
+    """Float32 scores [B, H, T, S] = q.k + skewed pos_q.pos_k, NEG_INF at the
+    masked keys — the body both plain versions share."""
     b, t = q.shape[:2]
     s = k.shape[1]
-    out_dtype = out_dtype or q.dtype
     dev = q.device
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     pos_full = torch.einsum("bthd,rhd->bhtr", pos_q.float(), pos_k.float())
@@ -231,8 +246,29 @@ def relpos_attn_probs_reference(q, k, pos_q, pos_k, lens, out_dtype=None, chunk:
     valid = valid[:, None, None, :]  # [B, 1, 1, S]
     if chunk:
         valid = valid & chunk_causal_mask(t, chunk, left, dev)[None, None]
-    scores = torch.where(valid, scores, NEG_INF)
-    return torch.softmax(scores, dim=-1).to(out_dtype)
+    return torch.where(valid, scores, NEG_INF)
+
+
+def relpos_attn_probs_reference(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
+                                left: int = 0, kv_start=None):
+    """Plain PyTorch version of ``relpos_attn_probs`` (same contract): float32
+    scores and softmax, key-side masks, cast to ``out_dtype`` at the end."""
+    _check_contract(q, k, pos_q, pos_k, chunk)
+    scores = _masked_scores(q, k, pos_q, pos_k, lens, chunk, left, kv_start)
+    return torch.softmax(scores, dim=-1).to(out_dtype or q.dtype)
+
+
+def relpos_attn_ctx_reference(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
+                              left: int = 0, kv_start=None):
+    """Plain PyTorch version of ``relpos_attn_ctx`` (same contract): the
+    float32 probs of ``relpos_attn_probs_reference``, rounded to v's dtype,
+    times v with float32 accumulation, cast to ``out_dtype`` — the TPU
+    kernel's ``einsum("bhts,bshd->bthd", probs.astype(v.dtype), v)``."""
+    _check_contract(q, k, pos_q, pos_k, chunk, v)
+    scores = _masked_scores(q, k, pos_q, pos_k, lens, chunk, left, kv_start)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v.float())
+    return ctx.to(out_dtype or q.dtype)
 
 
 def mask_from_specs(b: int, t: int, s: int, pad_lens=None, chunk_left=None, kv_start=None):

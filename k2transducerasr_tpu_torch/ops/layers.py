@@ -1,5 +1,5 @@
-"""The neural-net ops the zipformer2 path uses, as plain functions on
-tensors — PyTorch port of the matching subset of
+"""The neural-net ops the zipformer2 and conformer paths use, as plain
+functions on tensors — PyTorch port of the matching subset of
 ``k2transducerasr_tpu/ops/layers.py``.
 
 Conventions (as in the reference):
@@ -63,6 +63,15 @@ def init_biasnorm(dim: int) -> dict:
     return {"bias": np.zeros((dim,), np.float32), "log_scale": np.zeros((), np.float32)}
 
 
+def init_layernorm(dim: int) -> dict:
+    return {"scale": np.ones((dim,), np.float32), "bias": np.zeros((dim,), np.float32)}
+
+
+def init_batchnorm(dim: int) -> dict:
+    """Inference-mode batchnorm: running statistics folded into scale/bias."""
+    return {"scale": np.ones((dim,), np.float32), "bias": np.zeros((dim,), np.float32)}
+
+
 def _cast(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x if compute_dtype is None else x.to(compute_dtype)
 
@@ -86,6 +95,32 @@ def apply_biasnorm(p, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     centered = x32 - p["bias"]
     rms = torch.sqrt(torch.mean(centered * centered, dim=-1, keepdim=True) + eps)
     return (x32 / rms * torch.exp(p["log_scale"])).to(x.dtype)
+
+
+def apply_layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Float32 mean and (population) variance over the last axis, cast back
+    to the input dtype."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def apply_batchnorm(p, x: torch.Tensor) -> torch.Tensor:
+    """x * scale + bias with float32 scale/bias: a bf16 ``x`` promotes to
+    float32, as in the reference."""
+    return x * p["scale"] + p["bias"]
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def glu(x: torch.Tensor) -> torch.Tensor:
+    """First half of the last axis times the sigmoid of the second half."""
+    a, b = torch.chunk(x, 2, dim=-1)
+    return a * torch.sigmoid(b)
 
 
 def _softplus(z: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,20 @@
 """The port's relative-position attention (k2transducerasr_tpu_torch/ops/
 attention*.py) against the JAX package on the CPU.
 
-``relpos_attn_probs_reference`` (the plain PyTorch version of the CUDA
-kernel K1) is held against the JAX Pallas kernel run in interpret mode, over
-the mask regimes of tests/test_attention_pallas.py.  Inputs come from numpy
-seeds.  Tolerance: float32 probs agree to atol 1e-5 on valid query rows (the
-two sum q.k in different orders); bf16 probs to one bf16 ulp below 1.0
-(2**-7).  Rows at invalid queries differ by design and are skipped (both
-mask keys only, and every caller zeroes those rows).
+``relpos_attn_probs_reference`` and ``relpos_attn_ctx_reference`` (the plain
+PyTorch versions of the CUDA kernels K1 and K2) are held against the JAX
+Pallas kernels run in interpret mode, over the mask regimes of
+tests/test_attention_pallas.py.  Inputs come from numpy seeds.  Tolerance:
+float32 probs and ctx agree to atol 1e-5 on valid query rows (the two sum
+q.k in different orders); bf16 probs to one bf16 ulp below 1.0 (2**-7), bf16
+ctx to one bf16 ulp of the output (rtol 2**-7; both round one float32 sum of
+the same bf16-rounded probs, which can differ by one ulp where float32
+summation order flips a rounding: atol 2**-9 * max|v|).  Rows at invalid
+queries differ by design and are skipped (both mask keys only, and every
+caller zeroes those rows).
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +25,7 @@ from k2transducerasr_tpu.ops import attention as JA
 from k2transducerasr_tpu.ops import attention_pallas as JP
 from k2transducerasr_tpu_torch.ops import attention as TA
 from k2transducerasr_tpu_torch.ops import attention_cuda as TC
+from k2transducerasr_tpu_torch.ops import cuda_build
 
 F32_ATOL = 1e-5
 BF16_ATOL = 2.0**-7
@@ -102,6 +109,126 @@ def test_wrapper_on_cpu_runs_plain_version_without_counting():
     want = TC.relpos_attn_probs_reference(q, k, pq, pk, lens, chunk=4, left=8)
     assert torch.equal(got, want)
     assert TC.relpos_attn_probs.launches == before
+
+
+# (b, t, s, h, qd, pd, vd, lens, extra kwargs): K2's regimes, tiny because the
+# interpret mode is slow
+CTX_GRID = [
+    pytest.param(3, 40, 40, 2, 16, 16, 16, [40, 1, 23], {}, id="ragged-lens-incl-1"),
+    pytest.param(2, 48, 48, 2, 8, 8, 8, [48, 30], {"chunk": 8, "left": 16}, id="chunk-left"),
+    pytest.param(3, 8, 40, 2, 8, 8, 8, None, {"kv_start": [32, 10, 0]}, id="kv-start-T-ne-S"),
+    pytest.param(2, 32, 32, 2, 8, 4, 24, [32, 20], {}, id="vd-ne-qd"),
+]
+
+
+def _ctx_inputs(seed, b, t, s, h, qd, pd, vd):
+    q, k, pq, pk = _inputs(seed, b, t, s, h, qd, pd)
+    v = np.random.default_rng(seed + 1).standard_normal((b, s, h, vd)).astype(np.float32)
+    return q, k, pq, pk, v
+
+
+def _jax_ctx(q, k, pq, pk, v, lens, kw):
+    kv = kw.get("kv_start")
+    jkw = dict(kw, kv_start=None if kv is None else jnp.asarray(kv, jnp.int32))
+    return JP.relpos_attn_ctx(q, k, pq, pk, v, None if lens is None else jnp.asarray(
+        lens, jnp.int32), interpret=True, **jkw)
+
+
+def _torch_kw(kw):
+    kv = kw.get("kv_start")
+    return dict(kw, kv_start=None if kv is None else torch.tensor(kv, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("b,t,s,h,qd,pd,vd,lens,kw", CTX_GRID)
+def test_ctx_reference_matches_pallas_interpret(b, t, s, h, qd, pd, vd, lens, kw):
+    q, k, pq, pk, v = _ctx_inputs(b * 100 + t + vd, b, t, s, h, qd, pd, vd)
+    want = np.asarray(_jax_ctx(q, k, pq, pk, v, lens, kw))
+    got = TC.relpos_attn_ctx_reference(
+        *(torch.from_numpy(x) for x in (q, k, pq, pk, v)),
+        None if lens is None else torch.tensor(lens, dtype=torch.int32), **_torch_kw(kw)).numpy()
+    assert got.shape == want.shape == (b, t, h, vd)
+    for i in range(b):
+        rows = t if lens is None else min(lens[i], t)
+        np.testing.assert_allclose(got[i, :rows], want[i, :rows], atol=F32_ATOL, rtol=0)
+
+
+def test_ctx_reference_bf16_matches_pallas_interpret():
+    b, t, h, qd, vd = 2, 32, 2, 16, 16
+    q, k, pq, pk, v = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in _ctx_inputs(11, b, t, t, h, qd, qd, vd))
+    lens = [32, 17]
+    want = np.asarray(_jax_ctx(q, k, pq, pk, v, lens, {}).astype(jnp.float32))
+    tq, tk, tpq, tpk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+                            for x in (q, k, pq, pk, v))
+    got = TC.relpos_attn_ctx_reference(tq, tk, tpq, tpk, tv, torch.tensor(lens))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    atol = 2.0**-9 * float(np.abs(np.asarray(v, np.float32)).max())
+    for i in range(b):
+        np.testing.assert_allclose(got[i, : lens[i]], want[i, : lens[i]], rtol=2.0**-7,
+                                   atol=atol)
+
+
+def test_ctx_out_dtype_and_fully_masked_row():
+    """out_dtype is honoured; a lane whose keys are all masked gives the mean
+    of v over all S (NEG_INF is finite), as the TPU kernel does."""
+    q, k, pq, pk, v = (torch.from_numpy(x) for x in _ctx_inputs(3, 1, 8, 40, 2, 8, 4, 6))
+    out = TC.relpos_attn_ctx_reference(q, k, pq, pk, v, torch.tensor([5]),
+                                       kv_start=torch.tensor([20]))
+    want = v.mean(dim=1, keepdim=True).expand(1, 8, 2, 6)
+    torch.testing.assert_close(out, want, atol=1e-6, rtol=0)
+    out16 = TC.relpos_attn_ctx(q, k, pq, pk, v, None, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16 and out16.shape == (1, 8, 2, 6)
+
+
+@pytest.mark.parametrize("fn", [TC.relpos_attn_ctx, TC.relpos_attn_ctx_reference],
+                         ids=["wrapper", "reference"])
+def test_ctx_contract_value_errors(fn):
+    q, k, pq, pk, v = (torch.from_numpy(x) for x in _ctx_inputs(0, 1, 8, 8, 2, 4, 2, 4))
+    with pytest.raises(ValueError, match="pos_k rows"):
+        fn(q, k, pq, pk[:-1], v, None)
+    with pytest.raises(ValueError, match="v shape"):
+        fn(q, k, pq, pk, v[:, :-1], None)
+    q2, k2, pq2, pk2, v2 = (torch.from_numpy(x) for x in _ctx_inputs(0, 1, 8, 12, 2, 4, 2, 4))
+    with pytest.raises(ValueError, match="chunk-causal requires t == s"):
+        fn(q2, k2, pq2, pk2, v2, None, chunk=4, left=4)
+
+
+def test_ctx_wrapper_on_cpu_runs_plain_version_without_counting():
+    q, k, pq, pk, v = (torch.from_numpy(x) for x in _ctx_inputs(1, 2, 16, 16, 2, 8, 4, 12))
+    lens = torch.tensor([16, 9])
+    before = TC.relpos_attn_ctx.launches
+    got = TC.relpos_attn_ctx(q, k, pq, pk, v, lens, chunk=4, left=8)
+    want = TC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, chunk=4, left=8)
+    assert torch.equal(got, want)
+    assert TC.relpos_attn_ctx.launches == before
+
+
+def test_ctx_reference_equals_probs_times_v():
+    """K2's plain version is K1's plain probs times v (the TPU kernels' shared
+    body), here in float32 where the cast to v's dtype is exact."""
+    q, k, pq, pk, v = (torch.from_numpy(x) for x in _ctx_inputs(4, 2, 12, 12, 3, 8, 8, 5))
+    lens = torch.tensor([12, 7])
+    probs = TC.relpos_attn_probs_reference(q, k, pq, pk, lens, chunk=4, left=4)
+    want = torch.einsum("bhts,bshd->bthd", probs, v)
+    got = TC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, chunk=4, left=4)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["relpos_attn_probs", "relpos_attn_ctx"])
+def test_library_name_follows_source_and_flags(name, monkeypatch):
+    """The build is keyed by the source bytes and nvcc flags: an edited source
+    or changed flags never load a stale library.  No nvcc is needed."""
+    with open(cuda_build.source_path(name), "rb") as f:
+        source = f.read()
+    path = cuda_build.library_path(name)
+    assert path == cuda_build.library_path(name, source)
+    assert os.path.dirname(path) == cuda_build.BUILD_DIR
+    assert os.path.basename(path).startswith(f"lib{name}_") and path.endswith(".so")
+    assert cuda_build.library_path(name, source + b"\n") != path
+    assert cuda_build.library_path("other", source) != path
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["-lineinfo"])
+    assert cuda_build.library_path(name, source) != path
 
 
 def test_kernel_rows_fit_shared_memory():

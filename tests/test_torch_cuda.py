@@ -6,8 +6,12 @@ installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: float32 probs to atol 1e-5 (summation order); bf16 probs to one
-bf16 ulp of the plain value (both round one float32 value).
+Tolerance, K1: float32 probs to atol 1e-5 (summation order); bf16 probs to
+one bf16 ulp of the plain value (both round one float32 value).  K2: float32
+ctx to atol 1e-5 (summation order: the kernel's online softmax adds the
+keys in tiles); bf16 ctx to 2**-9 * max|v| + one bf16 ulp of the plain value
+(the kernel keeps the probabilities in float32, the plain version rounds
+them to bf16 before the product; then both round the output once).
 """
 
 import numpy as np
@@ -79,6 +83,71 @@ def test_kernel_out_dtype(cuda):
     ref = AC.relpos_attn_probs_reference(q, k, pq, pk, None, out_dtype=torch.float32)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _assert_ctx_close(out, ref, v):
+    if out.dtype == torch.float32 and v.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        return
+    d = (out.float() - ref.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    assert bool((d <= 2.0**-9 * float(v.float().abs().max()) + ulp).all()), float(d.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,t,s,h,qd,pd,vd,lens,kw",
+    [
+        (3, 130, 130, 4, 64, 64, 64, [130, 1, 77], {}),  # ragged, a lane with one key
+        (2, 96, 96, 2, 64, 64, 64, None, {"chunk": 16, "left": 64}),
+        (3, 16, 80, 4, 64, 64, 64, None, {"kv_start": [64, 10, 0]}),  # streaming shape
+        (2, 70, 70, 2, 64, 64, 32, [70, 41], {}),  # vd != qd
+        (2, 37, 37, 4, 16, 16, 16, [37, 20], {"chunk": 4, "left": 8}),  # the pin's widths
+        (1, 9, 200, 2, 24, 8, 40, [150], {"kv_start": [60]}),  # odd widths, T != S
+    ],
+)
+def test_ctx_kernel_matches_plain(cuda, dtype, b, t, s, h, qd, pd, vd, lens, kw):
+    q, k, pq, pk = _inputs(b + t + s + vd, b, t, s, h, qd, pd, dtype)
+    scale = qd ** -0.5  # the conformer's folded 1/sqrt(dh)
+    q, pq = (q.float() * scale).to(dtype), (pq.float() * scale).to(dtype)
+    v = torch.from_numpy(np.random.default_rng(vd).standard_normal((b, s, h, vd)).astype(
+        np.float32)).to(cuda, dtype)
+    lens = None if lens is None else torch.tensor(lens, device=cuda, dtype=torch.int32)
+    if "kv_start" in kw:
+        kw = dict(kw, kv_start=torch.tensor(kw["kv_start"], device=cuda, dtype=torch.int32))
+    before = AC.relpos_attn_ctx.launches
+    out = AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert AC.relpos_attn_ctx.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, t, h, vd)
+    _assert_ctx_close(out, AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, **kw), v)
+
+
+def test_ctx_kernel_out_dtype_and_fully_masked_lane(cuda):
+    q, k, pq, pk = _inputs(1, 2, 20, 70, 2, 64, 64, torch.bfloat16)
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 70, 2, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor([70, 5], device=cuda, dtype=torch.int32)
+    kv = torch.tensor([0, 30], device=cuda, dtype=torch.int32)  # lane 1: no valid key
+    out = AC.relpos_attn_ctx(q, k, pq, pk, v, lens, out_dtype=torch.float32, kv_start=kv)
+    ref = AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, out_dtype=torch.float32,
+                                       kv_start=kv)
+    assert out.dtype == torch.float32
+    _assert_ctx_close(out, ref, v)
+    torch.testing.assert_close(out[1], v[1].float().mean(dim=0).expand(20, 2, 64), atol=1e-5,
+                               rtol=0)
+
+
+def test_ctx_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, pq, pk = _inputs(0, 1, 8, 8, 2, 32, 32, torch.float32)
+    v = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        AC.relpos_attn_ctx(q, k, pq, pk, v.transpose(1, 2).contiguous().transpose(1, 2), None)
+    with pytest.raises(ValueError, match="dtype"):
+        AC.relpos_attn_ctx(q, k, pq, pk, v.to(torch.bfloat16), None)
+    with pytest.raises(ValueError, match="vd <= 64"):
+        AC.relpos_attn_ctx(q, k, pq, pk, torch.zeros((1, 8, 2, 72), device=cuda), None)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -152,6 +152,40 @@ def test_embed_convs_match_the_banded_forms():
     np.testing.assert_allclose(t3.numpy(), h3, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_conformer_norms_and_activations_match_jax(dtype):
+    """LayerNorm, folded BatchNorm, swish and GLU.  bf16: LayerNorm to one
+    bf16 ulp (rtol 2**-7; both round one float32 value); swish and GLU to
+    two (rtol 2**-6: PyTorch rounds the sigmoid to bf16 before the product,
+    XLA may round once after it); BatchNorm promotes to float32 in both."""
+    rng = _rng(6)
+    x = (2 * rng.standard_normal((2, 7, 16)) + 0.5).astype(np.float32)
+    ln = {"scale": rng.standard_normal(16).astype(np.float32),
+          "bias": rng.standard_normal(16).astype(np.float32)}
+    bn = {"scale": rng.standard_normal(16).astype(np.float32),
+          "bias": rng.standard_normal(16).astype(np.float32)}
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if dtype == "bf16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    one, two = (1e-5, 1e-5) if dtype == "f32" else (2.0**-7, 2.0**-6)
+
+    def check(got, want, rtol, out_dtype=tx.dtype):
+        assert got.dtype == out_dtype
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   rtol=rtol, atol=1e-6)
+
+    check(TL.apply_layernorm(_t(ln), tx), JL.apply_layernorm(ln, jx), one)
+    check(TL.apply_batchnorm(_t(bn), tx), JL.apply_batchnorm(bn, jx), 1e-6,
+          out_dtype=torch.float32)
+    check(TL.swish(tx), JL.swish(jx), two)
+    check(TL.glu(tx), JL.glu(jx), two)
+    for init in ("init_layernorm", "init_batchnorm"):
+        got, want = getattr(TL, init)(16), getattr(JL, init)(16)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+
+
 def test_embedding_and_length_mask_match_jax():
     table = _rng(5).standard_normal((10, 4)).astype(np.float32)
     ids = np.array([[0, 3], [9, 9]])
