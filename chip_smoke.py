@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; none is caught):
      started together);
   3. K1 (relpos_attn_probs) against its plain PyTorch version on the card,
      at the shapes the zipformer2 main path gives it, with its time, the
-     plain version's time and the bound;
+     plain version's time and the bound.  A kernel's ``ms`` is CUDA events
+     around one call from an empty queue (the host's time to prepare and
+     launch it included); ``device_ms`` beside it is the kernel's own time
+     from a profiler trace, and ``host_us`` the wrapper's host time per call;
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes, plus the
      time of scaled_dot_product_attention on the same function (yardstick);
   4. each committed pin model dir (zipformer2, conformer), float32 on the
@@ -21,6 +24,12 @@ Phases (any failure exits non-zero; none is caught):
      begin_decode/end_decode, every kernel's launches counted from 0.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
+
+    python3 chip_smoke.py --mutation-check
+
+instead applies each entry of MUTATIONS to a throwaway copy of the package
+in a temporary directory and runs the kernel phase it names there; each
+must fail (exit 0 when every mutation was caught).
 """
 
 from __future__ import annotations
@@ -71,10 +80,19 @@ CONF_T, CONF_H, CONF_D = 767, 8, 64
 
 F32_ATOL = 1e-5  # kernel vs plain, float32: summation order only
 BF16_ULPS = 1    # K1 vs plain, bf16 probs: both round one f32 value
-# K2 vs plain, bf16: the kernel keeps the probabilities in f32, the plain
-# version rounds them to bf16 before the product (at most 2^-9 * max|v| per
-# output), then both round the output once (one bf16 ulp)
-K2_PROB_ROUNDING = 2.0**-9
+# K2 vs plain, bf16: the kernel rounds the UNNORMALISED probabilities to
+# bf16 before P.V, the plain version the normalised ones; each side is within
+# 2^-9 * max|v| of the exact product, so they differ by at most 2^-8 * max|v|,
+# then both round the output once (one bf16 ulp)
+K2_PROB_ROUNDING = 2.0**-8
+
+# (what it breaks, file, text, replacement, the phase that must catch it)
+MUTATIONS = [
+    ("K2 skew offset S-1 instead of T-1", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
+     "rp::pos_window_first(T, t0, 0)", "rp::pos_window_first(S, t0, 0)", "phase_k2"),
+    ("K1 pass 2 without the division by the row sum",
+     "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu", " * inv_l[r];", ";", "phase_k1"),
+]
 
 
 def log(*a):
@@ -117,7 +135,8 @@ def pin_pcm(n, seed=9):
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median device time of fn() in ms (CUDA events around each call)."""
+    """Median time of one fn() call in ms, CUDA events around each call: the
+    host's time to launch it from an empty queue included."""
     for _ in range(warm):
         fn()
     times = []
@@ -130,6 +149,45 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Mean host time of one fn() call in microseconds, the calls queued
+    back to back with no sync between them (the device's time excluded
+    while the queue has room)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def device_ms(fn, reps: int, match: str | None = None, warm: int = 2) -> float:
+    """Device time of one fn() call in ms, from a profiler trace of ``reps``
+    calls.  With ``match``, fn launches one kernel whose name holds it: the
+    median of those launches, which an event the profiler drops or mistimes
+    does not move.  Without, the mean per call of every kernel the calls
+    ran.  Unlike CUDA events around a call it leaves out the host's time to
+    prepare and launch, which the card spends idle when the queue is
+    empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
+    if not times:
+        raise AssertionError(f"the profiler saw no device kernel{'' if match is None else ' ' + match}")
+    return statistics.median(times) if match is not None else sum(times) / reps
 
 
 def streams_for(rec, pcms):
@@ -244,6 +302,8 @@ def phase_k1(bw):
                   {"chunk": 32, "left": 128}, 0))
     for dtype in (torch.bfloat16, torch.float32):
         cases.append(("kv_start-T32-S160", FLAGSHIP_B, 32, 160, 4, dtype, {"kv_start": True}, 0))
+    # past the float32 body's shared-memory cap of 11,249 keys: bf16 takes any S
+    cases.append(("long-T32-S12000", FLAGSHIP_B, 32, 12000, 4, torch.bfloat16, {}, 0))
 
     for name, b, t, s, h, dtype, kw, layers in cases:
         q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows))
@@ -257,16 +317,23 @@ def phase_k1(bw):
         if not ok:
             raise AssertionError(f"K1 {name} {dtype}: kernel disagrees with plain (max {err})")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: AC.relpos_attn_probs(q, k, pq, pk, lens, **kw), reps=20)
+        def kernel():
+            return AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
+
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20, match="relpos_attn_probs")
+        host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw),
                            reps=5, warm=1)
         bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype), dtype, bw)
         rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": t, "S": s,
                      "H": h, "layers": layers, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                     "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"[3] K1 {name:24s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h}: "
-            f"max_err {err:.3e} ok | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"max_err {err:.3e} ok | kernel {ms:.4f} ms (device {dev_ms:.4f}, host "
+            f"{host:.1f} us) | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) "
+            f"| {bound_ms / ms:.1%} of bound ({bound_ms / dev_ms:.1%} of device time)")
         del q, k, pq, pk, lens, out, ref
         torch.cuda.empty_cache()
     return rows, worst
@@ -347,7 +414,12 @@ def phase_k2(bw):
         if not ok:
             raise AssertionError(f"K2 {name} {dtype}: kernel disagrees with plain (max {err})")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw), reps=20)
+        def kernel():
+            return AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw)
+
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20, match="relpos_attn_ctx")
+        host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, **kw),
                            reps=5, warm=1)
         bias = AC._masked_scores(torch.zeros_like(q), k, pq, pk, lens, kw.get("chunk", 0),
@@ -358,17 +430,21 @@ def phase_k2(bw):
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=1.0)
 
         lib_ms = cuda_ms(sdpa, reps=20)
+        lib_dev_ms = device_ms(sdpa, reps=20)
         lib_err = float((sdpa().transpose(1, 2).float() - ref.float()).abs().max())
         backend = _sdpa_backend(sdpa)
         bound_ms, bound_by = bound(*_k2_bytes_ops(b, tq, s, h, d, vd, dtype), dtype, bw)
         rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": tq,
                      "S": s, "H": h, "d": d, "vd": vd, "layers": n_layers,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "library_backend": backend})
         log(f"[3b] K2 {name:24s} {rows[-1]['dtype']:8s} B={b} T={tq} S={s} H={h} d={d} "
-            f"vd={vd}: max_err {err:.3e} ok | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-            f"bound {bound_ms:.4f} ms ({bound_by}) | SDPA {lib_ms:.4f} ms "
+            f"vd={vd}: max_err {err:.3e} ok | kernel {ms:.4f} ms (device {dev_ms:.4f}, host "
+            f"{host:.1f} us) | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({bound_ms / dev_ms:.1%} of device time) | "
+            f"SDPA {lib_ms:.4f} ms (device {lib_dev_ms:.4f}) "
             f"[{backend}; bias build not timed; max diff vs plain {lib_err:.3e}]")
         del q, k, pq, pk, v, lens, out, ref, bias, qh, kh, vh
         torch.cuda.empty_cache()
@@ -472,11 +548,17 @@ def phase_main_path(family, n_batches=2):
 
 def kernel_line(name, source, replaces, launches, rows, worst, per):
     """One kernel's entry: per flagship batch, its calls at the bf16 main-path
-    shapes (``layers`` calls of each such case)."""
+    shapes (``layers`` calls of each such case).  ``ms``, ``plain_ms`` and
+    ``library_ms`` are CUDA events around one call; ``device_ms`` and
+    ``library_device_ms`` the device time from a profiler trace."""
     main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
     per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
-                 for key in ("ms", "plain_ms", "bound_ms")}
-    lib = [r.get("library_ms") for r in main_rows]
+                 for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+
+    def library(key):
+        xs = [r.get(key) for r in main_rows]
+        return None if None in xs else sum(x * r["layers"] for x, r in zip(xs, main_rows))
+
     return {
         "name": name,
         "route": "cuda",
@@ -485,14 +567,47 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
         "launches": launches,
         "max_abs_err": worst,
         "ms": per_batch["ms"],
+        "device_ms": per_batch["device_ms"],
         "plain_ms": per_batch["plain_ms"],
         "bound_ms": per_batch["bound_ms"],
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
                      else "operations"),
-        "library_ms": (None if None in lib
-                       else sum(x * r["layers"] for x, r in zip(lib, main_rows))),
+        "library_ms": library("library_ms"),
+        "library_device_ms": library("library_device_ms"),
         "per": per,
     }
+
+
+def mutation_check() -> int:
+    """Each of MUTATIONS, in a throwaway copy, must make its phase fail."""
+    import shutil
+    import tempfile
+
+    caught = 0
+    for label, rel, old, new, phase in MUTATIONS:
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copytree(os.path.join(REPO, "k2transducerasr_tpu_torch"),
+                            os.path.join(tmp, "k2transducerasr_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            shutil.copy(os.path.abspath(__file__), tmp)
+            path = os.path.join(tmp, rel)
+            with open(path) as f:
+                src = f.read()
+            if old not in src:
+                raise AssertionError(f"mutation {label!r}: {old!r} not in {rel}")
+            with open(path, "w") as f:
+                f.write(src.replace(old, new))
+            code = ("import chip_smoke as c; c.phase_card(); c.phase_build(); "
+                    f"c.{phase}(c.card_bandwidth(c.torch.cuda.get_device_name(0)))")
+            proc = subprocess.run([sys.executable, "-c", code], cwd=tmp, capture_output=True,
+                                  text=True, timeout=900)
+            last = (proc.stderr.strip().splitlines() or [""])[-1]
+            hit = proc.returncode != 0 and "disagrees with plain" in last
+            caught += hit
+            log(f"[mutation] {label}: exit {proc.returncode}, "
+                f"{'caught' if hit else 'NOT caught'}: {last[:300]}")
+    log(f"[mutation] {caught} of {len(MUTATIONS)} caught")
+    return 0 if caught == len(MUTATIONS) else 1
 
 
 def main() -> int:
@@ -500,6 +615,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--mutation-check"]:
+        return mutation_check()
     t_start = time.time()
     phase_card()
     bw = card_bandwidth(torch.cuda.get_device_name(0))

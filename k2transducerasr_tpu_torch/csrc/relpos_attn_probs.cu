@@ -10,28 +10,49 @@
 //     probs[b, h, t, :] = softmax(scores)          -> out dtype (f32 or bf16)
 //
 // The pos term is the skew of pos_q @ pos_k^T over the DESCENDING rel-pos
-// table pos_k [R = T+S-1, H, pd]; it is done as index arithmetic into a
-// window of pos_k staged in shared memory, so no [T, R] tile is ever made.
-// The pos dot runs as pd float32 FMAs in order j = 0..pd-1, as the TPU
-// kernel's pos_vpu path does.  Masks are key-side only, like the TPU kernel.
+// table pos_k [R = T+S-1, H, pd]; no [T, R] tensor is ever made.  Masks are
+// key-side only, like the TPU kernel.  Two bodies, chosen by the operands'
+// dtype inside the one exported function (no flag, no fallback):
+//
+// bfloat16 inputs: tensor cores, two passes over key tiles.  The scores of
+// a 64 x 64 tile come from the shared body in relpos_scores.cuh (mma.sync
+// m16n8k16 with ldmatrix; the position term a 16 x 80 product per warp read
+// back skewed; see its note for the tile design and why mma.sync).  Pass 1
+// runs it over every key tile and keeps only each row's running max and sum
+// in registers; pass 2 recomputes each tile and writes exp(score - max) /
+// sum.  Recomputing doubles the products, which the tensor cores absorb;
+// in exchange no score row lives in shared memory, so any S runs.  Each
+// warp's 16 x 64 probs tile is staged through its shared scratch, so that
+// consecutive lanes store consecutive columns of one row (2-byte stores:
+// rows of [B, H, T, S] start 16-byte aligned only when S % 8 == 0, and the
+// flagship's S = 383 is odd; on an H100 these beat aligned 4-byte pairs
+// with a scalar head, whose strided scratch reads cost more than the
+// stores save).  k and pos_k tiles are double-buffered: tile
+// n+1 loads while tile n computes, by cp.async of 16 bytes where the rows
+// allow it (widths that are multiples of 8), else of 4 bytes (even widths,
+// as zipformer2's pd = 4), else plain element loads (odd widths), chosen at
+// launch by template per operand group; the zero pad columns are written
+// once.
+//
+// float32 inputs: the CUDA-core body below, unchanged from the first port
+// (tensor cores would round f32 to TF32, which the exact float32 paths on
+// the card forbid).  One block of 256 threads per (b, h, `rows` query rows);
+// the whole score rows [rows][S] stay in shared memory in float32, then one
+// warp per row takes the max and sum and writes coalesced rows.  `rows` is
+// chosen by the wrapper so the score rows fit shared memory, which caps S.
+// Its pos dot runs as pd float32 FMAs in order, as the TPU kernel's
+// pos_vpu path does.
 //
 // What bounds it on an H100: writing the probs.  A call reads 2*B*T*H*qd
 // q/k values plus small pos tensors and writes B*H*T*S probs; at the
 // flagship's stack-0 shape (B=16, T=S=1532, H=4, qd=32) that is ~300 MB of
 // bf16 output against ~6 MB of input, ~0.09 ms at 3.35 TB/s.  The products
-// are 2*B*H*T*S*(qd+pd) flops, far below the tensor-core roof.
-//
-// Design (simple and right first; wgmma/TMA and a fused consumer are later
-// work):
-//   * one block of 256 threads per (b, h, block of `rows` query rows);
-//   * the block's q rows and pos_q rows sit in shared memory (zero-padded to
-//     whole float4s) and are read as broadcast float4s;
-//   * each thread owns one key column at a time and holds that key's qd
-//     values in registers, so k is read once per block, straight from L2;
-//   * the score rows [rows][S] stay in shared memory in float32, then one
-//     warp per row takes the row max and sum and writes exp(x - max) / sum
-//     with consecutive lanes on consecutive columns (coalesced stores).
-// `rows` is chosen by the wrapper so the score rows fit shared memory.
+// are 2*B*H*T*S*(qd+pd) flops, far below the tensor-core roof.  The bf16
+// body's own limit, by count, comes before the bytes: shared-memory
+// traffic (the skew's scratch round trip, and pass 2's probs staging) and
+// two exps per probability (one per pass).
+
+#include "relpos_scores.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,15 +60,182 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 namespace {
+
+namespace tc {
+
+namespace rp = relpos;
+using rp::bf16;
+
+struct Args {
+  const bf16 *q, *k, *pq, *pk;
+  const int *lens, *kv_start;
+  void* out;
+  int out_f32, T, S, H, qd, pd, chunk, left;
+};
+
+// QD, PD: q and pos widths, zero-padded in shared memory.  QV, PV:
+// elements per copy (stage()) of q and k rows, and of pos_q and pos_k rows.
+template <int QD, int PD, int QV, int PV>
+__global__ void __launch_bounds__(rp::kThreads, 2) relpos_attn_probs_tc(const Args a) {
+  constexpr int REQ = rp::row_elems<QD>(), REP = rp::row_elems<PD>();
+  constexpr int kBQ = rp::kBQ, kBK = rp::kBK, kWin = rp::kWin;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* scratch = reinterpret_cast<float*>(smem);  // [kWarps][16][kMwStride]
+  bf16* sQ = reinterpret_cast<bf16*>(smem);         // [kBQ][REQ], aliases the scratch
+  bf16* sPQ = sQ + kBQ * REQ;                       // [kBQ][REP], until the fragments load
+  bf16* sK = reinterpret_cast<bf16*>(smem + sizeof(float) * rp::kScratchFloats);  // [2][kBK][REQ]
+  bf16* sPK = sK + 2 * kBK * REQ;  // [2][kWin][REP] pos_k window of the tile
+
+  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int T = a.T, S = a.S;
+  const long long q_stride = (long long)a.H * a.qd, p_stride = (long long)a.H * a.pd;
+  // row t of (b, h) at base + t * stride
+  const bf16* qb = a.q + ((long long)b * T * a.H + h) * a.qd;
+  const bf16* kb = a.k + ((long long)b * S * a.H + h) * a.qd;
+  const bf16* pqb = a.pq + ((long long)b * T * a.H + h) * a.pd;
+  const bf16* pkb = a.pk + (long long)h * a.pd;
+
+  auto stage_tile = [&](int buf, int s0) {
+    rp::stage<QD, QV, kBK>(sK + buf * kBK * REQ, kb, q_stride, s0, 0, S, a.qd);
+    rp::stage<PD, PV, kWin>(sPK + buf * kWin * REP, pkb, p_stride,
+                            rp::pos_window_first(T, t0, s0), 0, T + S - 1, a.pd);
+  };
+  rp::zero_columns<QD>(sQ, kBQ, a.qd);
+  rp::zero_columns<PD>(sPQ, kBQ, a.pd);
+  rp::zero_columns<QD>(sK, 2 * kBK, a.qd);
+  rp::zero_columns<PD>(sPK, 2 * kWin, a.pd);
+  rp::stage<QD, QV, kBQ>(sQ, qb, q_stride, t0, 0, T, a.qd);
+  rp::stage<PD, PV, kBQ>(sPQ, pqb, p_stride, t0, 0, T, a.pd);
+  rp::cp_async_commit();
+  stage_tile(0, 0);
+  rp::cp_async_commit();
+  rp::cp_async_wait<1>();  // the query rows
+  __syncthreads();
+  uint32_t qa[QD / 16][4], pa[PD / 16][4];
+  rp::load_rows<QD>(qa, sQ, warp, lane);
+  rp::load_rows<PD>(pa, sPQ, warp, lane);
+  __syncthreads();  // the scratch is free
+
+  const rp::KeyMask mask(S, a.lens, a.kv_start, b, a.chunk, a.left, t0 + 16 * warp + gid);
+  float* mw = scratch + warp * 16 * rp::kMwStride;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+
+  // steps 0 .. n_tiles-1: pass 1; n_tiles .. 2*n_tiles-1: pass 2, same tiles
+  const int n_tiles = (S + kBK - 1) / kBK;
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    const int s0 = (i < n_tiles ? i : i - n_tiles) * kBK, buf = i & 1;
+    if (i + 1 < 2 * n_tiles) stage_tile(buf ^ 1, (i + 1 < n_tiles ? i + 1 : i + 1 - n_tiles) * kBK);
+    rp::cp_async_commit();
+    rp::cp_async_wait<1>();  // step i's tile has landed
+    __syncthreads();
+
+    float sc[8][4];
+    const bf16* win = sPK + buf * kWin * REP;
+    rp::masked_scores<QD, PD>(sc, qa, pa, sK + buf * kBK * REQ, win, win + kBK * REP, mw, warp,
+                              lane, s0, mask);
+
+    if (i < n_tiles) {
+      // pass 1: running max and sum; fragment row r is sc[j][2r], sc[j][2r+1]
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_run[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        mx = rp::quad_max(mx);  // finite: key s0 < S is in every tile
+        float l = l_part[r] * exp2f((m_run[r] - mx) * rp::kLog2e);  // 0 on the first tile
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) l += exp2f((sc[j][2 * r + e] - mx) * rp::kLog2e);
+        m_run[r] = mx;
+        l_part[r] = l;
+      }
+    } else {
+      if (i == n_tiles) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / rp::quad_sum(l_part[r]);
+      }
+      // pass 2: exp(score - max) / sum, through the scratch
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = exp2f((sc[j][2 * r] - m_run[r]) * rp::kLog2e) * inv_l[r];
+          const float p1 = exp2f((sc[j][2 * r + 1] - m_run[r]) * rp::kLog2e) * inv_l[r];
+          *reinterpret_cast<float2*>(mw + (gid + 8 * r) * rp::kMwStride + 8 * j + 2 * tig) =
+              make_float2(p0, p1);
+        }
+      __syncwarp();
+      // row rr of the warp, columns lane and lane + 32
+      const long long first = (((long long)b * a.H + h) * T + t0 + 16 * warp) * S + s0;
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        if (t0 + 16 * warp + rr >= T) break;
+#pragma unroll
+        for (int c = lane; c < kBK; c += 32) {
+          if (s0 + c >= S) break;
+          const float x = mw[rr * rp::kMwStride + c];
+          if (a.out_f32)
+            static_cast<float*>(a.out)[first + rr * S + c] = x;
+          else
+            static_cast<bf16*>(a.out)[first + rr * S + c] = __float2bfloat16_rn(x);
+        }
+      }
+      __syncwarp();  // the scratch is free for the next tile's position term
+    }
+    __syncthreads();  // every warp is done with this buffer before it is restaged
+  }
+}
+
+template <int QD, int PD, int QV, int PV>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  constexpr int REQ = rp::row_elems<QD>(), REP = rp::row_elems<PD>();
+  static_assert(rp::kBQ * (REQ + REP) * sizeof(bf16) <= sizeof(float) * rp::kScratchFloats,
+                "the query rows are staged in the scratch");
+  constexpr size_t smem = sizeof(float) * rp::kScratchFloats +
+                          sizeof(bf16) * (2 * rp::kBK * REQ + 2 * rp::kWin * REP);
+  // all of the SM's L1 as shared memory, or fewer blocks fit an SM
+  const cudaError_t err = rp::allow_smem<relpos_attn_probs_tc<QD, PD, QV, PV>>(smem, true);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + rp::kBQ - 1) / rp::kBQ, a.H, B);
+  relpos_attn_probs_tc<QD, PD, QV, PV><<<grid, rp::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int QD, int PD>
+cudaError_t launch_widths(const Args& a, int B, cudaStream_t stream) {
+  const int qv = std::min(rp::copy_elems(a.qd, a.q), rp::copy_elems(a.qd, a.k));
+  const int pv = std::min(rp::copy_elems(a.pd, a.pq), rp::copy_elems(a.pd, a.pk));
+  return rp::with_copy_widths(qv, pv, [&](auto QV, auto PV) {
+    return launch<QD, PD, decltype(QV)::value, decltype(PV)::value>(a, B, stream);
+  });
+}
+
+template <int QD>
+cudaError_t launch_pd(const Args& a, int B, cudaStream_t stream) {
+  if (a.pd <= 16) return launch_widths<QD, 16>(a, B, stream);
+  return launch_widths<QD, 64>(a, B, stream);
+}
+
+cudaError_t run(const Args& a, int B, cudaStream_t stream) {
+  if (a.qd <= 16) return launch_pd<16>(a, B, stream);
+  if (a.qd <= 32) return launch_pd<32>(a, B, stream);
+  return launch_pd<64>(a, B, stream);
+}
+
+}  // namespace tc
+
+namespace cuda_core {
 
 constexpr float kNegInf = -1e9f;  // ops/layers.NEG_INF
 constexpr int kMaxQd = 64;        // q row stride in shared memory
 constexpr int kMaxPd = 8;         // pos_q row stride in shared memory
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -77,10 +265,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // QD: register length of one key vector (qd <= QD, zero-padded).
-template <typename Tin, typename Tout, int QD>
+template <typename Tout, int QD>
 __global__ void __launch_bounds__(kThreads)
-relpos_attn_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
-                         const Tin* __restrict__ pq, const Tin* __restrict__ pk,
+relpos_attn_probs_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ pq, const float* __restrict__ pk,
                          const int* __restrict__ lens, const int* __restrict__ kv_start,
                          Tout* __restrict__ out, int T, int S, int H, int qd, int pd,
                          int chunk, int left, int rows) {
@@ -101,26 +289,26 @@ relpos_attn_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   for (int i = threadIdx.x; i < rows * kMaxQd; i += blockDim.x) {
     const int r = i / kMaxQd, d = i % kMaxQd;
     sq[i] = (r < nrows && d < qd)
-                ? to_f32(q[(((size_t)b * T + t0 + r) * H + h) * qd + d]) : 0.f;
+                ? q[(((size_t)b * T + t0 + r) * H + h) * qd + d] : 0.f;
   }
   for (int i = threadIdx.x; i < rows * kMaxPd; i += blockDim.x) {
     const int r = i / kMaxPd, j = i % kMaxPd;
     spq[i] = (r < nrows && j < pd)
-                 ? to_f32(pq[(((size_t)b * T + t0 + r) * H + h) * pd + j]) : 0.f;
+                 ? pq[(((size_t)b * T + t0 + r) * H + h) * pd + j] : 0.f;
   }
   for (int i = threadIdx.x; i < nm * pd4; i += blockDim.x) {
     const int m = i / pd4, j = i % pd4;
-    spk[i] = j < pd ? to_f32(pk[((size_t)(m_lo + m) * H + h) * pd + j]) : 0.f;
+    spk[i] = j < pd ? pk[((size_t)(m_lo + m) * H + h) * pd + j] : 0.f;
   }
   __syncthreads();
 
-  const int limit = min(lens[b], S);
-  const int start = kv_start[b];
+  const int limit = relpos::lane_limit(lens, b, S);
+  const int start = relpos::lane_start(kv_start, b);
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     float kr[QD];
-    const Tin* kp = k + (((size_t)b * S + s) * H + h) * qd;
+    const float* kp = k + (((size_t)b * S + s) * H + h) * qd;
 #pragma unroll
-    for (int d = 0; d < QD; ++d) kr[d] = d < qd ? to_f32(kp[d]) : 0.f;
+    for (int d = 0; d < QD; ++d) kr[d] = d < qd ? kp[d] : 0.f;
     const bool key_ok = s < limit && s >= start;
     for (int r = 0; r < nrows; ++r) {
       const float4* q4 = reinterpret_cast<const float4*>(sq + r * kMaxQd);
@@ -172,39 +360,41 @@ relpos_attn_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 }
 
-template <typename Tin, typename Tout, int QD>
-cudaError_t launch(const void* q, const void* k, const void* pq, const void* pk,
+template <typename Tout, int QD>
+cudaError_t launch(const float* q, const float* k, const float* pq, const float* pk,
                    const int* lens, const int* kv_start, void* out, int B, int T, int S,
                    int H, int qd, int pd, int chunk, int left, int rows, cudaStream_t stream) {
   const size_t smem = smem_bytes(rows, S, pd);
-  auto kern = relpos_attn_probs_kernel<Tin, Tout, QD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = relpos::allow_smem<relpos_attn_probs_kernel<Tout, QD>>(smem, false);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + rows - 1) / rows, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(q), static_cast<const Tin*>(k), static_cast<const Tin*>(pq),
-      static_cast<const Tin*>(pk), lens, kv_start, static_cast<Tout*>(out), T, S, H, qd, pd,
-      chunk, left, rows);
+  relpos_attn_probs_kernel<Tout, QD><<<grid, kThreads, smem, stream>>>(
+      q, k, pq, pk, lens, kv_start, static_cast<Tout*>(out), T, S, H, qd, pd, chunk, left, rows);
   return cudaGetLastError();
 }
 
-template <typename Tin, typename Tout>
-cudaError_t dispatch_qd(const void* q, const void* k, const void* pq, const void* pk,
+template <typename Tout>
+cudaError_t dispatch_qd(const float* q, const float* k, const float* pq, const float* pk,
                         const int* lens, const int* kv_start, void* out, int B, int T,
                         int S, int H, int qd, int pd, int chunk, int left, int rows,
                         cudaStream_t stream) {
   if (qd <= 32)
-    return launch<Tin, Tout, 32>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd,
-                                 chunk, left, rows, stream);
-  return launch<Tin, Tout, kMaxQd>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd,
-                                   chunk, left, rows, stream);
+    return launch<Tout, 32>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left,
+                            rows, stream);
+  return launch<Tout, kMaxQd>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk,
+                              left, rows, stream);
 }
+
+}  // namespace cuda_core
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t
-// (0 on success); the wrapper validates shapes, dtypes and qd/pd limits.
+// dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 inputs run the
+// tensor-core body (qd, pd <= 64, any S; `rows` unused), float32 inputs the
+// CUDA-core body (qd <= 64, pd <= 8, `rows` query rows per block).  A null
+// `lens` means every key is valid, a null `kv_start` means 0.  Returns
+// the launch's cudaError_t (0 on success); the wrapper validates shapes,
+// dtypes and these limits.
 extern "C" int k2t_relpos_attn_probs(const void* q, const void* k, const void* pq,
                                      const void* pk, const void* lens, const void* kv_start,
                                      void* out, int B, int T, int S, int H, int qd, int pd,
@@ -213,18 +403,22 @@ extern "C" int k2t_relpos_attn_probs(const void* q, const void* k, const void* p
   const int* ln = static_cast<const int*>(lens);
   const int* ks = static_cast<const int*>(kv_start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qd > kMaxQd || pd > kMaxPd || rows <= 0) return (int)cudaErrorInvalidValue;
-  if (in_dtype == 0 && out_dtype == 0)
-    return dispatch_qd<float, float>(q, k, pq, pk, ln, ks, out, B, T, S, H, qd, pd, chunk,
-                                     left, rows, st);
-  if (in_dtype == 0 && out_dtype == 1)
-    return dispatch_qd<float, __nv_bfloat16>(q, k, pq, pk, ln, ks, out, B, T, S, H, qd, pd,
-                                             chunk, left, rows, st);
-  if (in_dtype == 1 && out_dtype == 0)
-    return dispatch_qd<__nv_bfloat16, float>(q, k, pq, pk, ln, ks, out, B, T, S, H, qd, pd,
-                                             chunk, left, rows, st);
-  if (in_dtype == 1 && out_dtype == 1)
-    return dispatch_qd<__nv_bfloat16, __nv_bfloat16>(q, k, pq, pk, ln, ks, out, B, T, S, H,
-                                                     qd, pd, chunk, left, rows, st);
-  return (int)cudaErrorInvalidValue;
+  if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (in_dtype == 1) {
+    if (qd > 64 || pd > 64) return (int)cudaErrorInvalidValue;
+    using tc::bf16;
+    const tc::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(pq), static_cast<const bf16*>(pk), ln, ks, out,
+                     out_dtype == 0, T, S, H, qd, pd, chunk, left};
+    return (int)tc::run(a, B, st);
+  }
+  if (in_dtype != 0 || qd > cuda_core::kMaxQd || pd > cuda_core::kMaxPd || rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+              *fpq = static_cast<const float*>(pq), *fpk = static_cast<const float*>(pk);
+  if (out_dtype == 0)
+    return cuda_core::dispatch_qd<float>(fq, fk, fpq, fpk, ln, ks, out, B, T, S, H, qd, pd, chunk,
+                                         left, rows, st);
+  return cuda_core::dispatch_qd<__nv_bfloat16>(fq, fk, fpq, fpk, ln, ks, out, B, T, S, H, qd, pd,
+                                               chunk, left, rows, st);
 }

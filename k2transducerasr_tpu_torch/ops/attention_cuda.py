@@ -23,10 +23,16 @@ T == S).  Invalid query rows therefore differ from a query+key mask
 launches (the CPU path does not count), so a run can show that the main path
 went through the kernels.
 
-Limits: K1 keeps whole score rows in shared memory, so S is at most 11,249
-keys (pd = 4): about 3.7 minutes of audio in one utterance at the
-zipformer2's stack 0; longer inputs raise ValueError.  K2 tiles the key axis
-and takes any S; it takes qd, pd and vd up to 64.
+Two bodies per kernel, chosen by the operands' dtype inside one C entry
+point: bf16 inputs run on the tensor cores around one shared score tile
+(``csrc/relpos_scores.cuh``), float32 inputs on the CUDA cores (tensor
+cores would round them to TF32).
+
+Limits: for bf16 inputs both kernels tile the key axis and take any S, with
+qd and pd (and K2's vd) up to 64.  K1's float32 body keeps whole score rows
+in shared memory, so there S is at most 11,249 keys (pd = 4) and pd at most
+8; longer inputs raise ValueError.  K2's float32 body takes any S and qd,
+pd and vd up to 64.
 """
 
 from __future__ import annotations
@@ -40,21 +46,31 @@ from k2transducerasr_tpu_torch.ops.attention import chunk_causal_mask, rel_shift
 from k2transducerasr_tpu_torch.ops.layers import NEG_INF, length_mask
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# K1 holds one key's q-dim vector in registers (templated at 32/64) and the
-# pos-dim vectors in shared memory
-_MAX_QD = 64
-_MAX_PD = 8
-_ROWS = 8  # K1: query rows per block
-_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a K1 block may use (bytes)
+_MAX_QD = 64  # K1: widest q head (both bodies)
+_MAX_PD = 8  # K1's float32 body: its pos rows sit in shared memory 8 wide
+_TC_MAX_D = 64  # the bf16 bodies: q and pos rows zero-padded to 16, 32 or 64
+_ROWS = 8  # K1's float32 body: query rows per block
+_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a K1 float32 block may use (bytes)
 _CTX_MAX_D = 64  # K2: widest q, pos and value head
 
 _PROBS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CTX_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
+def _probs_max_widths(dtype) -> tuple[int, int]:
+    """K1's widest (qd, pd) for inputs of ``dtype``."""
+    return (_MAX_QD, _TC_MAX_D) if dtype == torch.bfloat16 else (_MAX_QD, _MAX_PD)
+
+
+def _probs_rows(dtype, s: int, t: int, pd: int) -> int:
+    """K1's ``rows`` argument: 0 for bf16 (the tensor-core body tiles the key
+    axis and takes any S), else the float32 body's rows per block."""
+    return 0 if dtype == torch.bfloat16 else _rows_for(s, t, pd)
+
+
 def _rows_for(s: int, t: int, pd: int) -> int:
-    """K1's query rows per block: up to ``_ROWS``, fewer when a long key axis
-    would not fit the block's score rows in shared memory."""
+    """K1's float32 query rows per block: up to ``_ROWS``, fewer when a long
+    key axis would not fit the block's score rows in shared memory."""
     rows = min(_ROWS, t)
     while rows > 0 and _smem_bytes(rows, s, pd) > _SMEM_BUDGET:
         rows -= 1
@@ -110,7 +126,18 @@ def _check_shapes(q, k, pos_q, pos_k, v=None):
         raise ValueError(f"empty attention (B={b} T={t} S={s} H={h})")
 
 
-def _launch_error(name: str, err: int):
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream, with ``device`` as the current device.  The raw stream handle
+    and the device check are the cheap forms of ``current_stream()`` and
+    ``torch.cuda.device``: the host's time here is time the card idles when
+    the queue is empty."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -144,23 +171,21 @@ def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
     out_dtype = out_dtype or q.dtype
     _check_operands({"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k}, q, out_dtype)
     _check_shapes(q, k, pos_q, pos_k)
-    if qd > _MAX_QD or pd > _MAX_PD:
-        raise ValueError(f"kernel takes qd <= {_MAX_QD} and pd <= {_MAX_PD}, got {qd}, {pd}")
-    lens = _lane_ints(lens, b, s, q.device)
-    kv_start = _lane_ints(kv_start, b, 0, q.device)
-    rows = _rows_for(s, t, pd)
+    max_qd, max_pd = _probs_max_widths(q.dtype)
+    if qd > max_qd or pd > max_pd:
+        raise ValueError(f"kernel takes qd <= {max_qd} and pd <= {max_pd} for {q.dtype}, "
+                         f"got {qd}, {pd}")
+    lens = _lane_ints(lens, b, q.device)
+    kv_start = _lane_ints(kv_start, b, q.device)
+    rows = _probs_rows(q.dtype, s, t, pd)
 
     out = torch.empty((b, h, t, s), dtype=out_dtype, device=q.device)
     fn = cuda_build.function("relpos_attn_probs", "k2t_relpos_attn_probs", _PROBS_ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(
+    _launch("relpos_attn_probs", fn, q.device,
             q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
-            lens.data_ptr(), kv_start.data_ptr(), out.data_ptr(),
+            _ptr(lens), _ptr(kv_start), out.data_ptr(),
             b, t, s, h, qd, pd, int(chunk), int(left), rows,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _launch_error("relpos_attn_probs", err)
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype])
     relpos_attn_probs.launches += 1
     return out
 
@@ -176,9 +201,13 @@ def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
     v:     [B, S, H, vd]   per-head values (vd may differ from qd)
     Returns ctx [B, T, H, vd] in ``out_dtype`` (default: q.dtype).
 
-    The kernel keeps the probabilities in float32 (online softmax); the plain
-    version rounds them to v's dtype first, as the TPU kernel does — see the
-    rounding note in ``csrc/relpos_attn_ctx.cu``.
+    Rounding: the kernel's softmax is online.  With bf16 inputs it rounds the
+    UNNORMALISED probabilities to bf16 before the product with v and divides
+    by the row sum last; the plain version rounds the normalised ones, as the
+    TPU kernel does, so the two differ by at most 2^-8 * max|v| before the
+    output's own rounding.  With float32 inputs the kernel keeps the
+    probabilities in float32: the same function up to summation order.  See
+    the note in ``csrc/relpos_attn_ctx.cu``.
     """
     _check_contract(q, k, pos_q, pos_k, chunk, v)
     if q.device.type == "cpu":
@@ -196,20 +225,16 @@ def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
     _check_shapes(q, k, pos_q, pos_k, v)
     if max(qd, pd, vd) > _CTX_MAX_D:
         raise ValueError(f"kernel takes qd, pd and vd <= {_CTX_MAX_D}, got {qd}, {pd}, {vd}")
-    lens = _lane_ints(lens, b, s, q.device)
-    kv_start = _lane_ints(kv_start, b, 0, q.device)
+    lens = _lane_ints(lens, b, q.device)
+    kv_start = _lane_ints(kv_start, b, q.device)
 
     out = torch.empty((b, t, h, vd), dtype=out_dtype, device=q.device)
     fn = cuda_build.function("relpos_attn_ctx", "k2t_relpos_attn_ctx", _CTX_ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(
+    _launch("relpos_attn_ctx", fn, q.device,
             q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
-            lens.data_ptr(), kv_start.data_ptr(), out.data_ptr(),
+            _ptr(lens), _ptr(kv_start), out.data_ptr(),
             b, t, s, h, qd, pd, vd, int(chunk), int(left),
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _launch_error("relpos_attn_ctx", err)
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype])
     relpos_attn_ctx.launches += 1
     return out
 
@@ -217,16 +242,21 @@ def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
 relpos_attn_ctx.launches = 0
 
 
-def _lane_ints(x, b: int, fill: int, device) -> torch.Tensor:
-    """[B] int32 contiguous on ``device`` (``fill`` for None)."""
+def _lane_ints(x, b: int, device) -> torch.Tensor | None:
+    """[B] int32 contiguous on ``device``; None stays None (the kernels read a
+    null ``lens`` as all S keys valid and a null ``kv_start`` as 0)."""
     if x is None:
-        return torch.full((b,), fill, dtype=torch.int32, device=device)
+        return None
     x = torch.as_tensor(x)
     if x.shape != (b,):
         raise ValueError(f"per-lane tensor shape {tuple(x.shape)} != ({b},)")
     if x.device != device:
         raise ValueError(f"per-lane tensor on {x.device}, expected {device}")
     return x.to(torch.int32).contiguous()
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def _masked_scores(q, k, pos_q, pos_k, lens, chunk: int, left: int, kv_start):

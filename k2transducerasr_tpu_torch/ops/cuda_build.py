@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for sm_90a into a shared library with a
 plain C interface, at first use, into ``_build/`` beside this package, and
 loaded with ctypes.  The library's file name carries a hash of the source
-bytes and the flags, so an edited source never loads a stale build.
+bytes, of every header ``csrc/*.cuh`` and of the flags, so an edited source
+or header never loads a stale build.
 Importing this module needs neither ``nvcc`` nor a card.
 
     fn = cuda_build.function("relpos_attn_ctx", "k2t_relpos_attn_ctx", argtypes)
@@ -38,12 +39,18 @@ def source_path(name: str) -> str:
 
 def library_path(name: str, source: bytes | None = None) -> str:
     """Where ``name``'s library lives: ``_build/lib<name>_<hash>.so``, the
-    hash over ``source`` (default: the file's bytes) and ``NVCC_FLAGS``."""
+    hash over ``source`` (default: the file's bytes), every ``csrc/*.cuh``
+    in sorted order (name and bytes) and ``NVCC_FLAGS``."""
     if source is None:
         with open(source_path(name), "rb") as f:
             source = f.read()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(source)
+    for header in sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, header), "rb") as f:
+            body = f.read()
+        h.update(f"\0{header}\0{len(body)}\0".encode() + body)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _nvcc() -> str:
