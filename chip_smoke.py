@@ -8,20 +8,27 @@ Phases (any failure exits non-zero; none is caught):
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      started together);
   3. K1 (relpos_attn_probs) against its plain PyTorch version on the card,
-     at the shapes the zipformer2 main path gives it, with its time, the
-     plain version's time and the bound.  A kernel's ``ms`` is CUDA events
+     at the shapes the zipformer2 main paths give it (the offline stacks and
+     the six streaming stacks, T != S with kv_start per lane), with its time,
+     the plain version's time and the bound.  A kernel's ``ms`` is CUDA events
      around one call from an empty queue (the host's time to prepare and
      launch it included); ``device_ms`` beside it is the kernel's own time
      from a profiler trace, and ``host_us`` the wrapper's host time per call;
-  3b. K2 (relpos_attn_ctx) the same at the conformer's shapes, plus the
-     time of scaled_dot_product_attention on the same function (yardstick);
+  3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
+     streaming), plus the time of scaled_dot_product_attention on the same
+     function (yardstick);
   4. each committed pin model dir (zipformer2, conformer), float32 on the
-     card, must give its pinned transcript and timestamps exactly;
+     card, must give its pinned transcript and timestamps exactly, offline
+     and through OnlineRecognizer.decode_to_end (the online pin);
   5. each family at full width from a seed, one 5 s utterance in float32:
-     card (kernel) against CPU (plain) — encoder output within tolerance,
-     tokens identical;
-  6. each main path at full width: bf16, batches of 16 x 30 s through
-     begin_decode/end_decode, every kernel's launches counted from 0.
+     card (kernel) against CPU (plain) — offline encoder output and each
+     streaming step's encoder output within tolerance, tokens and
+     timestamps identical;
+  6. each offline main path at full width: bf16, batches of 16 x 30 s
+     through begin_decode/end_decode, every kernel's launches counted from 0;
+  6b. each streaming main path at full width (the causal flagship config):
+     bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
+     per step; per-step latency, streaming RTF and the launches per step.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
 
@@ -34,6 +41,7 @@ must fail (exit 0 when every mutation was caught).
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -45,25 +53,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer
+from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
+from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute
 from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
+from k2transducerasr_tpu_torch.runtime.checkpoint import tree_map
+from k2transducerasr_tpu_torch.runtime.device import exact_f32
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
 
-# family -> its config, the kernel its attention launches (and how often per
-# flagship batch), and its pin (tests/test_pinned_transcripts.py)
+# family -> its config and causal (streaming) config, the kernel its attention
+# launches (once per layer: per flagship batch and per streaming step), and
+# its pins (tests/test_pinned_transcripts.py)
 FAMILIES = {
-    "zipformer2": dict(cfg=Zipformer2Config, kernel="relpos_attn_probs",
+    "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
+                       kernel="relpos_attn_probs",
                        per_batch=sum(Zipformer2Config().num_encoder_layers),
                        pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
-                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7]),
-    "conformer": dict(cfg=ConformerConfig, kernel="relpos_attn_ctx",
+                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
+                       online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6"),
+    "conformer": dict(cfg=ConformerConfig, stream_cfg=lambda: ConformerConfig(causal=True),
+                      kernel="relpos_attn_ctx",
                       per_batch=ConformerConfig().num_layers,
-                      pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7]),
+                      pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
+                      online_pin_text="tok28tok28tok28tok28"),
 }
 KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx}
 
@@ -77,6 +93,13 @@ QD, PD = 32, 4
 # ((3072-1)//2 - 1)//2 = 767 frames after the subsampling, 8 heads of 64,
 # 12 layers
 CONF_T, CONF_H, CONF_D = 767, 8, 64
+# the streaming stacks of Zipformer2Config(causal=True) (chunk 32, left 128):
+# (T = stack chunk, S = stack left + T, H, layers); a lane's kv_start is in
+# [0, S - T].  Conformer: ConformerConfig(causal=True), T=16, S=64+16.
+_ZS = Zipformer2Config(causal=True)
+STREAM_STACKS = [(_ZS.stack_chunk(i), _ZS.stack_left(i) + _ZS.stack_chunk(i), _ZS.num_heads[i],
+                  _ZS.num_encoder_layers[i]) for i in range(_ZS.num_stacks)]
+STREAM_LANES = 16
 
 F32_ATOL = 1e-5  # kernel vs plain, float32: summation order only
 BF16_ULPS = 1    # K1 vs plain, bf16 probs: both round one f32 value
@@ -92,6 +115,8 @@ MUTATIONS = [
      "rp::pos_window_first(T, t0, 0)", "rp::pos_window_first(S, t0, 0)", "phase_k2"),
     ("K1 pass 2 without the division by the row sum",
      "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu", " * inv_l[r];", ";", "phase_k1"),
+    ("K1 bf16 without the kv_start mask", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
+     "rp::KeyMask mask(S, a.lens, a.kv_start,", "rp::KeyMask mask(S, a.lens, nullptr,", "phase_k1"),
 ]
 
 
@@ -208,6 +233,15 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def reset_peak_memory():
+    """Start a peak-memory window holding only what is alive: an earlier
+    phase's recognizer and its streams refer to each other, so their bundle
+    stays on the card until the cycle collector runs."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def bound(nbytes, ops, dtype, bw):
     t_bytes, t_ops = nbytes / bw * 1e3, ops / peak_flops(dtype) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -282,9 +316,12 @@ def _bf16_ulp(ref):
 
 
 def _kv_start(b, t, s):
+    """Per-lane first valid key, drawn from [0, S - T] (a streaming lane's
+    cache gating), with lane 0 at 0 (every cache slot filled) and lane 1 at
+    S - T (a fresh stream: only the chunk's own keys)."""
     kv = torch.randint(0, s - t + 1, (b,), device="cuda", dtype=torch.int32,
                        generator=torch.Generator(device="cuda").manual_seed(b + s))
-    kv[0] = 0
+    kv[0], kv[1] = 0, s - t
     return kv
 
 
@@ -294,18 +331,22 @@ def phase_k1(bw):
     cases = []
     for si, (t, h, layers) in enumerate(FLAGSHIP_STACKS):
         for dtype in (torch.bfloat16, torch.float32):
-            cases.append((f"stack{si}", FLAGSHIP_B, t, t, h, dtype, {}, layers))
+            cases.append((f"stack{si}", FLAGSHIP_B, t, t, h, dtype, {}, layers, 0))
     t0 = FLAGSHIP_STACKS[0][0]
     cases.append(("stack0-chunk32-left128", FLAGSHIP_B, t0, t0, 4, torch.bfloat16,
-                  {"chunk": 32, "left": 128}, 0))
+                  {"chunk": 32, "left": 128}, 0, 0))
     cases.append(("stack0-chunk32-left128", FLAGSHIP_B, t0, t0, 4, torch.float32,
-                  {"chunk": 32, "left": 128}, 0))
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(("kv_start-T32-S160", FLAGSHIP_B, 32, 160, 4, dtype, {"kv_start": True}, 0))
+                  {"chunk": 32, "left": 128}, 0, 0))
+    # the streaming main path: one call per layer and step at each stack's
+    # (T, S), kv_start per lane
+    for si, (t, s, h, layers) in enumerate(STREAM_STACKS):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"stream-stack{si}-T{t}-S{s}", STREAM_LANES, t, s, h, dtype,
+                          {"kv_start": True}, 0, layers))
     # past the float32 body's shared-memory cap of 11,249 keys: bf16 takes any S
-    cases.append(("long-T32-S12000", FLAGSHIP_B, 32, 12000, 4, torch.bfloat16, {}, 0))
+    cases.append(("long-T32-S12000", FLAGSHIP_B, 32, 12000, 4, torch.bfloat16, {}, 0, 0))
 
-    for name, b, t, s, h, dtype, kw, layers in cases:
+    for name, b, t, s, h, dtype, kw, layers, stream_layers in cases:
         q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows))
         kw = dict(kw)
         if kw.pop("kv_start", False):
@@ -327,7 +368,8 @@ def phase_k1(bw):
                            reps=5, warm=1)
         bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype), dtype, bw)
         rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": t, "S": s,
-                     "H": h, "layers": layers, "max_abs_err": err, "ms": ms,
+                     "H": h, "layers": layers, "stream_layers": stream_layers,
+                     "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"[3] K1 {name:24s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h}: "
@@ -391,17 +433,21 @@ def phase_k2(bw):
     before the timed call and not timed)."""
     b, t, h, d = FLAGSHIP_B, CONF_T, CONF_H, CONF_D
     layers = FAMILIES["conformer"]["per_batch"]
+    scfg = FAMILIES["conformer"]["stream_cfg"]()
+    ts, ss = scfg.chunk_size, scfg.left_context + scfg.chunk_size
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        cases.append(("flagship-ragged", t, t, d, dtype, {"lens": True}, layers))
+        cases.append(("flagship-ragged", t, t, d, dtype, {"lens": True}, layers, 0))
         cases.append(("flagship-chunk16-left64", t, t, d, dtype,
-                      {"lens": True, "chunk": 16, "left": 64}, 0))
-        cases.append(("kv_start-T16-S80", 16, 80, d, dtype, {"kv_start": True}, 0))
-    cases.append(("flagship-vd32", t, t, 32, torch.bfloat16, {"lens": True}, 0))
+                      {"lens": True, "chunk": 16, "left": 64}, 0, 0))
+        # the streaming main path: every layer, every step; kv_start in [0, 64]
+        cases.append((f"kv_start-T{ts}-S{ss}", ts, ss, d, dtype, {"kv_start": True}, 0,
+                      scfg.num_layers))
+    cases.append(("flagship-vd32", t, t, 32, torch.bfloat16, {"lens": True}, 0, 0))
 
     rows = []
     worst = 0.0
-    for name, tq, s, vd, dtype, kw, n_layers in cases:
+    for name, tq, s, vd, dtype, kw, n_layers, stream_layers in cases:
         q, k, pq, pk, v = _k2_inputs(b, tq, s, h, d, vd, dtype, seed=100 + len(rows))
         kw = dict(kw)
         lens = _ragged_lens(b, s) if kw.pop("lens", False) else None
@@ -436,6 +482,7 @@ def phase_k2(bw):
         bound_ms, bound_by = bound(*_k2_bytes_ops(b, tq, s, h, d, vd, dtype), dtype, bw)
         rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": tq,
                      "S": s, "H": h, "d": d, "vd": vd, "layers": n_layers,
+                     "stream_layers": stream_layers,
                      "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
@@ -463,6 +510,77 @@ def phase_golden(family):
         raise AssertionError(f"{family} pin mismatch: {res.text!r} {res.timestamps}")
     if counts[spec["kernel"]] == 0:
         raise AssertionError(f"{family} pin decode did not launch {spec['kernel']}")
+
+
+def phase_online_pin(family):
+    """The online pin: the pin dir's bundle through OnlineRecognizer on the
+    card, f32, decode_to_end (the tail flush included)."""
+    spec = FAMILIES[family]
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    rec = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=2, device="cuda")
+    stream = rec.create_online_stream()
+    stream.add_samples(pin_pcm(6400))
+    reset_counts()
+    res = rec.decode_to_end(stream)
+    counts = read_counts()
+    log(f"[4] {family} online pin on card: {res.text!r} {res.timestamps} (launches {counts})")
+    if res.text != spec["online_pin_text"]:
+        raise AssertionError(f"{family} online pin mismatch: {res.text!r}")
+    if counts[spec["kernel"]] == 0:
+        raise AssertionError(f"{family} online pin did not launch {spec['kernel']}")
+
+
+def stream_encoder_outputs(rec, pcm):
+    """Each window's encoder output for one stream, f32: the recognizer's
+    windows (tail flush included), int16 samples and fbank tables, stepped
+    through the family's streaming_step."""
+    b = rec.bundle
+    stream = rec.create_online_stream()
+    stream.add_samples(pcm)
+    stream.input_finished()
+    state = rec._enc.init_state(b.encoder_cfg, 1, rec.device)
+    outs = []
+    with torch.inference_mode(), exact_f32():
+        while stream._ready():
+            w = np.clip(stream._take_window() * 32768.0, -32768, 32767).astype(np.int16)
+            x = torch.from_numpy(w).to(rec.device)[None].float() * (1.0 / 32768.0)
+            feats = fbank_compute(x, b.frontend_cfg, b.encoder_cfg.chunk_input_len,
+                                  tables=rec._fbank_tables)
+            out, state = rec._enc.streaming_step(b.encoder, b.encoder_cfg, state, feats, None)
+            outs.append(out.cpu())
+    rec.dispose_stream(stream)
+    return outs
+
+
+def phase_streaming_vs_cpu(family):
+    """The streaming path at full width (the causal flagship config), one
+    5 s stream from a seed, f32: card (kernel) against CPU (plain), each
+    step's encoder output and the final tokens and timestamps."""
+    cfg = FAMILIES[family]["stream_cfg"]()
+    pcm = synth_pcm(5 * 16000, 202)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        bundle = ModelBundle.random(family, cfg, vocab_size=500, seed=0, device=dev)
+        rec = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=2, device=dev)
+        t0 = time.time()
+        steps = stream_encoder_outputs(rec, pcm)
+        stream = rec.create_online_stream()
+        stream.add_samples(pcm)
+        res = rec.decode_to_end(stream)
+        outs[dev] = (steps, res)
+        log(f"[5] {family} streaming full width f32 on {dev}: {len(steps)} steps of "
+            f"{tuple(steps[0].shape)}, {len(res.tokens)} tokens, {time.time() - t0:.1f} s")
+    (sg, rg), (sc, rc) = outs["cuda"], outs["cpu"]
+    if len(sg) != len(sc):
+        raise AssertionError(f"{family} streaming step counts differ: {len(sg)} vs {len(sc)}")
+    diff = max(float((g - c).abs().max()) for g, c in zip(sg, sc))
+    log(f"[5] {family} streaming encoder card vs CPU: max abs diff over {len(sg)} steps "
+        f"{diff:.3e}; tokens identical: {rg.tokens == rc.tokens}")
+    for i, (g, c) in enumerate(zip(sg, sc)):
+        if not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"{family} streaming step {i} card vs CPU beyond rtol/atol 1e-3")
+    if rg.tokens != rc.tokens or rg.timestamps != rc.timestamps:
+        raise AssertionError(f"{family}: streaming tokens differ between card and CPU")
 
 
 def phase_full_width_vs_cpu(family):
@@ -500,8 +618,7 @@ def phase_main_path(family, n_batches=2):
     batches = [streams_for(rec, [synth_pcm(n, k * FLAGSHIP_B + i) for i in range(FLAGSHIP_B)])
                for k in range(n_batches + 1)]
     rec.get_results(batches[0])  # warm-up (cuBLAS/cuDNN handles, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
 
     reset_counts()
     t0 = time.time()
@@ -546,25 +663,146 @@ def phase_main_path(family, n_batches=2):
     return counts[spec["kernel"]]
 
 
+def phase_streaming_main_path(family, seconds=30.0):
+    """The streaming main path as benchmarks/streaming_latency.py drives the
+    JAX recognizer: the causal flagship config at bf16, STREAM_LANES lanes
+    of ``seconds`` of audio each buffered up front, get_results over every
+    lane until none has a window; one warm-up step, then each step timed on
+    the host clock (get_results ends in the readback).  Every kernel's
+    launches are counted from 0 over the timed steps."""
+    spec = FAMILIES[family]
+    bundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
+                                device="cuda")
+    rec = OnlineRecognizer(bundle, max_lanes=STREAM_LANES, device="cuda")  # bf16 compute
+    n = int(16000 * seconds)
+    streams = []
+    for i in range(STREAM_LANES):
+        s = rec.create_online_stream()
+        s.add_samples(synth_pcm(n, 300 + i))
+        streams.append(s)
+    rec.get_results(streams)  # warm-up (cuBLAS/cuDNN handles, allocator)
+    busy = device_busy_share(lambda: rec.get_results(streams), reps=3)
+    reset_peak_memory()
+
+    reset_counts()
+    lat = []
+    t_start = time.perf_counter()
+    while any(s._ready() for s in streams):
+        t0 = time.perf_counter()
+        results = rec.get_results(streams)
+        lat.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_start
+    counts = read_counts()
+
+    steps = len(lat)
+    per_step = spec["per_batch"]  # one call per layer
+    want = {name: (per_step * steps if name == spec["kernel"] else 0) for name in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{family} streaming main path launched {counts} in {steps} steps, "
+                             f"expected {want}")
+    hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
+    lat_ms = np.array(lat) * 1e3
+    p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
+    toks = [len(r.tokens) for r in results]
+    if min(toks) == 0 or max(toks) > rec.max_tokens:
+        raise AssertionError(f"{family} streaming: implausible token counts {toks}")
+    row = {"family": family, "lanes": STREAM_LANES, "steps": steps, "p50_ms": p50,
+           "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
+           "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": counts[spec["kernel"]], "launches_per_step": per_step,
+           "device_busy_share": busy, "stages_ms": stream_stage_split(rec)}
+    log(f"[6b] {family} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
+        f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
+        f"{hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, {row['audio_s_per_s']:.1f} audio-s/s, "
+        f"peak {row['peak_gib']:.2f} GiB, launches {counts} ({per_step}/step of "
+        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
+    st = row["stages_ms"]
+    log(f"[6b] {family} step split (host clock with device syncs, median of 5, all "
+        f"{STREAM_LANES} lanes): lane gather {st['gather']:.2f} ms, fbank {st['fbank']:.2f}, "
+        f"encoder streaming_step {st['encoder']:.2f}, lane scatter {st['scatter']:.2f} -> "
+        f"joiner + greedy + readback ~{p50 - sum(st.values()):.2f} of the p50 step; device "
+        f"busy {busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included)")
+    return row
+
+
+def device_busy_share(fn, reps: int) -> float:
+    """Sum of the device's kernel and copy times over the wall time of
+    ``reps`` calls of fn() under a profiler trace: the share of the window
+    the card was busy (a lower bound: tracing adds host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us == 0:
+        raise AssertionError("the profiler saw no device time in the streaming steps")
+    return busy_us / 1e6 / wall
+
+
+def stream_stage_split(rec, reps: int = 5) -> dict:
+    """One streaming step's stages on every lane, each timed alone on the
+    host clock between device syncs (median of ``reps``): the lane-state
+    gather, fbank, the encoder's streaming_step, the write-back.  Uses the
+    drained pool's state; not part of any counted run."""
+    b, cfg = rec.bundle, rec.bundle.encoder_cfg
+    lanes = torch.arange(rec.max_lanes, device="cuda")
+    pcm = np.stack([synth_pcm(rec.window_samples, 400 + i) for i in range(rec.max_lanes)])
+    x = torch.from_numpy(pcm).cuda()
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    with torch.inference_mode():
+        state, gather = timed(lambda: tree_map(lambda a: a.index_select(0, lanes), rec._enc_state))
+        feats, fbank = timed(lambda: fbank_compute(x, b.frontend_cfg, cfg.chunk_input_len,
+                                                   tables=rec._fbank_tables))
+        (_, new), encoder = timed(lambda: rec._enc.streaming_step(b.encoder, cfg, state, feats,
+                                                                  rec.compute_dtype))
+        _, scatter = timed(lambda: tree_map(lambda p, v: p.index_copy_(0, lanes, v.to(p.dtype)),
+                                            rec._enc_state, new))
+    return {"gather": gather, "fbank": fbank, "encoder": encoder, "scatter": scatter}
+
+
 def kernel_line(name, source, replaces, launches, rows, worst, per):
     """One kernel's entry: per flagship batch, its calls at the bf16 main-path
-    shapes (``layers`` calls of each such case).  ``ms``, ``plain_ms`` and
+    shapes (``layers`` calls of each such case); under ``streaming``, per
+    step of the streaming main path (``stream_layers`` calls of each
+    streaming-shape case).  ``ms``, ``plain_ms`` and
     ``library_ms`` are CUDA events around one call; ``device_ms`` and
     ``library_device_ms`` the device time from a profiler trace."""
     main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
     per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
                  for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
 
-    def library(key):
-        xs = [r.get(key) for r in main_rows]
-        return None if None in xs else sum(x * r["layers"] for x, r in zip(xs, main_rows))
+    def library(key, rows_, count):
+        xs = [r.get(key) for r in rows_]
+        return None if None in xs else sum(x * r[count] for x, r in zip(xs, rows_))
 
+    stream_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["stream_layers"]]
+    per_step = {key: sum(r[key] * r["stream_layers"] for r in stream_rows)
+                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": worst,
         "ms": per_batch["ms"],
         "device_ms": per_batch["device_ms"],
@@ -572,9 +810,17 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
         "bound_ms": per_batch["bound_ms"],
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
                      else "operations"),
-        "library_ms": library("library_ms"),
-        "library_device_ms": library("library_device_ms"),
+        "library_ms": library("library_ms", main_rows, "layers"),
+        "library_device_ms": library("library_device_ms", main_rows, "layers"),
         "per": per,
+        "streaming": {
+            "launches_per_step": sum(r["stream_layers"] for r in stream_rows),
+            "ms_per_step": per_step["ms"],
+            "device_ms_per_step": per_step["device_ms"],
+            "plain_ms_per_step": per_step["plain_ms"],
+            "bound_ms_per_step": per_step["bound_ms"],
+            "library_ms_per_step": library("library_ms", stream_rows, "stream_layers"),
+        },
     }
 
 
@@ -625,22 +871,32 @@ def main() -> int:
     k2_rows, k2_worst = phase_k2(bw)
     for family in FAMILIES:
         phase_golden(family)
+        phase_online_pin(family)
     for family in FAMILIES:
         phase_full_width_vs_cpu(family)
+        phase_streaming_vs_cpu(family)
     launches = {family: phase_main_path(family) for family in FAMILIES}
+    streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
+    print(json.dumps({"streaming": list(streaming.values())}), flush=True)
+
+    def paths(family):
+        return {"offline": launches[family], "streaming": streaming[family]["launches"]}
 
     kernels = [
         kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
-                    "k2transducerasr_tpu/ops/attention_pallas.py:158", launches["zipformer2"],
+                    "k2transducerasr_tpu/ops/attention_pallas.py:158", paths("zipformer2"),
                     k1_rows, k1_worst,
                     "one zipformer2 flagship batch (16 x 30 s): 16 calls at the bf16 stack "
-                    "shapes; library_ms null: no PyTorch call returns rel-pos probs"),
+                    "shapes; streaming: one step of 16 lanes of Zipformer2Config(causal=True), "
+                    "16 calls at the six stacks' (T, S); library_ms null: no PyTorch call "
+                    "returns rel-pos probs"),
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
-                    "k2transducerasr_tpu/ops/attention_pallas.py:242", launches["conformer"],
+                    "k2transducerasr_tpu/ops/attention_pallas.py:242", paths("conformer"),
                     k2_rows, k2_worst,
                     "one conformer flagship batch (16 x 30 s): 12 calls at B=16 T=S=767 H=8 "
-                    "d=64 bf16; library_ms: scaled_dot_product_attention with the skewed "
-                    "position bias precomputed (not timed)"),
+                    "d=64 bf16; streaming: one step of 16 lanes of ConformerConfig(causal=True),"
+                    " 12 calls at T=16 S=80; library_ms: scaled_dot_product_attention with the "
+                    "skewed position bias precomputed (not timed)"),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,18 +6,36 @@ the reference's Pallas TPU kernels becomes a CUDA C++ kernel written for
 Hopper (``csrc/``), built with ``nvcc`` at first use and bound with ctypes.
 It imports neither ``jax`` nor any module of ``k2transducerasr_tpu``.
 
-Ported so far: the offline zipformer2 transducer with greedy search
-(fbank -> encoder -> joiner projection -> blank-skipping greedy search ->
-text), with ``relpos_attn_probs`` as a CUDA kernel.  Entry points take an
-explicit ``device`` (default ``"cuda"``) and raise when CUDA is asked for but
-absent; on CPU tensors every kernel wrapper runs its plain PyTorch version.
+Ported so far: the zipformer2 and conformer transducers with greedy search,
+offline (``OfflineRecognizer``: fbank -> encoder -> joiner projection ->
+blank-skipping greedy search -> text) and streaming (``OnlineRecognizer``:
+a device-resident lane pool stepping each ready stream's window through
+fbank, the encoder's ``streaming_step`` and greedy search, with endpointing
+and snapshot/restore).  zipformer2's attention runs ``relpos_attn_probs``
+(K1) and conformer's ``relpos_attn_ctx`` (K2) as CUDA kernels.  Entry points
+take an explicit ``device`` (default ``"cuda"``) and raise when CUDA is
+asked for but absent; on CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 
-    from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer
+    from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
 """
 
 __version__ = "0.1.0"
 
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.offline import OfflineRecognizer, OfflineStream
+from k2transducerasr_tpu_torch.runtime.online import (
+    OnlineRecognizer,
+    OnlineRecognizerResult,
+    OnlineStream,
+)
 
-__all__ = ["ModelBundle", "OfflineRecognizer", "OfflineStream", "__version__"]
+__all__ = [
+    "ModelBundle",
+    "OfflineRecognizer",
+    "OfflineStream",
+    "OnlineRecognizer",
+    "OnlineRecognizerResult",
+    "OnlineStream",
+    "__version__",
+]

@@ -12,6 +12,9 @@ so the chain is pre-composed (numpy, float64, then float32) into one
 Both matmuls are true float32: TF32 is turned off around them on the card
 (``runtime.device.exact_f32``), as the reference keeps them at
 ``precision=HIGHEST``.
+
+``OnlineFbank`` is the streaming front: a host sample buffer whose completed
+frames go through the same ``fbank_compute``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from k2transducerasr_tpu_torch.runtime.device import exact_f32
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
 
 _EPS = float(np.finfo(np.float32).eps)  # kaldi's energy floor for log
 
@@ -226,3 +229,43 @@ def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
     if cfg.use_log_fbank:
         feats = torch.log(torch.clamp(feats, min=_EPS))
     return feats
+
+
+class OnlineFbank:
+    """Streaming fbank with kaldi online semantics (port of the reference's
+    ``OnlineFbank``).  The host keeps a sample buffer; each call computes
+    every newly completed frame with ``fbank_compute`` on ``device``.
+    ``input_finished()`` drops a partial tail frame (snip_edges=True)."""
+
+    def __init__(self, cfg: FbankConfig, device: str | torch.device = "cuda"):
+        if not cfg.snip_edges:
+            raise ValueError(
+                "streaming fbank requires snip_edges=True (centred framing reflects at "
+                "the utterance's end, which is unknown while streaming)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._tables = tuple(torch.from_numpy(m).to(self.device) for m in fbank_matrices(cfg))
+        self._buf = np.zeros(0, dtype=np.float32)
+        self._finished = False
+
+    def accept_waveform(self, samples: np.ndarray) -> np.ndarray:
+        """Append samples; return all newly completed frames [T_new, M]."""
+        if self._finished:
+            raise RuntimeError("accept_waveform after input_finished")
+        self._buf = np.concatenate([self._buf, np.asarray(samples, np.float32)])
+        return self._drain()
+
+    def input_finished(self) -> np.ndarray:
+        self._finished = True
+        return self._drain()
+
+    def _drain(self) -> np.ndarray:
+        cfg = self.cfg
+        t = num_frames_for(len(self._buf), cfg)
+        if t == 0:
+            return np.zeros((0, cfg.num_mel_bins), dtype=np.float32)
+        x = torch.from_numpy(self._buf).to(self.device)[None]
+        feats = fbank_compute(x, cfg, t, tables=self._tables)[0].cpu().numpy()
+        self._buf = self._buf[t * cfg.frame_shift:]
+        return feats

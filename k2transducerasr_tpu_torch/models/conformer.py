@@ -1,4 +1,4 @@
-"""Conformer encoder, offline — PyTorch port of
+"""Conformer encoder, offline and streaming — PyTorch port of
 ``k2transducerasr_tpu/models/conformer.py`` (icefall
 pruned_transducer_stateless conformer).
 
@@ -14,8 +14,12 @@ reference function for function.  Differences of form, not of value:
   * the parameters live in an ``nn.Module`` (``Conformer``) whose
     ``state_dict`` keys are the reference's dotted paths.
 
-Streaming (``init_state``/``streaming_step``) is not ported yet; the conv
-module keeps its ``conv_cache`` argument for it.
+Streaming (``init_state``/``streaming_step``, causal configs) carries the
+reference's state, batch-leading: each layer's post-ff1 input for the last
+``left_context`` frames (``attn [B, L, lc, D]``), each conv module's last
+``kernel-1`` frames (``conv [B, L, k-1, D]``), both float32, and an int64
+``processed`` counter.  K2 then runs with T = chunk, S = lc + chunk and
+per-lane ``kv_start`` gating.
 """
 
 from __future__ import annotations
@@ -70,6 +74,11 @@ Config = ConformerConfig
 
 def output_dim(cfg: ConformerConfig) -> int:
     return cfg.d_model
+
+
+def output_chunk_len(cfg: ConformerConfig) -> int:
+    """Encoder output frames per streaming step."""
+    return cfg.chunk_size
 
 
 # ---------------------------------------------------------------------------
@@ -215,17 +224,25 @@ def _conv_module(p, cfg: ConformerConfig, x, compute_dtype, conv_cache=None, val
 
 
 def _block(p, cfg: ConformerConfig, x, compute_dtype, valid=None, pad_lens=None,
-           chunk_left=None, conv_cache=None):
-    """One conformer layer, offline (attention kv == the query sequence).
-    Returns (out, new_conv_cache)."""
+           chunk_left=None, conv_cache=None, attn_cache=None, kv_start=None):
+    """One conformer layer.  Offline the attention's kv is the query
+    sequence; streaming, ``attn_cache`` [B, lc, D] holds the previous
+    frames' post-ff1 inputs and kv is the layernorm of ``[attn_cache |
+    x_ff]``, gated per lane by ``kv_start``.
+    Returns (out, new_conv_cache, new_attn_cache); the caches are None
+    where none was given."""
     x = x + 0.5 * _ff(p["ff1"], x, compute_dtype)
     attn_in = L.apply_layernorm(p["attn"]["ln"], x)
-    x = x + rel_pos_attention(p["attn"], cfg, attn_in, attn_in, compute_dtype,
-                              pad_lens=pad_lens, chunk_left=chunk_left)
-    h, new_cache = _conv_module(p["conv"], cfg, x, compute_dtype, conv_cache, valid)
+    kv_in, new_attn = attn_in, None
+    if attn_cache is not None:
+        kv = torch.cat([attn_cache.to(x.dtype), x], dim=1)
+        kv_in, new_attn = L.apply_layernorm(p["attn"]["ln"], kv), kv[:, -attn_cache.shape[1]:]
+    x = x + rel_pos_attention(p["attn"], cfg, attn_in, kv_in, compute_dtype,
+                              pad_lens=pad_lens, chunk_left=chunk_left, kv_start=kv_start)
+    h, new_conv = _conv_module(p["conv"], cfg, x, compute_dtype, conv_cache, valid)
     x = x + h
     x = x + 0.5 * _ff(p["ff2"], x, compute_dtype)
-    return L.apply_layernorm(p["norm_final"], x), new_cache
+    return L.apply_layernorm(p["norm_final"], x), new_conv, new_attn
 
 
 def forward(params, cfg: ConformerConfig, x, x_lens, compute_dtype=None):
@@ -238,15 +255,51 @@ def forward(params, cfg: ConformerConfig, x, x_lens, compute_dtype=None):
     pad_lens = torch.clamp(out_lens, min=0).to(torch.int32)
     chunk_left = (cfg.chunk_size, cfg.left_context) if cfg.causal else None
     for layer in params["layers"]:
-        h, _ = _block(layer, cfg, h, compute_dtype, valid=valid, pad_lens=pad_lens,
-                      chunk_left=chunk_left)
+        h, _, _ = _block(layer, cfg, h, compute_dtype, valid=valid, pad_lens=pad_lens,
+                         chunk_left=chunk_left)
         h = torch.where(valid[:, :, None], h, 0.0)
     return h, out_lens
 
 
+def init_state(cfg: ConformerConfig, batch: int, device="cpu") -> dict:
+    """Zero streaming state, batch-leading (the reference's tree and
+    shapes): ``attn [B, L, lc, D]`` and ``conv [B, L, k-1, D]`` float32,
+    ``processed`` int64 subsampled frames."""
+    lc, k, d, n = cfg.left_context, cfg.cnn_kernel, cfg.d_model, cfg.num_layers
+    return {
+        "attn": torch.zeros((batch, n, lc, d), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, n, k - 1, d), dtype=torch.float32, device=device),
+        "processed": torch.zeros((batch,), dtype=torch.int64, device=device),
+    }
+
+
+def streaming_step(params, cfg: ConformerConfig, state: dict, x_chunk, compute_dtype=None):
+    """One chunk step.  x_chunk: [B, chunk_input_len, F] raw features ->
+    (enc_out [B, chunk_size, D], new_state).  Cache slot j of a lane is
+    valid once it holds a real frame: ``kv_start = lc - min(processed, lc)``."""
+    lc = cfg.left_context
+    h = subsample(params["subsample"], cfg, x_chunk, compute_dtype) * math.sqrt(cfg.d_model)
+    processed = state["processed"]
+    kv_start = (lc - torch.clamp(processed, max=lc)).to(torch.int32)
+    new_attn, new_conv = [], []
+    for i, layer in enumerate(params["layers"]):
+        h, conv_cache, attn_cache = _block(layer, cfg, h, compute_dtype,
+                                           conv_cache=state["conv"][:, i],
+                                           attn_cache=state["attn"][:, i], kv_start=kv_start)
+        new_attn.append(attn_cache.float())
+        new_conv.append(conv_cache.float())
+    new_state = {
+        "attn": torch.stack(new_attn, dim=1),
+        "conv": torch.stack(new_conv, dim=1),
+        "processed": processed + cfg.chunk_size,
+    }
+    return h, new_state
+
+
 class Conformer(ParamTree):
     """The encoder's parameters as an ``nn.Module`` (``state_dict`` keys are
-    the reference's dotted paths) with the offline forward."""
+    the reference's dotted paths) with the offline forward and the
+    streaming step."""
 
     def __init__(self, cfg: ConformerConfig, tree: dict, device="cpu"):
         super().__init__(tree, device)
@@ -254,6 +307,12 @@ class Conformer(ParamTree):
 
     def forward(self, x, x_lens, compute_dtype=None):
         return forward(self, self.cfg, x, x_lens, compute_dtype)
+
+    def init_state(self, batch: int) -> dict:
+        return init_state(self.cfg, batch, self.subsample["out"]["w"].device)
+
+    def streaming_step(self, state: dict, x_chunk, compute_dtype=None):
+        return streaming_step(self, self.cfg, state, x_chunk, compute_dtype)
 
 
 Encoder = Conformer

@@ -1,5 +1,15 @@
 """Encoder-family registry (port of ``k2transducerasr_tpu/models/registry.py``).
 
+Each family is a module with the reference's functional surface, so the
+recognizers stay family-agnostic:
+
+    Config, init_params(rng, cfg), output_dim(cfg), Encoder (nn.Module)
+    forward(params, cfg, x, lens)          -> (enc_out [B,T',D], out_lens)
+    init_state(cfg, batch, device)         -> streaming state tree
+    streaming_step(params, cfg, state, chunk, compute_dtype)
+                                           -> (enc_out, new_state)
+    output_chunk_len(cfg)                  -> output frames per step
+
 zipformer2 and conformer are ported so far; every other family of the
 reference raises ``NotImplementedError`` naming the ROADMAP item that ports
 it.

@@ -1,4 +1,4 @@
-"""Zipformer2 encoder, offline — PyTorch port of
+"""Zipformer2 encoder, offline and streaming — PyTorch port of
 ``k2transducerasr_tpu/models/zipformer2.py`` (icefall "zipformer" 2023).
 
 The structure and names follow the reference function for function; see its
@@ -13,7 +13,12 @@ module docstring for the architecture.  Differences of form, not of value:
   * the parameters live in an ``nn.Module`` (``Zipformer2``) whose
     ``state_dict`` keys are the reference's dotted paths.
 
-Streaming (``init_state``/``streaming_step``) is not ported yet.
+Streaming (``init_state``/``streaming_step``, causal configs) carries the
+reference's cache inventory in its batch-leading layout: per layer
+key/val1/val2/nonlin ``[B, left_i, ...]`` and conv1/conv2 ``[B, k//2, D]``,
+the embed stage cache ``[B, 3, F', c3]`` and an int64 ``processed`` counter.
+Each layer's K1 call then has T != S (the chunk's queries against
+``[cache | chunk]`` keys) and per-lane ``kv_start`` gating.
 """
 
 from __future__ import annotations
@@ -69,11 +74,33 @@ class Zipformer2Config:
     def encoder_out_dim(self) -> int:
         return max(self.encoder_dims)
 
+    def embed_len(self, t_raw: int) -> int:
+        """Raw frames -> encoder-rate frames through the embed conv stack
+        (receptive field 9, stride 2)."""
+        return (t_raw - 7) // 2
+
+    @property
+    def decode_chunk_len(self) -> int:
+        """Raw feature frames a streaming window advances by."""
+        return 2 * self.chunk_size
+
+    @property
+    def embed_cache_len(self) -> int:
+        """Stage frames cached across streaming windows: the ConvNeXt
+        half-kernel (icefall's ``embed_states``)."""
+        return 3
+
     @property
     def embed_freq_out(self) -> int:
         """Frequency width after the conv stack (80 -> 39 -> 19)."""
         f2 = (self.feature_dim - 3) // 2 + 1
         return (f2 - 3) // 2 + 1
+
+    @property
+    def chunk_input_len(self) -> int:
+        """Raw feature frames per streaming window: 2*chunk + 13, the conv
+        stack's receptive field plus the ConvNeXt's 3-stage-frame lookahead."""
+        return 2 * self.chunk_size + 13
 
     def stack_chunk(self, i: int) -> int:
         return self.chunk_size // self.downsampling_factors[i]
@@ -87,6 +114,11 @@ Config = Zipformer2Config
 
 def output_dim(cfg: Zipformer2Config) -> int:
     return cfg.encoder_out_dim
+
+
+def output_chunk_len(cfg: Zipformer2Config) -> int:
+    """Output frames per streaming step (after the final /2 downsample)."""
+    return cfg.chunk_size // cfg.output_downsampling_factor
 
 
 # ---------------------------------------------------------------------------
@@ -250,24 +282,41 @@ def _apply_ff(p, x, compute_dtype):
 
 
 def _attn_shared(p, cfg: Zipformer2Config, si: int, x_q, compute_dtype,
-                 pad_lens=None, chunk_left=None):
-    """Project q/k/pos from the layer input and compute the attention probs
-    [B, H, T, S] once; self_attn1, self_attn2 and the nonlin-attention gate
-    share them.  ``pad_lens``: valid key counts per lane (non-causal);
-    ``chunk_left``: the static (chunk, left) pattern (causal)."""
+                 pad_lens=None, chunk_left=None, k_src=None, kv_start=None):
+    """Project q/pos (and, offline, k) from the layer input and compute the
+    attention probs [B, H, T, S] once; self_attn1, self_attn2 and the
+    nonlin-attention gate share them.  ``k_src``: [B, S, H*qd] keys already
+    projected (streaming: ``[cache | chunk]``), or None to take them from
+    this in_proj.  Masks: ``pad_lens`` valid key counts per lane
+    (non-causal), ``chunk_left`` the static (chunk, left) pattern (offline
+    causal), ``kv_start`` the first valid key per lane (streaming)."""
     heads, qd, pd = cfg.num_heads[si], cfg.query_head_dim, cfg.pos_head_dim
     b, t, _ = x_q.shape
     # in_proj column layout is flat [q (H*qd) | k (H*qd) | pos (H*pd)]
     proj = L.apply_linear(p["in_proj"], x_q, compute_dtype)
     q = proj[..., : heads * qd].reshape(b, t, heads, qd)
-    k = proj[..., heads * qd : 2 * heads * qd].reshape(b, t, heads, qd)
+    if k_src is None:
+        k_src = proj[..., heads * qd : 2 * heads * qd]
+    s = k_src.shape[1]
+    k = k_src.reshape(b, s, heads, qd)
     pos_q = proj[..., 2 * heads * qd :].reshape(b, t, heads, pd)
-    pe = _compact_rel_pos(t, t, cfg.pos_dim, x_q.device)
+    pe = _compact_rel_pos(t, s, cfg.pos_dim, x_q.device)
     pos_k = L.apply_linear(p["pos_proj"], pe, compute_dtype).reshape(-1, heads, pd)
     ch, lf = chunk_left if chunk_left is not None else (0, 0)
     # all four are in the compute dtype; the kernel takes contiguous inputs
     return relpos_attn_probs(q.contiguous(), k.contiguous(), pos_q.contiguous(),
-                             pos_k.contiguous(), pad_lens, chunk=ch, left=lf)
+                             pos_k.contiguous(), pad_lens, chunk=ch, left=lf, kv_start=kv_start)
+
+
+def _project_keys(p, cfg: Zipformer2Config, si: int, x, compute_dtype):
+    """The key third of ``in_proj`` alone (streaming: the chunk's keys,
+    which join the key cache)."""
+    heads, qd = cfg.num_heads[si], cfg.query_head_dim
+    sl = slice(heads * qd, 2 * heads * qd)
+    sub = {"w": p["in_proj"]["w"][:, sl]}
+    if "b" in p["in_proj"]:
+        sub["b"] = p["in_proj"]["b"][sl]
+    return L.apply_linear(sub, x, compute_dtype)
 
 
 def _attn_apply(probs, v):
@@ -292,14 +341,23 @@ def _self_attn(p, cfg, si, v_src, probs, compute_dtype):
     return L.apply_linear(p["out"], ctx.reshape(b, t, heads * vd), compute_dtype)
 
 
-def _nonlin_attention(p, dim, x, probs, compute_dtype):
-    """Attention-gated nonlinearity.  x: [B, T, D] -> [B, T, D]."""
+def _nonlin_attention(p, dim, x, probs, compute_dtype, v_cached=None):
+    """Attention-gated nonlinearity.  x: [B, T, D] (the target side);
+    v_cached: [B, S-T, hidden] cached source values (streaming) or None.
+    Returns (out [B, T, D], v_chunk [B, T, hidden], the chunk's gated
+    source values)."""
     hidden = 3 * dim // 4
     proj = L.apply_linear(p["in_proj"], x, compute_dtype)
     s_gate, xv, y = torch.split(proj, [hidden, hidden, proj.shape[-1] - 2 * hidden], dim=-1)
-    v = xv * torch.tanh(s_gate)
-    attended = _attn_apply_head0(probs, v)
-    return L.apply_linear(p["out"], attended * y, compute_dtype)
+    v_chunk = xv * torch.tanh(s_gate)
+    v_src = v_chunk if v_cached is None else _with_cache(v_cached, v_chunk)
+    attended = _attn_apply_head0(probs, v_src)
+    return L.apply_linear(p["out"], attended * y, compute_dtype), v_chunk
+
+
+def _with_cache(cache, chunk):
+    """[cache | chunk] along time, the cache cast to the chunk's dtype."""
+    return torch.cat([cache.to(chunk.dtype), chunk], dim=1)
 
 
 def _chunkwise_scale(scale, chunk: int):
@@ -316,26 +374,33 @@ def _chunkwise_scale(scale, chunk: int):
     return 1.0 + l_e + r_e
 
 
-def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None):
+def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None, cache=None):
     """zipformer2 ConvolutionModule (in_proj -> value*sigmoid(gate) ->
     depthwise -> SwooshR -> out_proj).  chunk == 0: SAME depthwise conv with
     padded positions zeroed first (``valid``).  chunk > 0: icefall's
-    ChunkCausalDepthwiseConv1d over zero left context and T split into
-    chunks."""
+    ChunkCausalDepthwiseConv1d over a left context — zeros offline (cache
+    None), the ``cache`` [B, k//2, D] streaming — with T split into chunks.
+    Returns (out [B, T, D], the next cache or None): the tail of
+    ``[cache | h]``, not of ``h`` alone, since a deep stack's chunk (4
+    frames at stride 8) can be shorter than the half-kernel."""
     half = kernel // 2
     h = L.apply_linear(p["in_proj"], x, compute_dtype)
     a, g = torch.chunk(h, 2, dim=-1)
     h = a * torch.sigmoid(g)
     if valid is not None:
         h = torch.where(valid[:, :, None], h, 0.0)
+    new_cache = None
     if chunk == 0:
         y = L.apply_conv1d(p["dw"], h, groups=dim, padding="SAME", compute_dtype=compute_dtype)
     else:
         b, t, d = h.shape
-        left = torch.zeros((b, half, d), dtype=h.dtype, device=h.device)
+        if cache is None:
+            hc = torch.cat([torch.zeros((b, half, d), dtype=h.dtype, device=h.device), h], dim=1)
+        else:
+            hc = _with_cache(cache, h)
+            new_cache = hc[:, -half:]
         y_causal = L.apply_conv1d(
-            p["causal_dw"], torch.cat([left, h], dim=1), groups=dim, padding="VALID",
-            compute_dtype=compute_dtype,
+            p["causal_dw"], hc, groups=dim, padding="VALID", compute_dtype=compute_dtype,
         )  # [B, T, D]
         n = t // chunk
         win = F.pad(h.reshape(b * n, chunk, d), (0, 0, half, half))
@@ -345,7 +410,7 @@ def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None):
         y_chunk = y_chunk * _chunkwise_scale(p["chunk_scale"], chunk)[None, None]
         y = y_causal + y_chunk.reshape(b, t, d)
     y = L.swoosh_r(y)
-    return L.apply_linear(p["out"], y, compute_dtype)
+    return L.apply_linear(p["out"], y, compute_dtype), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -396,28 +461,60 @@ def _convert_channels(x, dim: int):
 
 
 def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dtype,
-                   valid=None, pad_lens=None, chunk_left=None):
-    """One Zipformer2 layer, offline.  ``chunk``: conv chunk size (0 =
-    non-causal); op order ff1, nonlin_attn, attn1, conv1, ff2, bypass_mid,
-    attn2, conv2, ff3, BiasNorm, bypass."""
+                   valid=None, pad_lens=None, chunk_left=None, caches=None, kv_start=None):
+    """One Zipformer2 layer.  ``chunk``: conv chunk size (0 = non-causal);
+    op order ff1, nonlin_attn, attn1, conv1, ff2, bypass_mid, attn2, conv2,
+    ff3, BiasNorm, bypass.
+
+    ``caches``: None offline, or (streaming) the layer's dict key/val1/val2/
+    nonlin ``[B, left, ...]`` and conv1/conv2 ``[B, k//2, D]``; keys and
+    values then run over ``[cache | chunk]`` with ``kv_start`` gating the
+    cache slots that hold no history yet.  Returns (out, new caches or
+    None); each new cache holds the same stage tensor the offline pass
+    computes at that position."""
     dim = cfg.encoder_dims[si]
     kernel = cfg.cnn_module_kernels[si]
     x_orig = x
-    probs = _attn_shared(p["attn_weights"], cfg, si, x, compute_dtype,
-                         pad_lens=pad_lens, chunk_left=chunk_left)
+    streaming = caches is not None
+    caches = caches or {}
+    k_src = None
+    if streaming:
+        k_src = _with_cache(caches["key"], _project_keys(p["attn_weights"], cfg, si, x,
+                                                         compute_dtype))
+    probs = _attn_shared(p["attn_weights"], cfg, si, x, compute_dtype, pad_lens=pad_lens,
+                         chunk_left=chunk_left, k_src=k_src, kv_start=kv_start)
     x = x + _apply_ff(p["ff1"], x, compute_dtype)
-    x = x + _nonlin_attention(p["nonlin_attn"], dim, x, probs, compute_dtype)
+    na, nonlin_chunk = _nonlin_attention(p["nonlin_attn"], dim, x, probs, compute_dtype,
+                                         caches.get("nonlin"))
+    x = x + na
     v1 = L.apply_linear(p["self_attn1"]["v"], x, compute_dtype)
-    x = x + _self_attn(p["self_attn1"], cfg, si, v1, probs, compute_dtype)
-    x = x + _conv_module(p["conv1"], dim, kernel, x, chunk, compute_dtype, valid)
+    v1_src = _with_cache(caches["val1"], v1) if streaming else v1
+    x = x + _self_attn(p["self_attn1"], cfg, si, v1_src, probs, compute_dtype)
+    c1, new_conv1 = _conv_module(p["conv1"], dim, kernel, x, chunk, compute_dtype, valid,
+                                 caches.get("conv1"))
+    x = x + c1
     x = x + _apply_ff(p["ff2"], x, compute_dtype)
     x = _bypass(p["bypass_mid"], x_orig, x)
     v2 = L.apply_linear(p["self_attn2"]["v"], x, compute_dtype)
-    x = x + _self_attn(p["self_attn2"], cfg, si, v2, probs, compute_dtype)
-    x = x + _conv_module(p["conv2"], dim, kernel, x, chunk, compute_dtype, valid)
+    v2_src = _with_cache(caches["val2"], v2) if streaming else v2
+    x = x + _self_attn(p["self_attn2"], cfg, si, v2_src, probs, compute_dtype)
+    c2, new_conv2 = _conv_module(p["conv2"], dim, kernel, x, chunk, compute_dtype, valid,
+                                 caches.get("conv2"))
+    x = x + c2
     x = x + _apply_ff(p["ff3"], x, compute_dtype)
     x = L.apply_biasnorm(p["norm"], x)
-    return _bypass(p["bypass"], x_orig, x)
+    x = _bypass(p["bypass"], x_orig, x)
+    if not streaming:
+        return x, None
+    left = caches["key"].shape[1]
+    return x, {
+        "key": k_src[:, -left:],
+        "nonlin": _with_cache(caches["nonlin"], nonlin_chunk)[:, -left:],
+        "val1": v1_src[:, -left:],
+        "val2": v2_src[:, -left:],
+        "conv1": new_conv1,
+        "conv2": new_conv2,
+    }
 
 
 def _stack_forward(p, cfg: Zipformer2Config, si: int, x, valid, compute_dtype):
@@ -437,8 +534,8 @@ def _stack_forward(p, cfg: Zipformer2Config, si: int, x, valid, compute_dtype):
     chunk_left = (max(1, cfg.stack_chunk(si)), cfg.stack_left(si)) if cfg.causal else None
     chunk = cfg.stack_chunk(si) if cfg.causal else 0
     for layer in p["layers"]:
-        src = _layer_forward(layer, cfg, si, src, chunk, compute_dtype, v, pad_lens,
-                             chunk_left=chunk_left)
+        src, _ = _layer_forward(layer, cfg, si, src, chunk, compute_dtype, v, pad_lens,
+                                chunk_left=chunk_left)
         if v is not None:
             src = torch.where(v[:, :, None], src, 0.0)
     if ds > 1:
@@ -479,7 +576,18 @@ def forward(params, cfg: Zipformer2Config, x, x_lens, compute_dtype=None):
             h = torch.where(valid[:, :, None], h, 0.0)
         outputs.append(h)
 
-    # channel stitch to max dim (icefall _get_full_dim_output)
+    out = _simple_downsample(
+        params["downsample_output_weights"], _full_dim_output(cfg, outputs),
+        cfg.output_downsampling_factor, lens0 if valid is not None else None,
+    )
+    out_lens = -((-lens0) // cfg.output_downsampling_factor)
+    ovalid = L.length_mask(out_lens, out.shape[1])
+    return torch.where(ovalid[:, :, None], out, 0.0), out_lens
+
+
+def _full_dim_output(cfg: Zipformer2Config, outputs):
+    """Channel-stitch the stacks' outputs to max(dims) (icefall
+    _get_full_dim_output)."""
     dims = cfg.encoder_dims
     pieces = [outputs[-1]]
     cur = dims[-1]
@@ -487,20 +595,92 @@ def forward(params, cfg: Zipformer2Config, x, x_lens, compute_dtype=None):
         if dims[i] > cur:
             pieces.append(outputs[i][..., cur : dims[i]])
             cur = dims[i]
-    full = torch.cat(pieces, dim=-1)
+    return torch.cat(pieces, dim=-1)
 
-    out = _simple_downsample(
-        params["downsample_output_weights"], full, cfg.output_downsampling_factor,
-        lens0 if valid is not None else None,
-    )
-    out_lens = -((-lens0) // cfg.output_downsampling_factor)
-    ovalid = L.length_mask(out_lens, out.shape[1])
-    return torch.where(ovalid[:, :, None], out, 0.0), out_lens
+
+# ---------------------------------------------------------------------------
+# Streaming
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: Zipformer2Config, batch: int, device="cpu") -> dict:
+    """Zero streaming state, batch-leading (the reference's tree and
+    shapes): per layer key/val1/val2/nonlin ``[B, left_i, ...]`` and
+    conv1/conv2 ``[B, k//2, D]`` in float32, the embed stage cache
+    ``[B, 3, F', c3]`` and ``processed`` (int64 encoder-rate frames)."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    layers = []
+    for si in range(cfg.num_stacks):
+        dim, heads, left = cfg.encoder_dims[si], cfg.num_heads[si], cfg.stack_left(si)
+        half = cfg.cnn_module_kernels[si] // 2
+        for _ in range(cfg.num_encoder_layers[si]):
+            layers.append({
+                "key": zeros(batch, left, heads * cfg.query_head_dim),
+                "val1": zeros(batch, left, heads * cfg.value_head_dim),
+                "val2": zeros(batch, left, heads * cfg.value_head_dim),
+                "nonlin": zeros(batch, left, 3 * dim // 4),
+                "conv1": zeros(batch, half, dim),
+                "conv2": zeros(batch, half, dim),
+            })
+    return {
+        "layers": layers,
+        "embed_stage": zeros(batch, cfg.embed_cache_len, cfg.embed_freq_out,
+                             cfg.embed_channels[-1]),
+        "processed": torch.zeros((batch,), dtype=torch.int64, device=device),
+    }
+
+
+def streaming_step(params, cfg: Zipformer2Config, state: dict, x_chunk, compute_dtype=None):
+    """x_chunk: [B, 2*chunk+13, F] raw feature window -> (enc_out
+    [B, chunk/2, D], new_state).  Needs cfg.causal.
+
+    Windows advance by 2*chunk raw frames.  The conv stack yields chunk+3
+    stage frames; the 3-frame stage cache is the ConvNeXt's left context
+    and the window's last 3 its lookahead and the next cache, so streaming
+    == offline-causal.  Each stack gates its cache slots per lane with
+    ``kv_start = left - min(processed // ds, left)``."""
+    c = cfg.chunk_size
+    stage = _embed_conv_stack(params["embed"], x_chunk, compute_dtype)  # [B, c+3, F', c3]
+    stage = _with_cache(state["embed_stage"], stage)
+    h = _embed_tail(params["embed"], stage, compute_dtype)  # [B, c, D]
+    processed = state["processed"]
+
+    new_layers = []
+    outputs = []
+    li = 0
+    for si in range(cfg.num_stacks):
+        ds, left = cfg.downsampling_factors[si], cfg.stack_left(si)
+        stack = params["stacks"][si]
+        h = _convert_channels(h, cfg.encoder_dims[si])
+        src = _simple_downsample(stack["downsample_weights"], h, ds) if ds > 1 else h
+        kv_start = (left - torch.clamp(processed // ds, max=left)).to(torch.int32)
+        for layer in stack["layers"]:
+            src, new_cache = _layer_forward(layer, cfg, si, src, cfg.stack_chunk(si),
+                                            compute_dtype, caches=state["layers"][li],
+                                            kv_start=kv_start)
+            new_layers.append(new_cache)
+            li += 1
+        if ds > 1:
+            src = _bypass(stack["bypass_out"], h, _simple_upsample(src, ds, c))
+        h = src
+        outputs.append(h)
+
+    out = _simple_downsample(params["downsample_output_weights"], _full_dim_output(cfg, outputs),
+                             cfg.output_downsampling_factor)
+    new_state = {
+        "layers": new_layers,
+        "embed_stage": stage[:, -cfg.embed_cache_len:],
+        "processed": processed + c,
+    }
+    return out, new_state
 
 
 class Zipformer2(ParamTree):
     """The encoder's parameters as an ``nn.Module`` (``state_dict`` keys are
-    the reference's dotted paths) with the offline forward."""
+    the reference's dotted paths) with the offline forward and the
+    streaming step."""
 
     def __init__(self, cfg: Zipformer2Config, tree: dict, device="cpu"):
         super().__init__(tree, device)
@@ -508,6 +688,12 @@ class Zipformer2(ParamTree):
 
     def forward(self, x, x_lens, compute_dtype=None):
         return forward(self, self.cfg, x, x_lens, compute_dtype)
+
+    def init_state(self, batch: int) -> dict:
+        return init_state(self.cfg, batch, self.downsample_output_weights.device)
+
+    def streaming_step(self, state: dict, x_chunk, compute_dtype=None):
+        return streaming_step(self, self.cfg, state, x_chunk, compute_dtype)
 
 
 Encoder = Zipformer2

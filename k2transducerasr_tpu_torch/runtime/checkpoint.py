@@ -1,5 +1,7 @@
-"""Param persistence (.npz with dotted-path keys) + model config JSON, and
-the one bridge from a numpy parameter tree to the port's modules.
+"""Param persistence (.npz with dotted-path keys) + model config JSON, the
+one bridge from a numpy parameter tree to the port's modules, and the
+bridge for a stream's state between the JAX package's snapshot layout and
+the port's tensors (``state_from_numpy``/``state_to_numpy``).
 
 A model directory holds
 
@@ -20,6 +22,7 @@ the ops in ``ops/layers.py`` take each weight in that layout at call time.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any
@@ -140,3 +143,54 @@ def params_from_numpy(tree: dict, device: torch.device | str = "cpu") -> ParamTr
     port.  ``state_dict`` keys are the JAX dotted paths and the arrays keep
     their layout (see the module docstring)."""
     return ParamTree(tree, device)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure: dicts, lists and
+    dataclasses (rebuilt as their own type) are nodes, all else leaves."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    if dataclasses.is_dataclass(t):
+        return type(t)(**{f.name: tree_map(fn, *(getattr(x, f.name) for x in trees))
+                          for f in dataclasses.fields(t)})
+    return fn(*trees)
+
+
+def state_from_numpy(tree, device: torch.device | str = "cpu"):
+    """A stream's state in the JAX package's layout -> the port's tensors.
+
+    Covers the encoder state trees (dicts and lists of batch-leading
+    arrays; zipformer2's ``embed_stage`` is ``[B, 3, F', C]`` in both) and
+    the greedy ``GreedyState`` (any dataclass with its field names, as
+    ``OnlineRecognizer.snapshot_stream`` of either package gives it, becomes
+    the port's).  int32 counters become int64; bfloat16 arrays stay
+    bfloat16."""
+    if dataclasses.is_dataclass(tree):
+        from k2transducerasr_tpu_torch.decode.rnnt_greedy import GreedyState
+
+        return GreedyState(**{f.name: state_from_numpy(getattr(tree, f.name), device)
+                              for f in dataclasses.fields(GreedyState)})
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [state_from_numpy(v, device) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    t = torch.from_numpy(np.array(a, copy=True))
+    return (t.long() if t.dtype == torch.int32 else t).to(device)
+
+
+def state_to_numpy(tree):
+    """The port's state tensors -> the JAX package's layout (numpy; int64
+    counters as int32, bfloat16 as float32, which holds its values
+    exactly).  Dataclasses keep their type."""
+    def leaf(t):
+        if t.dtype == torch.int64:
+            return t.cpu().numpy().astype(np.int32)
+        return t.float().cpu().numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
+
+    return tree_map(leaf, tree)

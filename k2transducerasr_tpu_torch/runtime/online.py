@@ -1,0 +1,402 @@
+"""Online (streaming) recognizer — PyTorch port of
+``k2transducerasr_tpu/runtime/online.py`` for ``greedy_search``.
+
+The recognizer owns a lane pool on its device: the encoder's streaming state
+and the greedy decode state, each leaf ``[max_lanes, ...]``, plus each lane's
+count of encoder frames decoded.  A stream is a host sample buffer and a
+lane.  Each step takes one window (``windows_per_step`` of them at most) from
+every ready stream and runs, on those lanes only: int16 window -> fbank ->
+encoder ``streaming_step`` -> joiner projection -> blank-skipping greedy
+search.  The lanes' state is gathered with ``index_select``, stepped and
+written back with ``index_copy_``, so an idle lane's caches and counters do
+not move.  (The reference runs every lane and freezes the idle ones with a
+per-lane select, because ``jit`` wants one shape.)
+
+A stream is ready when a whole window is buffered; ``input_finished``
+zero-pads the tail so the last partial window flushes.  Online greedy skips
+``<sos/eos>`` as well as blank and unk (``extra_skip_sos``), as the
+reference's online path does.
+
+``begin_step`` runs a step and starts the readback of every lane's tokens,
+timestamps and counts (and the endpoint counters) into fresh host buffers
+(pinned, non-blocking on the card), recording an event; ``end_step`` waits
+on it.  A later step never writes what a pending handle reads, so a serving
+loop may call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
+
+Beam search, CTC, n-best, hotwords, ``accuracy="int8"`` and ``mesh`` are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from k2transducerasr_tpu_torch.decode import rnnt_greedy
+from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute, fbank_matrices
+from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.models.registry import get_encoder
+from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
+from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
+from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
+from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
+
+_BEAM = "ROADMAP 'Still to port' item 1: modified beam search with hotwords and n-best"
+_NOT_PORTED = {
+    "modified_beam_search": _BEAM,
+    "hotwords": _BEAM,
+    "get_nbest_results": _BEAM,
+    "greedy_search_ctc": "ROADMAP 'Still to port' item 2: CTC",
+    "int8": "ROADMAP 'Still to port' item 4: int8",
+    "mesh": "ROADMAP 'Still to port' item 9: parallelism",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet ({_NOT_PORTED[what]})")
+
+
+@dataclasses.dataclass
+class OnlineRecognizerResult:
+    text: str
+    tokens: list[str]
+    timestamps: list[int]
+
+    @property
+    def text_len(self) -> int:
+        return len(self.text)
+
+
+class OnlineStream:
+    """Host half of a stream: a raw-sample buffer and a lane of the
+    recognizer's pool, where its decode state lives."""
+
+    def __init__(self, recognizer: "OnlineRecognizer", lane: int):
+        self._rec = recognizer
+        self.lane = lane
+        self._buf = np.zeros(0, np.float32)
+        self._consumed = 0  # samples already consumed (hops)
+        self.finished_input = False
+        self.is_finished = False  # fully drained after input_finished
+        self.result: OnlineRecognizerResult | None = None
+
+    def add_samples(self, samples: np.ndarray) -> None:
+        if self.finished_input:
+            raise RuntimeError("add_samples after input_finished")
+        self._buf = np.concatenate([self._buf, np.asarray(samples, np.float32)])
+
+    def input_finished(self) -> None:
+        """Declare the end of audio; pads zeros so every remaining frame
+        flushes through the chunked encoder (the reference's tail flush)."""
+        if self.finished_input:
+            return
+        self.finished_input = True
+        win, hop = self._rec.window_samples, self._rec.hop_samples
+        # pad so that at least one more full window exists past current data
+        n = len(self._buf)
+        k = max(0, -(-max(n - win, 0) // hop)) + 1
+        need = win + k * hop
+        if need > n:
+            self._buf = np.concatenate([self._buf, np.zeros(need - n, np.float32)])
+
+    AddSamples = add_samples
+    InputFinished = input_finished
+
+    def _ready(self) -> bool:
+        return not self.is_finished and len(self._buf) >= self._rec.window_samples
+
+    def _take_window(self) -> np.ndarray:
+        win, hop = self._rec.window_samples, self._rec.hop_samples
+        out = self._buf[:win]
+        self._buf = self._buf[hop:]
+        self._consumed += hop
+        if self.finished_input and len(self._buf) < win:
+            self.is_finished = True
+        return out
+
+
+class OnlineRecognizer:
+    def __init__(
+        self,
+        bundle: ModelBundle,
+        decoding_method: str = "greedy_search",
+        compute_dtype=torch.bfloat16,
+        max_lanes: int = 8,
+        max_tokens: int = 512,
+        enable_endpoint: bool = False,
+        endpoint_config: EndpointConfig | None = None,
+        mesh=None,
+        hotwords: list[str] | None = None,
+        accuracy: str | None = None,
+        windows_per_step: int = 1,
+        device: str | torch.device = "cuda",
+    ):
+        """``compute_dtype``: bf16 (default) or None for float32, which is
+        true float32 on the card (TF32 off while a step runs).  ``device``
+        must be the bundle's; the default asks for the card."""
+        if decoding_method in ("modified_beam_search", "greedy_search_ctc"):
+            raise _not_ported(decoding_method)
+        if decoding_method != "greedy_search":
+            raise ValueError(f"unsupported decoding method {decoding_method!r}")
+        for name, value in (("mesh", mesh), ("hotwords", hotwords)):
+            if value:
+                raise _not_ported(name)
+        if accuracy == "int8":
+            raise _not_ported("int8")
+        if accuracy not in (None, "auto", "float32"):
+            raise ValueError(f"unsupported accuracy {accuracy!r}")
+        if windows_per_step < 1:
+            raise ValueError("windows_per_step must be >= 1")
+        dev = resolve_device(device)
+        if dev != bundle.device:
+            raise ValueError(
+                f"bundle is on {bundle.device}, recognizer asked for {dev}; "
+                "load the bundle with the same device"
+            )
+        self.bundle = bundle
+        self.device = dev
+        self.decoding_method = decoding_method
+        self.compute_dtype = compute_dtype
+        self.max_lanes = max_lanes
+        self.max_tokens = max_tokens
+        self.enable_endpoint = enable_endpoint
+        self._endpoint_cfg = endpoint_config
+        self.windows_per_step = windows_per_step
+
+        self._enc = get_encoder(bundle.model_type)
+        enc_cfg, fcfg = bundle.encoder_cfg, bundle.frontend_cfg
+        self.chunk_frames = self._enc.output_chunk_len(enc_cfg)  # encoder frames per window
+        self._feat_window = enc_cfg.chunk_input_len
+        self.window_samples = (self._feat_window - 1) * fcfg.frame_shift + fcfg.frame_length
+        self.hop_samples = enc_cfg.decode_chunk_len * fcfg.frame_shift
+        self._fbank_tables = tuple(torch.from_numpy(m).to(dev) for m in fbank_matrices(fcfg))
+
+        self._free_lanes = list(range(max_lanes))
+        self._streams: dict[int, OnlineStream] = {}
+        # the lane pool
+        self._enc_state = self._enc.init_state(enc_cfg, max_lanes, dev)
+        self._dec_state = self._init_dec_state(max_lanes)
+        self._frame_count = torch.zeros((max_lanes,), dtype=torch.int64, device=dev)
+        self._reset_template = None
+        self._endpoint_host = None  # (trailing, count, frames) from the last readback
+
+    # -- public API ---------------------------------------------------------
+
+    def create_online_stream(self) -> OnlineStream:
+        if not self._free_lanes:
+            raise RuntimeError(
+                f"all {self.max_lanes} lanes busy; raise max_lanes or dispose streams"
+            )
+        lane = self._free_lanes.pop()
+        self._reset_lane(lane)
+        stream = OnlineStream(self, lane)
+        self._streams[lane] = stream
+        return stream
+
+    CreateOnlineStream = create_online_stream
+    create_stream = create_online_stream
+
+    def dispose_stream(self, stream: OnlineStream) -> None:
+        if stream.lane in self._streams:
+            del self._streams[stream.lane]
+            self._free_lanes.append(stream.lane)
+            stream.lane = -1
+
+    def get_result(self, stream: OnlineStream) -> OnlineRecognizerResult:
+        return self.get_results([stream])[0]
+
+    def get_results(self, streams: list[OnlineStream]) -> list[OnlineRecognizerResult]:
+        """Advance every ready stream by one window (streams without a whole
+        window are skipped this round), then return current partial
+        results."""
+        return self.end_step(self.begin_step(streams))
+
+    GetResult = get_result
+    GetResults = get_results
+
+    def get_nbest_results(self, streams):
+        raise _not_ported("get_nbest_results")
+
+    def begin_step(self, streams: list[OnlineStream]):
+        """Run one step for every ready stream and start the readback of the
+        results without waiting for it; ``end_step`` takes the handle."""
+        active = [s for s in streams if s.lane >= 0 and s._ready()]
+        if active:
+            # windows travel as int16, made by truncation toward zero
+            wps = self.windows_per_step
+            windows = np.zeros((len(active), wps, self.window_samples), np.int16)
+            wcount = np.zeros((len(active),), np.int64)
+            for i, s in enumerate(active):
+                k = 0
+                while k < wps and s._ready():
+                    windows[i, k] = np.clip(s._take_window() * 32768.0, -32768,
+                                            32767).astype(np.int16)
+                    k += 1
+                wcount[i] = k
+            with torch.inference_mode(), self._precision():
+                self._step(np.array([s.lane for s in active]), windows, wcount)
+        st = self._dec_state
+        bufs = (st.tokens, st.timestamps, st.count)
+        if self.enable_endpoint:
+            bufs = bufs + (st.trailing_blanks, self._frame_count)
+        host = tuple(_readback(t) for t in bufs)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return streams, host, event
+
+    def end_step(self, pending) -> list[OnlineRecognizerResult]:
+        """Wait for a ``begin_step`` handle and return current partial
+        results for its streams."""
+        streams, host, event = pending
+        if event is not None:
+            event.synchronize()
+        tokens, stamps, counts = host[:3]
+        if len(host) > 3:
+            self._endpoint_host = (host[3], counts, host[4])
+        return [self._partial_result(s, tokens, stamps, counts) for s in streams]
+
+    def snapshot_stream(self, stream: OnlineStream) -> dict:
+        """A stream's whole decode state (encoder caches, decode state, frame
+        counter, buffered samples) as host arrays in the JAX package's
+        layout (``runtime/checkpoint.state_to_numpy``): restorable into any
+        lane of a recognizer with the same bundle, of either package."""
+        lane = stream.lane
+        if lane < 0:
+            raise ValueError("stream has no lane (disposed?)")
+        pick = lambda a: a[lane]  # noqa: E731
+        return {
+            "enc": state_to_numpy(tree_map(pick, self._enc_state)),
+            "dec": state_to_numpy(tree_map(pick, self._dec_state)),
+            "frames": int(self._frame_count[lane]),
+            "buffer": stream._buf.copy(),
+            "consumed": stream._consumed,
+            "finished_input": stream.finished_input,
+        }
+
+    def restore_stream(self, snapshot: dict) -> OnlineStream:
+        """A new stream whose device and host state continue exactly from a
+        snapshot (``state_from_numpy`` takes either package's)."""
+        stream = self.create_online_stream()
+        lane = stream.lane
+        enc = state_from_numpy(snapshot["enc"], self.device)
+        dec = state_from_numpy(snapshot["dec"], self.device)
+        tree_map(lambda pool, v: pool[lane].copy_(v), self._enc_state, enc)
+        tree_map(lambda pool, v: pool[lane].copy_(v), self._dec_state, dec)
+        self._frame_count[lane] = int(snapshot["frames"])
+        stream._buf = np.asarray(snapshot["buffer"], np.float32).copy()
+        stream._consumed = snapshot["consumed"]
+        stream.finished_input = snapshot["finished_input"]
+        return stream
+
+    def is_endpoint(self, stream: OnlineStream) -> bool:
+        """The endpoint rules of ``runtime/endpoint.py`` on the lane's
+        trailing-blank, token and frame counters.  They ride the batched
+        readback of ``end_step``; before any step has completed, one direct
+        read."""
+        if not self.enable_endpoint or stream.lane < 0:
+            return False
+        cfg = self._endpoint_cfg or EndpointConfig(
+            frame_seconds=(self.hop_samples / self.bundle.frontend_cfg.sample_rate)
+            / self.chunk_frames
+        )
+        if self._endpoint_host is None:
+            st = self._dec_state
+            self._endpoint_host = tuple(t.cpu() for t in (st.trailing_blanks, st.count,
+                                                          self._frame_count))
+        trailing, count, frames = (int(a[stream.lane]) for a in self._endpoint_host)
+        return is_endpoint(cfg, trailing, count, frames)
+
+    def decode_to_end(self, stream: OnlineStream) -> OnlineRecognizerResult:
+        """Drain a stream completely (declares the end of its input)."""
+        stream.input_finished()
+        while not stream.is_finished:
+            self.get_results([stream])
+        return self.get_results([stream])[0]
+
+    # -- internals ----------------------------------------------------------
+
+    def _precision(self):
+        """float32 compute means true float32: TF32 off while it runs."""
+        return exact_f32() if self.compute_dtype is None else contextlib.nullcontext()
+
+    def _partial_result(self, stream, tokens, stamps, counts) -> OnlineRecognizerResult:
+        if stream.lane < 0:
+            return stream.result or OnlineRecognizerResult("", [], [])
+        n = int(counts[stream.lane])
+        toks = tokens[stream.lane, :n].tolist()
+        table = self.bundle.tokens
+        res = OnlineRecognizerResult(
+            text=tokens_to_text(toks, table),
+            tokens=[table.get(t) for t in toks],
+            timestamps=stamps[stream.lane, :n].tolist(),
+        )
+        stream.result = res
+        return res
+
+    def _init_dec_state(self, batch: int) -> rnnt_greedy.GreedyState:
+        b = self.bundle
+        return rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
+                                      self.max_tokens, self.compute_dtype)
+
+    def _reset_lane(self, lane: int) -> None:
+        """Zero one lane's state (a fresh stream)."""
+        if self._reset_template is None:
+            self._reset_template = (
+                self._enc.init_state(self.bundle.encoder_cfg, 1, self.device),
+                self._init_dec_state(1),
+            )
+        enc_t, dec_t = self._reset_template
+        tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._enc_state, enc_t)
+        tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._dec_state, dec_t)
+        self._frame_count[lane] = 0
+        self._endpoint_host = None  # the lane's counters changed
+
+    def _step(self, lanes: np.ndarray, windows: np.ndarray, wcount: np.ndarray) -> None:
+        """One step on ``lanes`` (in pool order of ``windows``' rows):
+        windows [N, W, n] int16, wcount [N] windows per lane.  Window slot k
+        steps the encoder of the lanes with more than k windows; one greedy
+        pass then runs over each lane's concatenated encoder output."""
+        b = self.bundle
+        dev, cd, chunk = self.device, self.compute_dtype, self.chunk_frames
+        lanes_t = torch.from_numpy(lanes).to(dev)
+        samples = torch.from_numpy(windows).to(dev)
+        wps = windows.shape[1]
+        enc_out = None
+        for k in range(wps):
+            rows = torch.from_numpy(np.nonzero(wcount > k)[0]).to(dev)
+            idx = lanes_t[rows]
+            state = tree_map(lambda a: a.index_select(0, idx), self._enc_state)
+            feats = fbank_compute(samples[rows, k].float() * (1.0 / 32768.0), b.frontend_cfg,
+                                  self._feat_window, tables=self._fbank_tables)
+            out, new_state = self._enc.streaming_step(b.encoder, b.encoder_cfg, state, feats, cd)
+            tree_map(lambda pool, v: pool.index_copy_(0, idx, v.to(pool.dtype)),
+                     self._enc_state, new_state)
+            if enc_out is None:
+                enc_out = out.new_zeros((len(lanes), wps * chunk, out.shape[-1]))
+            enc_out[rows, k * chunk:(k + 1) * chunk] = out
+        enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
+        dec = tree_map(lambda a: a.index_select(0, lanes_t), self._dec_state)
+        lens = torch.from_numpy(wcount * chunk).to(dev)
+        new_dec = rnnt_greedy.greedy_frames_skip(
+            b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens,
+            self._frame_count.index_select(0, lanes_t),
+            True,  # online also skips <sos/eos> = 1
+            cd,
+        )
+        tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
+        self._frame_count.index_add_(0, lanes_t, lens)
+
+
+def _readback(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` that no later step writes: pinned and
+    non-blocking from the card (the caller records an event after it)."""
+    if t.device.type == "cuda":
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+    return t.clone()

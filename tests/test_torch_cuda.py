@@ -228,6 +228,46 @@ def test_tc_probs_all_masked_lane_is_uniform(cuda):
     torch.testing.assert_close(out[1], torch.full_like(out[1], 1.0 / 70), atol=1e-7, rtol=0)
 
 
+# The streaming shapes: K1 per zipformer2 stack of Zipformer2Config(causal=True)
+# (chunk 32 and left 128 over downsampling 1,2,4,8,4,2; qd 32, pd 4) and of
+# the zipformer2 pin (T=8, S=24 and T=4, S=12; qd 4, pd 2): (T, S, H, qd,
+# pd); K2 at ConformerConfig(causal=True) (chunk 16, left 64: T=16, S=80,
+# H=8, d=64) and the conformer pin (T=4, S=12, H=4, d=16): (T, S, H, d).
+# kv_start per lane at 0, mid and left (= S - T).
+K1_STREAMING = [(32, 160, 4, 32, 4), (16, 80, 4, 32, 4), (8, 40, 4, 32, 4), (4, 20, 8, 32, 4),
+                (8, 24, 2, 4, 2), (4, 12, 2, 4, 2)]
+K2_STREAMING = [(16, 80, 8, 64), (4, 12, 4, 16)]
+
+
+def _kv_starts(cuda, t, s):
+    return torch.tensor([0, (s - t) // 2, s - t], device=cuda, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,s,h,qd,pd", K1_STREAMING,
+                         ids=[f"T{c[0]}-S{c[1]}-qd{c[3]}" for c in K1_STREAMING])
+def test_k1_at_the_streaming_shapes(cuda, dtype, t, s, h, qd, pd):
+    q, k, pq, pk = _inputs(t * s + qd, 3, t, s, h, qd, pd, dtype)
+    kv = _kv_starts(cuda, t, s)
+    out = AC.relpos_attn_probs(q, k, pq, pk, None, kv_start=kv)
+    torch.cuda.synchronize()
+    assert out.shape == (3, h, t, s)
+    _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, None, kv_start=kv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,s,h,d", K2_STREAMING, ids=[f"T{c[0]}-S{c[1]}" for c in K2_STREAMING])
+def test_k2_at_the_streaming_shapes(cuda, dtype, t, s, h, d):
+    q, k, pq, pk = _inputs(t + s, 3, t, s, h, d, d, dtype)
+    q, pq = (q.float() * d**-0.5).to(dtype), (pq.float() * d**-0.5).to(dtype)
+    v = torch.from_numpy(np.random.default_rng(s).standard_normal((3, s, h, d)).astype(
+        np.float32)).to(cuda, dtype)
+    kv = _kv_starts(cuda, t, s)
+    out = AC.relpos_attn_ctx(q, k, pq, pk, v, None, kv_start=kv)
+    torch.cuda.synchronize()
+    _assert_ctx_close(out, AC.relpos_attn_ctx_reference(q, k, pq, pk, v, None, kv_start=kv), v)
+
+
 def test_tc_probs_past_the_f32_key_cap(cuda):
     """S = 12,000 keys: the float32 body's shared-memory rows stop at 11,249;
     the bf16 body tiles the key axis and takes it."""

@@ -194,6 +194,9 @@ _JAX_IMPORT = re.compile(
 def test_port_imports_no_jax():
     code = (
         "import sys, k2transducerasr_tpu_torch, k2transducerasr_tpu_torch.runtime.offline\n"
+        "import k2transducerasr_tpu_torch.runtime.online, k2transducerasr_tpu_torch.runtime.endpoint\n"
+        "import k2transducerasr_tpu_torch.models.conformer, k2transducerasr_tpu_torch.frontend.fbank\n"
+        "from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'k2transducerasr_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'k2transducerasr_tpu.'))]\n"
         "print(bad)\n"

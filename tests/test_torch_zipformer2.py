@@ -49,8 +49,8 @@ def test_flagship_width_layer_matches_jax(causal):
     want, _ = JZ._layer_forward(params, jcfg, 0, jnp.asarray(x), None, chunk, None, None,
                                 valid_j, kw.get("pad_lens"), chunk_left=kw.get("chunk_left"))
     tkw = {"pad_lens": torch.tensor(rows, dtype=torch.int32)} if not causal else kw
-    got = TZ._layer_forward(params_from_numpy(params), tcfg, 0, torch.from_numpy(x), chunk,
-                            None, valid_t, **tkw)
+    got, _ = TZ._layer_forward(params_from_numpy(params), tcfg, 0, torch.from_numpy(x), chunk,
+                               None, valid_t, **tkw)
     want = np.asarray(want)
     for i, r in enumerate(rows):
         np.testing.assert_allclose(got[i, :r].numpy(), want[i, :r], rtol=1e-4, atol=1e-4)
