@@ -12,23 +12,30 @@ Phases (any failure exits non-zero; none is caught):
      the six streaming stacks, T != S with kv_start per lane), with its time,
      the plain version's time and the bound.  A kernel's ``ms`` is CUDA events
      around one call from an empty queue (the host's time to prepare and
-     launch it included); ``device_ms`` beside it is the kernel's own time
-     from a profiler trace, and ``host_us`` the wrapper's host time per call;
+     launch it included); ``device_ms`` beside it is the device time per
+     call with the queue kept full (CUDA events around calls queued behind
+     a spin kernel), and ``host_us`` the wrapper's host time per call;
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
      streaming), plus the time of scaled_dot_product_attention on the same
      function (yardstick);
-  4. each committed pin model dir (zipformer2, conformer), float32 on the
-     card, must give its pinned transcript and timestamps exactly, offline
-     and through OnlineRecognizer.decode_to_end (the online pin);
+  4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC),
+     float32 on the card, must give its pinned transcript and timestamps
+     exactly, offline and through OnlineRecognizer.decode_to_end (the online
+     pin); under modified_beam_search (K=4) the zipformer2 and conformer pin
+     dirs must give every n-best hypothesis of BEAM_PINS, offline and online;
   5. each family at full width from a seed, one 5 s utterance in float32:
      card (kernel) against CPU (plain) — offline encoder output and each
      streaming step's encoder output within tolerance, tokens and
-     timestamps identical;
+     timestamps identical; and zipformer2 under modified_beam_search: the
+     best beam's tokens and timestamps identical, its score within 1e-3;
   6. each offline main path at full width: bf16, batches of 16 x 30 s
-     through begin_decode/end_decode, every kernel's launches counted from 0;
+     through begin_decode/end_decode, every kernel's launches counted from 0
+     (greedy search for each family, zipformer2-CTC, and zipformer2 under
+     modified_beam_search with its loop's trips per batch);
   6b. each streaming main path at full width (the causal flagship config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
-     per step; per-step latency, streaming RTF and the launches per step.
+     per step; per-step latency, streaming RTF and the launches per step
+     (the same methods as phase 6).
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
 
@@ -54,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
+from k2transducerasr_tpu_torch.decode import rnnt_beam
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute
 from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
@@ -80,6 +88,45 @@ FAMILIES = {
                       per_batch=ConformerConfig().num_layers,
                       pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
                       online_pin_text="tok28tok28tok28tok28"),
+    # the zipformer2 encoder under a CTC head (vocab 500 at full width)
+    "zipformer2ctc": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
+                          kernel="relpos_attn_probs",
+                          per_batch=sum(Zipformer2Config().num_encoder_layers),
+                          pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27"),
+}
+BEAM = "modified_beam_search"
+BEAM_K = 4
+# Every n-best hypothesis (text, timestamps), best first, of the pin dirs
+# under modified_beam_search with K=4 at float32 on the pin signal
+# (pin_pcm(6400)): offline get_nbest_results, and online get_nbest_results
+# after decode_to_end.  Taken from the JAX package's recognizers on the
+# CPU; tests/test_torch_beam.py asserts them against it.
+_TS8, _TS12, _TS16 = list(range(8)), list(range(12)), list(range(16))
+BEAM_PINS = {
+    "zipformer2": {
+        "offline": [("tok6tok25tok6tok26tok6tok8tok25tok26", _TS8),
+                    ("tok6tok25tok6tok26tok6tok8tok25tok6", _TS8),
+                    ("tok25tok25tok18tok8tok12tok6tok25tok6", _TS8),
+                    ("tok25tok6tok26tok6tok8tok25tok26tok8", _TS8)],
+        "online": [("tok25tok6tok26tok6tok8tok25tok26tok8tok12tok6tok25tok6", _TS12),
+                   ("tok6tok25tok6tok26tok6tok8tok25tok6tok12tok6tok25tok6", _TS12),
+                   ("tok6tok25tok6tok26tok6tok8tok25tok26tok8tok12tok6tok25", _TS12),
+                   ("tok25tok6tok26tok6tok8tok25tok26tok8tok12tok12tok6tok25", _TS12)],
+    },
+    "conformer": {
+        "offline": [("tok28tok28tok28tok28tok28tok22tok28tok28", _TS8),
+                    ("tok28tok28tok28tok28tok28tok28tok28tok28", _TS8),
+                    ("tok28tok28tok22tok28tok28tok28tok28tok28", _TS8),
+                    ("tok28tok28tok28tok28tok28tok14tok28tok28", _TS8)],
+        "online": [("tok28tok28tok28tok28tok28tok22tok28tok28tok28tok26tok4tok5tok5tok4tok4tok4",
+                    _TS16),
+                   ("tok28tok28tok28tok28tok28tok22tok28tok28tok28tok26tok4tok5tok5tok4tok4tok5",
+                    _TS16),
+                   ("tok28tok28tok28tok28tok28tok22tok28tok28tok28tok26tok4tok5tok5tok4tok7tok4",
+                    _TS16),
+                   ("tok28tok28tok28tok28tok28tok22tok28tok28tok28tok26tok4tok5tok5tok4tok7tok27",
+                    _TS16)],
+    },
 }
 KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx}
 
@@ -190,29 +237,32 @@ def host_us(fn, reps: int = 20) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def device_ms(fn, reps: int, match: str | None = None, warm: int = 2) -> float:
-    """Device time of one fn() call in ms, from a profiler trace of ``reps``
-    calls.  With ``match``, fn launches one kernel whose name holds it: the
-    median of those launches, which an event the profiler drops or mistimes
-    does not move.  Without, the mean per call of every kernel the calls
-    ran.  Unlike CUDA events around a call it leaves out the host's time to
-    prepare and launch, which the card spends idle when the queue is
-    empty."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(fn, reps: int, warm: int = 2) -> float:
+    """Device time of one fn() call in ms: CUDA events around ``reps`` calls
+    queued behind a spin kernel (torch.cuda._sleep) that holds the stream
+    until the last call is queued, so the window holds the calls' device
+    work back to back and none of the host's time to prepare and launch,
+    which the card spends idle when the queue is empty.  The spin is made
+    longer until the start event is still pending once every call is
+    queued.  Needs no profiler."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = 1 << 22  # about 2 ms at the H100's clock
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
-    if not times:
-        raise AssertionError(f"the profiler saw no device kernel{'' if match is None else ' ' + match}")
-    return statistics.median(times) if match is not None else sum(times) / reps
+        b.record()
+        held = not a.query()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise AssertionError("device_ms: the spin kernel ended before the calls were queued")
 
 
 def streams_for(rec, pcms):
@@ -362,7 +412,7 @@ def phase_k1(bw):
             return AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
 
         ms = cuda_ms(kernel, reps=20)
-        dev_ms = device_ms(kernel, reps=20, match="relpos_attn_probs")
+        dev_ms = device_ms(kernel, reps=20)
         host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw),
                            reps=5, warm=1)
@@ -464,7 +514,7 @@ def phase_k2(bw):
             return AC.relpos_attn_ctx(q, k, pq, pk, v, lens, **kw)
 
         ms = cuda_ms(kernel, reps=20)
-        dev_ms = device_ms(kernel, reps=20, match="relpos_attn_ctx")
+        dev_ms = device_ms(kernel, reps=20)
         host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_ctx_reference(q, k, pq, pk, v, lens, **kw),
                            reps=5, warm=1)
@@ -528,6 +578,70 @@ def phase_online_pin(family):
         raise AssertionError(f"{family} online pin mismatch: {res.text!r}")
     if counts[spec["kernel"]] == 0:
         raise AssertionError(f"{family} online pin did not launch {spec['kernel']}")
+
+
+def _nbest_pinned(results):
+    return [(r.text, r.timestamps) for r in results]
+
+
+def phase_beam_pins(family) -> dict:
+    """modified_beam_search (K=4) on the pin dir's bundle on the card, f32:
+    every n-best hypothesis must be BEAM_PINS', offline (get_nbest_results)
+    and online (decode_to_end, then get_nbest_results).  Returns each run's
+    launches of the family's kernel."""
+    spec = FAMILIES[family]
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    kw = dict(decoding_method=BEAM, compute_dtype=None, max_active_paths=BEAM_K, device="cuda")
+    launches = {}
+    rec = OfflineRecognizer(bundle, **kw)
+    reset_counts()
+    got = _nbest_pinned(rec.get_nbest_results(streams_for(rec, [pin_pcm(6400)]))[0])
+    launches["pin_beam_offline"] = read_counts()[spec["kernel"]]
+    log(f"[4] {family} beam pin on card (K={BEAM_K}): {got} (launches {read_counts()})")
+    if got != BEAM_PINS[family]["offline"]:
+        raise AssertionError(f"{family} offline beam pin mismatch: {got}")
+    rec = OnlineRecognizer(bundle, max_lanes=2, **kw)
+    stream = rec.create_online_stream()
+    stream.add_samples(pin_pcm(6400))
+    reset_counts()
+    rec.decode_to_end(stream)
+    got = _nbest_pinned(rec.get_nbest_results([stream])[0])
+    launches["pin_beam_online"] = read_counts()[spec["kernel"]]
+    log(f"[4] {family} online beam pin on card: {got} (launches {read_counts()})")
+    if got != BEAM_PINS[family]["online"]:
+        raise AssertionError(f"{family} online beam pin mismatch: {got}")
+    if 0 in launches.values():
+        raise AssertionError(f"{family} beam pins did not launch {spec['kernel']}: {launches}")
+    return launches
+
+
+def phase_beam_full_width_vs_cpu(family="zipformer2"):
+    """Offline modified_beam_search (K=4) at full width from a seed, one 5 s
+    utterance, f32: card against CPU, the best beam's tokens and timestamps
+    identical and its score within 1e-3 relative; how many of the K n-best
+    hypotheses agree exactly is printed."""
+    cfg = FAMILIES[family]["cfg"]()
+    pcm = [synth_pcm(5 * 16000, 101)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        bundle = ModelBundle.random(family, cfg, vocab_size=500, seed=0, device=dev)
+        rec = OfflineRecognizer(bundle, decoding_method=BEAM, compute_dtype=None,
+                                max_active_paths=BEAM_K, device=dev)
+        t0 = time.time()
+        streams = streams_for(rec, pcm)
+        pending = rec.begin_decode(streams)
+        nbest = rec._nbest_results(streams, pending[4])[0]
+        outs[dev] = (rec.end_decode(pending)[0], nbest, float(pending[4][3][0, 0]))
+        log(f"[5] {family} beam full width f32 on {dev}: {len(outs[dev][0].tokens)} tokens, "
+            f"best score {outs[dev][2]:.4f}, {time.time() - t0:.1f} s")
+    (rg, ng, sg), (rc, nc, sc) = outs["cuda"], outs["cpu"]
+    same = sum((a.tokens, a.timestamps) == (b.tokens, b.timestamps) for a, b in zip(ng, nc))
+    log(f"[5] {family} beam card vs CPU: best tokens identical {rg.tokens == rc.tokens}, "
+        f"score rel diff {abs(sg - sc) / abs(sc):.2e}; {same} of {BEAM_K} n-best identical")
+    if rg.tokens != rc.tokens or rg.timestamps != rc.timestamps:
+        raise AssertionError(f"{family}: best beam differs between card and CPU")
+    if abs(sg - sc) > 1e-3 * abs(sc):
+        raise AssertionError(f"{family}: best beam score {sg} vs {sc} beyond 1e-3 relative")
 
 
 def stream_encoder_outputs(rec, pcm):
@@ -610,10 +724,15 @@ def phase_full_width_vs_cpu(family):
         raise AssertionError(f"{family}: tokens differ between card and CPU")
 
 
-def phase_main_path(family, n_batches=2):
+def phase_main_path(family, method="greedy_search", n_batches=2):
+    """An offline main path (a CTC family always decodes CTC greedy): one
+    warm-up batch, then ``n_batches`` timed; the launches and, for beam
+    search, the loop's trips are counted from 0 over the timed batches."""
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
-    rec = OfflineRecognizer(bundle, device="cuda")  # bf16 compute
+    rec = OfflineRecognizer(bundle, decoding_method=method, max_active_paths=BEAM_K,
+                            device="cuda")  # bf16 compute
+    name = f"{family}/{rec.decoding_method}"
     n = 30 * 16000
     batches = [streams_for(rec, [synth_pcm(n, k * FLAGSHIP_B + i) for i in range(FLAGSHIP_B)])
                for k in range(n_batches + 1)]
@@ -621,6 +740,7 @@ def phase_main_path(family, n_batches=2):
     reset_peak_memory()
 
     reset_counts()
+    rnnt_beam.beam_frames_skip.trips = 0
     t0 = time.time()
     results = []
     for k in range(1, n_batches + 1):
@@ -628,17 +748,19 @@ def phase_main_path(family, n_batches=2):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
+    trips = rnnt_beam.beam_frames_skip.trips / n_batches
 
-    want = {name: (spec["per_batch"] * n_batches if name == spec["kernel"] else 0)
-            for name in KERNELS}
+    want = {k: (spec["per_batch"] * n_batches if k == spec["kernel"] else 0) for k in KERNELS}
     if counts != want:
-        raise AssertionError(f"{family} main path launched {counts}, expected {want}")
+        raise AssertionError(f"{name} main path launched {counts}, expected {want}")
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
     toks = [len(r.tokens) for r in results]
 
     # one more batch split into stages (not part of the counted run)
+    torch.cuda.synchronize()
+    t0 = time.time()
     samples, sample_counts = rec.pcm_batch(batches[1])
     torch.cuda.synchronize()
     t1 = time.time()
@@ -646,24 +768,30 @@ def phase_main_path(family, n_batches=2):
     torch.cuda.synchronize()
     t2 = time.time()
     if not bool(torch.isfinite(enc).all()) or enc.shape[0] != FLAGSHIP_B:
-        raise AssertionError(f"{family} encoder output not finite or wrong batch")
-    rec.end_decode(rec.begin_decode(batches[1]))
+        raise AssertionError(f"{name} encoder output not finite or wrong batch")
+    pending = rec.begin_decode(batches[1])
+    rec.end_decode(pending)
     torch.cuda.synchronize()
     t3 = time.time()
-    enc_ms, full_ms = (t2 - t1) * 1e3, (t3 - t2) * 1e3
+    prep_ms, enc_ms, full_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
     if min(toks) == 0 or max(toks) > rec.max_tokens:
-        raise AssertionError(f"{family}: implausible token counts {min(toks)}..{max(toks)}")
-    log(f"[6] {family} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
+        raise AssertionError(f"{name}: implausible token counts {min(toks)}..{max(toks)}")
+    if pending[4] is not None:  # beam: the n-best sorted, finite scores
+        score = pending[4][3]
+        if not bool(torch.isfinite(score).all()) or bool((score[:, 1:] > score[:, :-1]).any()):
+            raise AssertionError(f"{name}: n-best scores not finite or not sorted")
+    log(f"[6] {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
         f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
         f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
         f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), "
-        f"enc out {tuple(enc.shape)}")
-    log(f"[6] {family} stage split (host clock, one batch): fbank+encoder {enc_ms:.1f} ms; "
-        f"whole decode {full_ms:.1f} ms -> joiner+greedy ~{full_ms - enc_ms:.1f} ms")
+        f"enc out {tuple(enc.shape)}" + (f", beam loop {trips:.0f} trips/batch" if trips else ""))
+    log(f"[6] {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
+        f"{prep_ms:.1f} ms, fbank+encoder {enc_ms:.1f} ms; whole decode {full_ms:.1f} ms -> "
+        f"search + readback ~{full_ms - prep_ms - enc_ms:.1f} ms")
     return counts[spec["kernel"]]
 
 
-def phase_streaming_main_path(family, seconds=30.0):
+def phase_streaming_main_path(family, method="greedy_search", seconds=30.0):
     """The streaming main path as benchmarks/streaming_latency.py drives the
     JAX recognizer: the causal flagship config at bf16, STREAM_LANES lanes
     of ``seconds`` of audio each buffered up front, get_results over every
@@ -673,7 +801,9 @@ def phase_streaming_main_path(family, seconds=30.0):
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
                                 device="cuda")
-    rec = OnlineRecognizer(bundle, max_lanes=STREAM_LANES, device="cuda")  # bf16 compute
+    rec = OnlineRecognizer(bundle, decoding_method=method, max_lanes=STREAM_LANES,
+                           max_active_paths=BEAM_K, device="cuda")  # bf16 compute
+    name = f"{family}/{rec.decoding_method}"
     n = int(16000 * seconds)
     streams = []
     for i in range(STREAM_LANES):
@@ -685,6 +815,7 @@ def phase_streaming_main_path(family, seconds=30.0):
     reset_peak_memory()
 
     reset_counts()
+    rnnt_beam.beam_frames_skip.trips = 0
     lat = []
     t_start = time.perf_counter()
     while any(s._ready() for s in streams):
@@ -693,43 +824,48 @@ def phase_streaming_main_path(family, seconds=30.0):
         lat.append(time.perf_counter() - t0)
     wall = time.perf_counter() - t_start
     counts = read_counts()
+    trips = rnnt_beam.beam_frames_skip.trips
 
     steps = len(lat)
     per_step = spec["per_batch"]  # one call per layer
-    want = {name: (per_step * steps if name == spec["kernel"] else 0) for name in KERNELS}
+    want = {k: (per_step * steps if k == spec["kernel"] else 0) for k in KERNELS}
     if counts != want:
-        raise AssertionError(f"{family} streaming main path launched {counts} in {steps} steps, "
+        raise AssertionError(f"{name} streaming main path launched {counts} in {steps} steps, "
                              f"expected {want}")
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
     toks = [len(r.tokens) for r in results]
     if min(toks) == 0 or max(toks) > rec.max_tokens:
-        raise AssertionError(f"{family} streaming: implausible token counts {toks}")
-    row = {"family": family, "lanes": STREAM_LANES, "steps": steps, "p50_ms": p50,
-           "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
+        raise AssertionError(f"{name} streaming: implausible token counts {toks}")
+    row = {"family": family, "method": rec.decoding_method, "lanes": STREAM_LANES,
+           "steps": steps, "beam_trips_per_step": trips / steps, "p50_ms": p50, "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
            "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": counts[spec["kernel"]], "launches_per_step": per_step,
            "device_busy_share": busy, "stages_ms": stream_stage_split(rec)}
-    log(f"[6b] {family} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
+    log(f"[6b] {name} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
         f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
         f"{hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, {row['audio_s_per_s']:.1f} audio-s/s, "
         f"peak {row['peak_gib']:.2f} GiB, launches {counts} ({per_step}/step of "
-        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
+        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}"
+        + (f", beam loop {trips / steps:.1f} trips/step" if trips else ""))
     st = row["stages_ms"]
-    log(f"[6b] {family} step split (host clock with device syncs, median of 5, all "
+    log(f"[6b] {name} step split (host clock with device syncs, median of 5, all "
         f"{STREAM_LANES} lanes): lane gather {st['gather']:.2f} ms, fbank {st['fbank']:.2f}, "
         f"encoder streaming_step {st['encoder']:.2f}, lane scatter {st['scatter']:.2f} -> "
-        f"joiner + greedy + readback ~{p50 - sum(st.values()):.2f} of the p50 step; device "
-        f"busy {busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included)")
+        f"search + readback ~{p50 - sum(st.values()):.2f} of the p50 step; device busy "
+        + ("not measured (the profiler recorded no device activity)" if busy is None else
+           f"{busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included)"))
     return row
 
 
-def device_busy_share(fn, reps: int) -> float:
+def device_busy_share(fn, reps: int) -> float | None:
     """Sum of the device's kernel and copy times over the wall time of
     ``reps`` calls of fn() under a profiler trace: the share of the window
-    the card was busy (a lower bound: tracing adds host time)."""
+    the card was busy (a lower bound: tracing adds host time).  None when
+    the profiler recorded no device activity (CUPTI tracing is not
+    available on every machine): not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -742,9 +878,7 @@ def device_busy_share(fn, reps: int) -> float:
         wall = time.perf_counter() - t0
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA)
-    if busy_us == 0:
-        raise AssertionError("the profiler saw no device time in the streaming steps")
-    return busy_us / 1e6 / wall
+    return busy_us / 1e6 / wall if busy_us else None
 
 
 def stream_stage_split(rec, reps: int = 5) -> dict:
@@ -784,7 +918,8 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
     step of the streaming main path (``stream_layers`` calls of each
     streaming-shape case).  ``ms``, ``plain_ms`` and
     ``library_ms`` are CUDA events around one call; ``device_ms`` and
-    ``library_device_ms`` the device time from a profiler trace."""
+    ``library_device_ms`` the device time per call with the queue kept full
+    (``device_ms``)."""
     main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
     per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
                  for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
@@ -872,22 +1007,33 @@ def main() -> int:
     for family in FAMILIES:
         phase_golden(family)
         phase_online_pin(family)
+    pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
     for family in FAMILIES:
         phase_full_width_vs_cpu(family)
         phase_streaming_vs_cpu(family)
+    phase_beam_full_width_vs_cpu("zipformer2")
     launches = {family: phase_main_path(family) for family in FAMILIES}
+    launches_beam = phase_main_path("zipformer2", BEAM)
     streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
-    print(json.dumps({"streaming": list(streaming.values())}), flush=True)
+    streaming_beam = phase_streaming_main_path("zipformer2", BEAM)
+    print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam]}), flush=True)
 
     def paths(family):
-        return {"offline": launches[family], "streaming": streaming[family]["launches"]}
+        return {"offline": launches[family], "streaming": streaming[family]["launches"],
+                **pin_beam[family]}
+
+    k1_paths = dict(paths("zipformer2"), offline_beam=launches_beam,
+                    offline_ctc=launches["zipformer2ctc"],
+                    streaming_beam=streaming_beam["launches"],
+                    streaming_ctc=streaming["zipformer2ctc"]["launches"])
 
     kernels = [
         kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
-                    "k2transducerasr_tpu/ops/attention_pallas.py:158", paths("zipformer2"),
+                    "k2transducerasr_tpu/ops/attention_pallas.py:158", k1_paths,
                     k1_rows, k1_worst,
                     "one zipformer2 flagship batch (16 x 30 s): 16 calls at the bf16 stack "
-                    "shapes; streaming: one step of 16 lanes of Zipformer2Config(causal=True), "
+                    "shapes, under greedy, beam (offline_beam) and CTC (offline_ctc) alike; "
+                    "streaming: one step of 16 lanes of Zipformer2Config(causal=True), "
                     "16 calls at the six stacks' (T, S); library_ms null: no PyTorch call "
                     "returns rel-pos probs"),
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",

@@ -10,9 +10,9 @@ recognizers stay family-agnostic:
                                            -> (enc_out, new_state)
     output_chunk_len(cfg)                  -> output frames per step
 
-zipformer2 and conformer are ported so far; every other family of the
-reference raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+zipformer2, zipformer2-CTC (the zipformer2 encoder under a CTC head) and
+conformer are ported so far; every other family of the reference raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -22,12 +22,13 @@ import importlib
 _PORTED = {
     "conformer": "k2transducerasr_tpu_torch.models.conformer",
     "zipformer2": "k2transducerasr_tpu_torch.models.zipformer2",
+    # the CTC head replaces decoder and joiner; the encoder is zipformer2's
+    "zipformer2ctc": "k2transducerasr_tpu_torch.models.zipformer2",
 }
 
 _NOT_YET = {
     "lstm": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
     "zipformer": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
-    "zipformer2ctc": "ROADMAP 'Modules to port': CTC",
 }
 
 

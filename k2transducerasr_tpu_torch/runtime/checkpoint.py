@@ -164,15 +164,21 @@ def state_from_numpy(tree, device: torch.device | str = "cpu"):
 
     Covers the encoder state trees (dicts and lists of batch-leading
     arrays; zipformer2's ``embed_stage`` is ``[B, 3, F', C]`` in both) and
-    the greedy ``GreedyState`` (any dataclass with its field names, as
-    ``OnlineRecognizer.snapshot_stream`` of either package gives it, becomes
-    the port's).  int32 counters become int64; bfloat16 arrays stay
-    bfloat16."""
+    the decode states: a dataclass with the field names of the port's
+    ``GreedyState``, ``BeamState`` or ``CtcState`` (as
+    ``OnlineRecognizer.snapshot_stream`` of either package gives it)
+    becomes that class; any other dataclass raises ``TypeError``.  int32
+    counters become int64; bfloat16 arrays stay bfloat16."""
     if dataclasses.is_dataclass(tree):
+        from k2transducerasr_tpu_torch.decode.ctc_greedy import CtcState
+        from k2transducerasr_tpu_torch.decode.rnnt_beam import BeamState
         from k2transducerasr_tpu_torch.decode.rnnt_greedy import GreedyState
 
-        return GreedyState(**{f.name: state_from_numpy(getattr(tree, f.name), device)
-                              for f in dataclasses.fields(GreedyState)})
+        names = {f.name for f in dataclasses.fields(tree)}
+        for cls in (GreedyState, BeamState, CtcState):
+            if names == {f.name for f in dataclasses.fields(cls)}:
+                return cls(**{n: state_from_numpy(getattr(tree, n), device) for n in names})
+        raise TypeError(f"{type(tree).__name__} with fields {sorted(names)} is no decode state")
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

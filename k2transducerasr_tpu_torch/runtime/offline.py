@@ -1,10 +1,16 @@
 """Offline (whole-utterance) recognizer — PyTorch port of
-``k2transducerasr_tpu/runtime/offline.py`` for ``greedy_search``.
+``k2transducerasr_tpu/runtime/offline.py``.
 
-Per batch: int16 PCM -> fbank -> zipformer2 -> joiner encoder projection ->
-blank-skipping greedy search -> text, all on the bundle's device; the host
-reads back only the token buffers.  Beam search, CTC, ``mesh``, ``hotwords``
-and ``accuracy="int8"`` are not ported yet and raise.
+Per batch: int16 PCM -> fbank -> encoder -> one of
+  * ``greedy_search``: joiner encoder projection -> blank-skipping greedy
+    search;
+  * ``modified_beam_search``: the same projection -> blank-skipping beam
+    search over ``max_active_paths`` beams, with ``get_nbest_results`` and
+    ``hotwords`` (the n-best hypothesis with the most hotwords wins);
+  * ``greedy_search_ctc`` (forced for a CTC model type): CTC head ->
+    vectorised CTC greedy,
+all on the bundle's device; the host reads back only the token buffers.
+``mesh`` and ``accuracy="int8"`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -15,17 +21,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from k2transducerasr_tpu_torch.decode import rnnt_greedy
+from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import (
     fbank_compute,
     fbank_matrices,
     num_frames_for,
     num_frames_tensor,
 )
+from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, not_ported, resolve_device
+from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
+
+DECODING_METHODS = ("greedy_search", "greedy_search_ctc", "modified_beam_search")
 
 
 @dataclasses.dataclass
@@ -78,9 +88,6 @@ def apply_reference_pad(feats, feat_lens, tail_len: int = 19):
     return feats, torch.full_like(feat_lens, int(claim))
 
 
-_NOT_PORTED = "not ported to PyTorch yet (see ROADMAP.md)"
-
-
 class OfflineRecognizer:
     def __init__(
         self,
@@ -89,6 +96,7 @@ class OfflineRecognizer:
         compute_dtype=torch.bfloat16,
         max_tokens: int = 1024,
         frame_bucket: int = 256,
+        max_active_paths: int = 4,
         reference_pad_compat: bool = False,
         mesh=None,
         hotwords: list[str] | None = None,
@@ -96,28 +104,37 @@ class OfflineRecognizer:
         device: str | torch.device = "cuda",
     ):
         """``compute_dtype``: bf16 (default) or None for float32, which is
-        true float32 on the card (TF32 off while a batch decodes).
-        ``device`` must be the bundle's; the default asks for the card."""
-        for name, value in (("mesh", mesh), ("hotwords", hotwords)):
-            if value:
-                raise NotImplementedError(f"{name} is {_NOT_PORTED}")
+        true float32 on the card (TF32 off while a batch decodes).  A CTC
+        bundle always decodes with ``greedy_search_ctc``; ``hotwords`` need
+        ``modified_beam_search``.  ``device`` must be the bundle's; the
+        default asks for the card."""
+        if bundle.is_ctc:
+            decoding_method = "greedy_search_ctc"
+        if decoding_method not in DECODING_METHODS:
+            raise ValueError(f"unsupported decoding method {decoding_method!r}")
+        if hotwords and decoding_method != "modified_beam_search":
+            raise ValueError("hotwords require decoding_method='modified_beam_search'")
+        if mesh is not None:
+            raise not_ported("mesh")
+        if accuracy == "int8":
+            raise not_ported("accuracy='int8'")
         if accuracy not in (None, "auto", "float32"):
-            raise NotImplementedError(f"accuracy={accuracy!r} is {_NOT_PORTED}")
+            raise ValueError(f"unsupported accuracy {accuracy!r}")
         dev = resolve_device(device)
         if dev != bundle.device:
             raise ValueError(
                 f"bundle is on {bundle.device}, recognizer asked for {dev}; "
                 "load the bundle with the same device"
             )
-        if decoding_method != "greedy_search":
-            raise NotImplementedError(f"decoding_method {decoding_method!r} is {_NOT_PORTED}")
         self.bundle = bundle
         self.device = dev
         self.decoding_method = decoding_method
         self.compute_dtype = compute_dtype
         self.max_tokens = max_tokens
         self.frame_bucket = frame_bucket
+        self.max_active_paths = max_active_paths
         self.reference_pad_compat = reference_pad_compat
+        self.hotwords = hotwords
         self._fbank_tables = tuple(
             torch.from_numpy(m).to(dev) for m in fbank_matrices(bundle.frontend_cfg)
         )
@@ -154,28 +171,52 @@ class OfflineRecognizer:
         return torch.from_numpy(batch).to(self.device), torch.from_numpy(counts).to(self.device)
 
     def begin_decode(self, streams: list[OfflineStream]):
-        """Run the device work for a batch and return a pending handle; the
-        token buffers stay on the device until ``end_decode``."""
+        """Run the device work for a batch and return a pending handle: the
+        best hypothesis's token buffers and, under beam search, the ordered
+        n-best buffers (``rnnt_beam.nbest_beams``).  Everything stays on the
+        device until ``end_decode``, which reads the n-best back only when
+        hotwords need it."""
         samples, sample_counts = self.pcm_batch(streams)
         with torch.inference_mode(), self._precision():
-            st = self._decode(samples, sample_counts)
-        return (streams, st.tokens, st.timestamps, st.count)
+            return (streams, *self._decode(samples, sample_counts))
 
     def end_decode(self, pending) -> list[OfflineRecognizerResult]:
-        """Read back a ``begin_decode`` handle's tokens and build results."""
-        streams, tokens, timestamps, count = pending
-        table = self.bundle.tokens
-        results = []
-        for i, (toks, stamps) in enumerate(rnnt_greedy.extract_results(tokens, timestamps,
-                                                                       count)):
-            res = OfflineRecognizerResult(
-                text=tokens_to_text(toks, table),
-                tokens=[table.get(t) for t in toks],
-                timestamps=stamps,
-            )
-            streams[i].result = res
-            results.append(res)
+        """Read back a ``begin_decode`` handle's tokens and build results.
+        With ``hotwords`` each stream's result is the n-best hypothesis that
+        ``apply_hotwords`` prefers."""
+        streams, tokens, timestamps, count, nbest = pending
+        if self.hotwords:
+            results = []
+            for cands in self._nbest_results(streams, nbest):
+                texts = [c.text for c in cands]
+                results.append(cands[texts.index(apply_hotwords(texts, self.hotwords))])
+        else:
+            results = [self._result(toks, stamps) for toks, stamps
+                       in rnnt_greedy.extract_results(tokens, timestamps, count)]
+        for stream, res in zip(streams, results):
+            stream.result = res
         return results
+
+    def get_nbest_results(self, streams: list[OfflineStream]
+                          ) -> list[list[OfflineRecognizerResult]]:
+        """Decode and return all ``max_active_paths`` hypotheses per stream,
+        best-scoring first (``modified_beam_search`` only).  Beams are not
+        recombined, so two may carry the same tokens."""
+        if self.decoding_method != "modified_beam_search":
+            raise ValueError("get_nbest_results requires modified_beam_search")
+        pending = self.begin_decode(streams)
+        return self._nbest_results(streams, pending[4])
+
+    def _result(self, toks: list[int], stamps: list[int]) -> OfflineRecognizerResult:
+        table = self.bundle.tokens
+        return OfflineRecognizerResult(text=tokens_to_text(toks, table),
+                                       tokens=[table.get(t) for t in toks], timestamps=stamps)
+
+    def _nbest_results(self, streams, nbest) -> list[list[OfflineRecognizerResult]]:
+        toks, stamps, counts = (t.cpu() for t in nbest[:3])
+        return [[self._result(toks[i, j, :n].tolist(), stamps[i, j, :n].tolist())
+                 for j, n in enumerate(counts[i].tolist())]
+                for i in range(len(streams))]
 
     # -- the decode program -------------------------------------------------
 
@@ -201,14 +242,28 @@ class OfflineRecognizer:
             feats, feat_lens = self.features(samples, sample_counts)
             return self.bundle.encoder(feats, feat_lens, self.compute_dtype)
 
-    def _decode(self, samples, sample_counts) -> rnnt_greedy.GreedyState:
+    def _decode(self, samples, sample_counts):
+        """-> (tokens, timestamps, count) of each lane's best hypothesis and
+        the ordered n-best buffers (None but under beam search)."""
         b = self.bundle
+        cd = self.compute_dtype
+        batch = samples.shape[0]
+        zero = torch.zeros((batch,), dtype=torch.int64, device=self.device)
         enc_out, enc_lens = self.encode(samples, sample_counts)
-        enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, self.compute_dtype)
-        state = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, samples.shape[0],
-                                       self.max_tokens, self.compute_dtype)
-        zero = torch.zeros((samples.shape[0],), dtype=torch.int64, device=self.device)
-        return rnnt_greedy.greedy_frames_skip(
-            b.decoder, b.decoder_cfg, b.joiner, state, enc_proj, enc_lens, zero, False,
-            self.compute_dtype,
-        )
+        if self.decoding_method == "greedy_search_ctc":
+            lp = ctc_mod.log_probs(b.ctc, enc_out, cd)
+            state = ctc_greedy.init_state(batch, self.max_tokens, device=self.device)
+            final = ctc_greedy.ctc_frames(state, lp, enc_lens, zero)
+            return final.tokens, final.timestamps, final.count, None
+        enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
+        if self.decoding_method == "modified_beam_search":
+            state = rnnt_beam.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
+                                         self.max_active_paths, self.max_tokens, cd)
+            final = rnnt_beam.beam_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
+                                               enc_proj, enc_lens, zero, False, cd)
+            return (*rnnt_beam.best_beam(final), rnnt_beam.nbest_beams(final))
+        state = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
+                                       self.max_tokens, cd)
+        final = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
+                                               enc_proj, enc_lens, zero, False, cd)
+        return final.tokens, final.timestamps, final.count, None

@@ -1,30 +1,32 @@
 """Online (streaming) recognizer — PyTorch port of
-``k2transducerasr_tpu/runtime/online.py`` for ``greedy_search``.
+``k2transducerasr_tpu/runtime/online.py``.
 
 The recognizer owns a lane pool on its device: the encoder's streaming state
-and the greedy decode state, each leaf ``[max_lanes, ...]``, plus each lane's
-count of encoder frames decoded.  A stream is a host sample buffer and a
-lane.  Each step takes one window (``windows_per_step`` of them at most) from
-every ready stream and runs, on those lanes only: int16 window -> fbank ->
-encoder ``streaming_step`` -> joiner projection -> blank-skipping greedy
-search.  The lanes' state is gathered with ``index_select``, stepped and
+and the decode state of its method (``GreedyState``, ``BeamState`` or
+``CtcState``), each leaf ``[max_lanes, ...]``, plus each lane's count of
+encoder frames decoded.  A stream is a host sample buffer and a lane.  Each
+step takes one window (``windows_per_step`` of them at most) from every
+ready stream and runs, on those lanes only: int16 window -> fbank -> encoder
+``streaming_step`` -> one of blank-skipping greedy search, blank-skipping
+modified beam search (joiner projection first) or CTC greedy (CTC head
+first).  The lanes' state is gathered with ``index_select``, stepped and
 written back with ``index_copy_``, so an idle lane's caches and counters do
 not move.  (The reference runs every lane and freezes the idle ones with a
 per-lane select, because ``jit`` wants one shape.)
 
 A stream is ready when a whole window is buffered; ``input_finished``
-zero-pads the tail so the last partial window flushes.  Online greedy skips
-``<sos/eos>`` as well as blank and unk (``extra_skip_sos``), as the
-reference's online path does.
+zero-pads the tail so the last partial window flushes.  Online greedy and
+beam search skip ``<sos/eos>`` as well as blank and unk
+(``extra_skip_sos``), as the reference's online path does.
 
 ``begin_step`` runs a step and starts the readback of every lane's tokens,
-timestamps and counts (and the endpoint counters) into fresh host buffers
-(pinned, non-blocking on the card), recording an event; ``end_step`` waits
-on it.  A later step never writes what a pending handle reads, so a serving
-loop may call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
+timestamps and counts (the best beam's, or every beam's when ``hotwords``
+are set; and the endpoint counters) into fresh host buffers (pinned,
+non-blocking on the card), recording an event; ``end_step`` waits on it.  A
+later step never writes what a pending handle reads, so a serving loop may
+call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
 
-Beam search, CTC, n-best, hotwords, ``accuracy="int8"`` and ``mesh`` are not
-ported yet and raise.
+``accuracy="int8"`` and ``mesh`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -35,29 +37,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from k2transducerasr_tpu_torch.decode import rnnt_greedy
+from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute, fbank_matrices
+from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, not_ported, resolve_device
 from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
+from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
+from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
-
-_BEAM = "ROADMAP 'Still to port' item 1: modified beam search with hotwords and n-best"
-_NOT_PORTED = {
-    "modified_beam_search": _BEAM,
-    "hotwords": _BEAM,
-    "get_nbest_results": _BEAM,
-    "greedy_search_ctc": "ROADMAP 'Still to port' item 2: CTC",
-    "int8": "ROADMAP 'Still to port' item 4: int8",
-    "mesh": "ROADMAP 'Still to port' item 9: parallelism",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet ({_NOT_PORTED[what]})")
 
 
 @dataclasses.dataclass
@@ -127,6 +118,7 @@ class OnlineRecognizer:
         compute_dtype=torch.bfloat16,
         max_lanes: int = 8,
         max_tokens: int = 512,
+        max_active_paths: int = 4,
         enable_endpoint: bool = False,
         endpoint_config: EndpointConfig | None = None,
         mesh=None,
@@ -136,17 +128,20 @@ class OnlineRecognizer:
         device: str | torch.device = "cuda",
     ):
         """``compute_dtype``: bf16 (default) or None for float32, which is
-        true float32 on the card (TF32 off while a step runs).  ``device``
-        must be the bundle's; the default asks for the card."""
-        if decoding_method in ("modified_beam_search", "greedy_search_ctc"):
-            raise _not_ported(decoding_method)
-        if decoding_method != "greedy_search":
+        true float32 on the card (TF32 off while a step runs).  A CTC bundle
+        always decodes with ``greedy_search_ctc``; ``hotwords`` need
+        ``modified_beam_search``.  ``device`` must be the bundle's; the
+        default asks for the card."""
+        if bundle.is_ctc:
+            decoding_method = "greedy_search_ctc"
+        if decoding_method not in DECODING_METHODS:
             raise ValueError(f"unsupported decoding method {decoding_method!r}")
-        for name, value in (("mesh", mesh), ("hotwords", hotwords)):
-            if value:
-                raise _not_ported(name)
+        if hotwords and decoding_method != "modified_beam_search":
+            raise ValueError("hotwords require decoding_method='modified_beam_search'")
+        if mesh is not None:
+            raise not_ported("mesh")
         if accuracy == "int8":
-            raise _not_ported("int8")
+            raise not_ported("accuracy='int8'")
         if accuracy not in (None, "auto", "float32"):
             raise ValueError(f"unsupported accuracy {accuracy!r}")
         if windows_per_step < 1:
@@ -163,6 +158,8 @@ class OnlineRecognizer:
         self.compute_dtype = compute_dtype
         self.max_lanes = max_lanes
         self.max_tokens = max_tokens
+        self.max_active_paths = max_active_paths
+        self.hotwords = hotwords
         self.enable_endpoint = enable_endpoint
         self._endpoint_cfg = endpoint_config
         self.windows_per_step = windows_per_step
@@ -218,8 +215,17 @@ class OnlineRecognizer:
     GetResult = get_result
     GetResults = get_results
 
-    def get_nbest_results(self, streams):
-        raise _not_ported("get_nbest_results")
+    def get_nbest_results(self, streams: list[OnlineStream]
+                          ) -> list[list[OnlineRecognizerResult]]:
+        """Advance every ready stream one window (as ``get_results``) and
+        return all ``max_active_paths`` partial hypotheses per stream,
+        best-scoring first (``modified_beam_search`` only)."""
+        if self.decoding_method != "modified_beam_search":
+            raise ValueError("get_nbest_results requires modified_beam_search")
+        self.end_step(self.begin_step(streams))
+        toks, stamps, counts = (t.cpu() for t in rnnt_beam.nbest_beams(self._dec_state)[:3])
+        return [self._lane_nbest(s.lane, toks, stamps, counts) if s.lane >= 0 else []
+                for s in streams]
 
     def begin_step(self, streams: list[OnlineStream]):
         """Run one step for every ready stream and start the readback of the
@@ -240,8 +246,13 @@ class OnlineRecognizer:
             with torch.inference_mode(), self._precision():
                 self._step(np.array([s.lane for s in active]), windows, wcount)
         st = self._dec_state
-        bufs = (st.tokens, st.timestamps, st.count)
-        if self.enable_endpoint:
+        if self.hotwords:  # every beam's partial text, for the selection
+            bufs = rnnt_beam.nbest_beams(st)[:3]
+        elif self.decoding_method == "modified_beam_search":
+            bufs = rnnt_beam.best_beam(st)
+        else:
+            bufs = (st.tokens, st.timestamps, st.count)
+        if self.enable_endpoint and self.decoding_method != "modified_beam_search":
             bufs = bufs + (st.trailing_blanks, self._frame_count)
         host = tuple(_readback(t) for t in bufs)
         event = None
@@ -252,14 +263,29 @@ class OnlineRecognizer:
 
     def end_step(self, pending) -> list[OnlineRecognizerResult]:
         """Wait for a ``begin_step`` handle and return current partial
-        results for its streams."""
+        results for its streams.  With ``hotwords`` each stream's result is
+        the n-best hypothesis that ``apply_hotwords`` prefers."""
         streams, host, event = pending
         if event is not None:
             event.synchronize()
         tokens, stamps, counts = host[:3]
         if len(host) > 3:
             self._endpoint_host = (host[3], counts, host[4])
-        return [self._partial_result(s, tokens, stamps, counts) for s in streams]
+        results = []
+        for s in streams:
+            if s.lane < 0:
+                results.append(s.result or OnlineRecognizerResult("", [], []))
+                continue
+            if self.hotwords:
+                cands = self._lane_nbest(s.lane, tokens, stamps, counts)
+                texts = [c.text for c in cands]
+                s.result = cands[texts.index(apply_hotwords(texts, self.hotwords))]
+            else:
+                n = int(counts[s.lane])
+                s.result = self._result(tokens[s.lane, :n].tolist(),
+                                        stamps[s.lane, :n].tolist())
+            results.append(s.result)
+        return results
 
     def snapshot_stream(self, stream: OnlineStream) -> dict:
         """A stream's whole decode state (encoder caches, decode state, frame
@@ -298,8 +324,9 @@ class OnlineRecognizer:
         """The endpoint rules of ``runtime/endpoint.py`` on the lane's
         trailing-blank, token and frame counters.  They ride the batched
         readback of ``end_step``; before any step has completed, one direct
-        read."""
-        if not self.enable_endpoint or stream.lane < 0:
+        read.  Beam search keeps no blank counter: never an endpoint."""
+        if (not self.enable_endpoint or stream.lane < 0
+                or self.decoding_method == "modified_beam_search"):
             return False
         cfg = self._endpoint_cfg or EndpointConfig(
             frame_seconds=(self.hop_samples / self.bundle.frontend_cfg.sample_rate)
@@ -325,24 +352,25 @@ class OnlineRecognizer:
         """float32 compute means true float32: TF32 off while it runs."""
         return exact_f32() if self.compute_dtype is None else contextlib.nullcontext()
 
-    def _partial_result(self, stream, tokens, stamps, counts) -> OnlineRecognizerResult:
-        if stream.lane < 0:
-            return stream.result or OnlineRecognizerResult("", [], [])
-        n = int(counts[stream.lane])
-        toks = tokens[stream.lane, :n].tolist()
+    def _result(self, toks: list[int], stamps: list[int]) -> OnlineRecognizerResult:
         table = self.bundle.tokens
-        res = OnlineRecognizerResult(
-            text=tokens_to_text(toks, table),
-            tokens=[table.get(t) for t in toks],
-            timestamps=stamps[stream.lane, :n].tolist(),
-        )
-        stream.result = res
-        return res
+        return OnlineRecognizerResult(text=tokens_to_text(toks, table),
+                                      tokens=[table.get(t) for t in toks], timestamps=stamps)
 
-    def _init_dec_state(self, batch: int) -> rnnt_greedy.GreedyState:
-        b = self.bundle
+    def _lane_nbest(self, lane, toks, stamps, counts) -> list[OnlineRecognizerResult]:
+        """One lane's K beams from [L, K, U] host buffers."""
+        return [self._result(toks[lane, j, :n].tolist(), stamps[lane, j, :n].tolist())
+                for j, n in enumerate(counts[lane].tolist())]
+
+    def _init_dec_state(self, batch: int):
+        b, cd = self.bundle, self.compute_dtype
+        if self.decoding_method == "greedy_search_ctc":
+            return ctc_greedy.init_state(batch, self.max_tokens, device=self.device)
+        if self.decoding_method == "modified_beam_search":
+            return rnnt_beam.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
+                                        self.max_active_paths, self.max_tokens, cd)
         return rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
-                                      self.max_tokens, self.compute_dtype)
+                                      self.max_tokens, cd)
 
     def _reset_lane(self, lane: int) -> None:
         """Zero one lane's state (a fresh stream)."""
@@ -360,7 +388,7 @@ class OnlineRecognizer:
     def _step(self, lanes: np.ndarray, windows: np.ndarray, wcount: np.ndarray) -> None:
         """One step on ``lanes`` (in pool order of ``windows``' rows):
         windows [N, W, n] int16, wcount [N] windows per lane.  Window slot k
-        steps the encoder of the lanes with more than k windows; one greedy
+        steps the encoder of the lanes with more than k windows; one decode
         pass then runs over each lane's concatenated encoder output."""
         b = self.bundle
         dev, cd, chunk = self.device, self.compute_dtype, self.chunk_frames
@@ -380,15 +408,20 @@ class OnlineRecognizer:
             if enc_out is None:
                 enc_out = out.new_zeros((len(lanes), wps * chunk, out.shape[-1]))
             enc_out[rows, k * chunk:(k + 1) * chunk] = out
-        enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
         dec = tree_map(lambda a: a.index_select(0, lanes_t), self._dec_state)
         lens = torch.from_numpy(wcount * chunk).to(dev)
-        new_dec = rnnt_greedy.greedy_frames_skip(
-            b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens,
-            self._frame_count.index_select(0, lanes_t),
-            True,  # online also skips <sos/eos> = 1
-            cd,
-        )
+        offset = self._frame_count.index_select(0, lanes_t)
+        if self.decoding_method == "greedy_search_ctc":
+            lp = ctc_mod.log_probs(b.ctc, enc_out, cd)
+            new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
+        else:
+            # online search also skips <sos/eos> = 1 (extra_skip_sos)
+            search = (rnnt_beam.beam_frames_skip
+                      if self.decoding_method == "modified_beam_search"
+                      else rnnt_greedy.greedy_frames_skip)
+            enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
+            new_dec = search(b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset,
+                             True, cd)
         tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
         self._frame_count.index_add_(0, lanes_t, lens)
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the searches (beam and CTC) on CUDA tensors against their CPU runs.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -12,14 +13,23 @@ ctx to atol 1e-5 (summation order: the kernel's online softmax adds the
 keys in tiles); bf16 ctx to 2**-8 * max|v| + one bf16 ulp of the plain value
 (the tensor-core body rounds the unnormalised probabilities to bf16 before
 P.V, the plain version the normalised ones: each is within 2**-9 * max|v|
-of the exact product; then both round the output once).
+of the exact product; then both round the output once).  Searches: tokens,
+timestamps, counts and contexts exactly; beam scores, sums of float32
+log-probs over up to 40 frames reaching |score| ~ 130, to rtol 1e-5 plus
+atol 1e-4 (summation order of the log-softmax on the card: a few float32
+ulps per frame).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from k2transducerasr_tpu_torch.decode import ctc_greedy as TCtcG
+from k2transducerasr_tpu_torch.decode import rnnt_beam as TBeam
+from k2transducerasr_tpu_torch.models import decoder as TD
+from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
+from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +289,102 @@ def test_tc_probs_past_the_f32_key_cap(cuda):
     _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, lens))
     with pytest.raises(ValueError, match="too long"):
         AC.relpos_attn_probs(*(x.float() for x in (q, k, pq, pk)), lens)
+
+
+# -- the searches on CUDA tensors: no out-of-range scatter (a device-side
+# assert on the card) and ties broken as on the CPU
+
+
+def _beam_models(device, vocab=40, tied=False):
+    rng = np.random.default_rng(17)
+    cfg = TD.DecoderConfig(vocab_size=vocab, decoder_dim=24, context_size=2)
+    dp = TD.init_params(rng, cfg)
+    jp = TJ.init_params(rng, TJ.JoinerConfig(16, 24, 20, vocab))
+    jp["output"]["b"][0] += 2.0  # blank runs, so the closed-form skip runs too
+    if tied:  # every non-blank logit equal: ties across the K-th slot
+        jp["output"]["w"][:] = 0.0
+        jp["output"]["b"][:] = 0.0
+        jp["output"]["b"][0] = 0.5
+    return params_from_numpy(dp, device), params_from_numpy(jp, device), cfg
+
+
+@pytest.mark.parametrize("k,sos,max_tokens,tied", [(4, False, 64, False), (2, True, 6, False),
+                                                   (4, True, 64, True)],
+                         ids=["K4", "K2-sos-full-buffer", "K4-tied"])
+def test_beam_frames_skip_on_the_card_equals_cpu(cuda, k, sos, max_tokens, tied):
+    enc = np.random.default_rng(5).standard_normal((3, 40, 16)).astype(np.float32)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        dp, jp, cfg = _beam_models(dev, tied=tied)
+        proj = TJ.project_encoder(jp, torch.from_numpy(enc).to(dev))
+        st = TBeam.init_state(dp, cfg, jp, 3, k, max_tokens)
+        out[key] = TBeam.beam_frames_skip(
+            dp, cfg, jp, st, proj, torch.tensor([40, 0, 23], device=dev),
+            torch.tensor([0, 0, 5], device=dev), sos, window=8)
+    got, want = out["cuda"], out["cpu"]
+    for f in ("hyp", "tokens", "timestamps", "count"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.score.cpu(), want.score, atol=1e-4, rtol=1e-5)
+    for g, w in zip(TBeam.nbest_beams(got), TBeam.nbest_beams(want)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-5)
+
+
+def test_ctc_frames_on_the_card_equals_cpu(cuda):
+    """Chunks of a ragged batch with a buffer that overflows: positions past
+    ``max_tokens`` are dropped on the card as on the CPU."""
+    rng = np.random.default_rng(6)
+    chunks = [(rng.standard_normal((4, 16, 9)) * 3).astype(np.float32) for _ in range(3)]
+    lens = [[16, 5, 0, 16], [16, 16, 1, 0], [3, 16, 16, 0]]
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        st = TCtcG.init_state(4, 10, device=dev)
+        off = torch.zeros(4, dtype=torch.int64, device=dev)
+        for lp, n in zip(chunks, lens):
+            n = torch.tensor(n, device=dev)
+            st = TCtcG.ctc_frames(st, torch.from_numpy(lp).to(dev), n, off)
+            off = off + n
+        out[key] = st
+    assert int(out["cpu"].count.max()) == 10  # a lane overflowed
+    for f in ("tokens", "timestamps", "count", "prev", "trailing_blanks"):
+        assert torch.equal(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f)), f
+
+
+def _host_syncs(fn):
+    """fn() under torch.cuda's sync debug mode: the synchronising calls it
+    made (each warns)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [w for w in caught if "synchroniz" in str(w.message).lower()]
+
+
+def test_beam_trip_syncs_the_host_once(cuda):
+    """One host sync per trip (the loop condition, and once more to end the
+    loop), none inside a trip."""
+    dp, jp, cfg = _beam_models(cuda)
+    enc = np.random.default_rng(5).standard_normal((3, 40, 16)).astype(np.float32)
+    proj = TJ.project_encoder(jp, torch.from_numpy(enc).to(cuda))
+    st = TBeam.init_state(dp, cfg, jp, 3, 4, 64)
+    lens = torch.tensor([40, 0, 23], device=cuda)
+    off = torch.zeros(3, dtype=torch.int64, device=cuda)
+    TBeam.beam_frames_skip.trips = 0
+    syncs = _host_syncs(lambda: TBeam.beam_frames_skip(dp, cfg, jp, st, proj, lens, off, True,
+                                                       window=8))
+    assert TBeam.beam_frames_skip.trips > 0
+    assert len(syncs) == TBeam.beam_frames_skip.trips + 1
+
+
+def test_ctc_frames_does_not_sync(cuda):
+    lp = torch.from_numpy(np.random.default_rng(6).standard_normal((4, 16, 9)).astype(
+        np.float32)).to(cuda)
+    st = TCtcG.init_state(4, 10, device=cuda)
+    lens = torch.tensor([16, 5, 0, 16], device=cuda)
+    off = torch.zeros(4, dtype=torch.int64, device=cuda)
+    assert _host_syncs(lambda: TCtcG.ctc_frames(st, lp, lens, off)) == []
