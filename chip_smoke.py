@@ -8,19 +8,21 @@ Phases (any failure exits non-zero; none is caught):
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      started together);
   3. K1 (relpos_attn_probs) against its plain PyTorch version on the card,
-     at the shapes the zipformer2 main paths give it (the offline stacks and
-     the six streaming stacks, T != S with kv_start per lane), with its time,
-     the plain version's time and the bound.  A kernel's ``ms`` is CUDA events
-     around one call from an empty queue (the host's time to prepare and
+     at the shapes the zipformer2 and zipformer v1 main paths give it (the
+     offline stacks, and the streaming stacks, T != S with kv_start per
+     lane; v1's q head is 24 wide), with its time, the plain version's time
+     and the bound.  A kernel's ``ms`` is CUDA events around one call from
+     an empty queue (the host's time to prepare and
      launch it included); ``device_ms`` beside it is the device time per
      call with the queue kept full (CUDA events around calls queued behind
      a spin kernel), and ``host_us`` the wrapper's host time per call;
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
      streaming), plus the time of scaled_dot_product_attention on the same
      function (yardstick);
-  4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC),
-     float32 on the card, must give its pinned transcript and timestamps
-     exactly, offline and through OnlineRecognizer.decode_to_end (the online
+  4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
+     zipformer v1, LSTM), float32 on the card, must give its pinned
+     transcript and timestamps exactly, offline and through
+     OnlineRecognizer.decode_to_end (the online
      pin); under modified_beam_search (K=4) the zipformer2 and conformer pin
      dirs must give every n-best hypothesis of BEAM_PINS, offline and online;
   5. each family at full width from a seed, one 5 s utterance in float32:
@@ -31,8 +33,9 @@ Phases (any failure exits non-zero; none is caught):
   6. each offline main path at full width: bf16, batches of 16 x 30 s
      through begin_decode/end_decode, every kernel's launches counted from 0
      (greedy search for each family, zipformer2-CTC, and zipformer2 under
-     modified_beam_search with its loop's trips per batch);
-  6b. each streaming main path at full width (the causal flagship config):
+     modified_beam_search with its loop's trips per batch; LSTM launches
+     neither kernel);
+  6b. each streaming main path at full width (each family's causal config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
      per step; per-step latency, streaming RTF and the launches per step
      (the same methods as phase 6).
@@ -64,6 +67,8 @@ from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineReco
 from k2transducerasr_tpu_torch.decode import rnnt_beam
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute
 from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
+from k2transducerasr_tpu_torch.models.lstm import LstmConfig
+from k2transducerasr_tpu_torch.models.zipformer import ZipformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
@@ -74,8 +79,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
 
 # family -> its config and causal (streaming) config, the kernel its attention
-# launches (once per layer: per flagship batch and per streaming step), and
-# its pins (tests/test_pinned_transcripts.py)
+# launches (once per layer: per flagship batch and per streaming step; None:
+# the family launches no kernel), and its pins
+# (tests/test_pinned_transcripts.py)
 FAMILIES = {
     "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                        kernel="relpos_attn_probs",
@@ -93,6 +99,19 @@ FAMILIES = {
                           kernel="relpos_attn_probs",
                           per_batch=sum(Zipformer2Config().num_encoder_layers),
                           pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27"),
+    # zipformer v1 (icefall pruned_transducer_stateless7): 15 layers, 8 heads
+    # of 24, K1 once per layer
+    "zipformer": dict(cfg=ZipformerConfig, stream_cfg=lambda: ZipformerConfig(causal=True),
+                      kernel="relpos_attn_probs",
+                      per_batch=sum(ZipformerConfig().num_encoder_layers),
+                      pin_text="tok5tok17tok5tok17tok5tok17tok5tok17",
+                      pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
+                      online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23"),
+    # the LSTM transducer: a cuDNN recurrence, no kernel of this port
+    "lstm": dict(cfg=LstmConfig, stream_cfg=LstmConfig, kernel=None, per_batch=0,
+                 pin_text="tok6tok15tok15tok15tok15tok15tok15",
+                 pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
+                 online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9"),
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
@@ -147,6 +166,16 @@ _ZS = Zipformer2Config(causal=True)
 STREAM_STACKS = [(_ZS.stack_chunk(i), _ZS.stack_left(i) + _ZS.stack_chunk(i), _ZS.num_heads[i],
                   _ZS.num_encoder_layers[i]) for i in range(_ZS.num_stacks)]
 STREAM_LANES = 16
+# zipformer v1: ZipformerConfig() at 16 x 30 s (t_pad 3072 -> 1532 embed-rate
+# frames), (T, layers) per stack at downsampling 1,2,4,8,2, 8 heads, q head
+# 24 (192 / 8), pos_dim 4; ZipformerConfig(causal=True) (chunk 16, left 64)
+# streaming: (T = stack chunk, S = stack left + T, layers)
+_V1, _V1S = ZipformerConfig(), ZipformerConfig(causal=True)
+V1_QD, V1_H = _V1.attention_dims[0] // _V1.num_heads[0], _V1.num_heads[0]
+V1_STACKS = [(-(-_V1.embed_len(3072) // d), n)
+             for d, n in zip(_V1.downsampling_factors, _V1.num_encoder_layers)]
+V1_STREAM_STACKS = [(_V1S.stack_chunk(i), _V1S.stack_left(i) + _V1S.stack_chunk(i),
+                     _V1S.num_encoder_layers[i]) for i in range(_V1S.num_stacks)]
 
 F32_ATOL = 1e-5  # kernel vs plain, float32: summation order only
 BF16_ULPS = 1    # K1 vs plain, bf16 probs: both round one f32 value
@@ -283,6 +312,15 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def family_launches(what, spec, counts) -> int:
+    """A run of one family launched its kernel and no other (a family
+    without a kernel launched none): the family's launches."""
+    kernel = spec["kernel"]
+    if any(n for k, n in counts.items() if k != kernel) or (kernel and not counts[kernel]):
+        raise AssertionError(f"{what} launched {counts}; expected {kernel or 'no kernel'} only")
+    return counts.get(kernel, 0)
+
+
 def reset_peak_memory():
     """Start a peak-memory window holding only what is alive: an earlier
     phase's recognizer and its streams refer to each other, so their bundle
@@ -324,14 +362,14 @@ def phase_build():
     return secs
 
 
-def _k1_inputs(b, t, s, h, dtype, seed, ragged=True):
+def _k1_inputs(b, t, s, h, dtype, seed, qd=QD):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    q = torch.randn((b, t, h, QD), generator=g, device=dev).to(dtype)
-    k = torch.randn((b, s, h, QD), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, t, h, qd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, h, qd), generator=g, device=dev).to(dtype)
     pq = torch.randn((b, t, h, PD), generator=g, device=dev).to(dtype)
     pk = torch.randn((t + s - 1, h, PD), generator=g, device=dev).to(dtype)
-    return q, k, pq, pk, _ragged_lens(b, s) if ragged else None
+    return q, k, pq, pk, _ragged_lens(b, s)
 
 
 def _ragged_lens(b, s):
@@ -341,12 +379,12 @@ def _ragged_lens(b, s):
     return lens
 
 
-def _k1_bytes_ops(b, t, s, h, in_dtype, out_dtype):
+def _k1_bytes_ops(b, t, s, h, in_dtype, out_dtype, qd=QD):
     ie = torch.finfo(in_dtype).bits // 8
     oe = torch.finfo(out_dtype).bits // 8
-    nbytes = (2 * b * t * h * QD + b * t * h * PD + (t + s - 1) * h * PD) * ie \
+    nbytes = (b * t * h * qd + b * s * h * qd + b * t * h * PD + (t + s - 1) * h * PD) * ie \
         + 2 * 4 * b + b * h * t * s * oe
-    ops = 2 * b * h * t * s * (QD + PD)
+    ops = 2 * b * h * t * s * (qd + PD)
     return nbytes, ops
 
 
@@ -376,28 +414,44 @@ def _kv_start(b, t, s):
 
 
 def phase_k1(bw):
+    """K1 against its plain version at every shape its main paths give it:
+    zipformer2's (qd 32) and zipformer v1's (qd 24, 8 heads), offline and
+    streaming, float32 and bf16.  Each row carries the family whose main
+    path makes those calls (``layers`` per batch, ``stream_layers`` per
+    step)."""
     rows = []
     worst = 0.0
+    # (name, family, B, T, S, H, qd, dtype, kwargs, layers, stream layers)
     cases = []
     for si, (t, h, layers) in enumerate(FLAGSHIP_STACKS):
         for dtype in (torch.bfloat16, torch.float32):
-            cases.append((f"stack{si}", FLAGSHIP_B, t, t, h, dtype, {}, layers, 0))
+            cases.append((f"stack{si}", "zipformer2", FLAGSHIP_B, t, t, h, QD, dtype, {},
+                          layers, 0))
     t0 = FLAGSHIP_STACKS[0][0]
-    cases.append(("stack0-chunk32-left128", FLAGSHIP_B, t0, t0, 4, torch.bfloat16,
-                  {"chunk": 32, "left": 128}, 0, 0))
-    cases.append(("stack0-chunk32-left128", FLAGSHIP_B, t0, t0, 4, torch.float32,
-                  {"chunk": 32, "left": 128}, 0, 0))
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(("stack0-chunk32-left128", "zipformer2", FLAGSHIP_B, t0, t0, 4, QD, dtype,
+                      {"chunk": 32, "left": 128}, 0, 0))
     # the streaming main path: one call per layer and step at each stack's
     # (T, S), kv_start per lane
     for si, (t, s, h, layers) in enumerate(STREAM_STACKS):
         for dtype in (torch.bfloat16, torch.float32):
-            cases.append((f"stream-stack{si}-T{t}-S{s}", STREAM_LANES, t, s, h, dtype,
-                          {"kv_start": True}, 0, layers))
+            cases.append((f"stream-stack{si}-T{t}-S{s}", "zipformer2", STREAM_LANES, t, s, h, QD,
+                          dtype, {"kv_start": True}, 0, layers))
     # past the float32 body's shared-memory cap of 11,249 keys: bf16 takes any S
-    cases.append(("long-T32-S12000", FLAGSHIP_B, 32, 12000, 4, torch.bfloat16, {}, 0, 0))
+    cases.append(("long-T32-S12000", "zipformer2", FLAGSHIP_B, 32, 12000, 4, QD, torch.bfloat16,
+                  {}, 0, 0))
+    # zipformer v1: q head 24 (the bf16 body pads it to 32), T down to 2
+    for si, (t, layers) in enumerate(V1_STACKS):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"v1-stack{si}", "zipformer", FLAGSHIP_B, t, t, V1_H, V1_QD, dtype, {},
+                          layers, 0))
+    for si, (t, s, layers) in enumerate(V1_STREAM_STACKS):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"v1-stream-stack{si}-T{t}-S{s}", "zipformer", STREAM_LANES, t, s,
+                          V1_H, V1_QD, dtype, {"kv_start": True}, 0, layers))
 
-    for name, b, t, s, h, dtype, kw, layers, stream_layers in cases:
-        q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows))
+    for name, family, b, t, s, h, qd, dtype, kw, layers, stream_layers in cases:
+        q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows), qd=qd)
         kw = dict(kw)
         if kw.pop("kv_start", False):
             kw["kv_start"] = _kv_start(b, t, s)
@@ -416,13 +470,13 @@ def phase_k1(bw):
         host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw),
                            reps=5, warm=1)
-        bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype), dtype, bw)
-        rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": t, "S": s,
-                     "H": h, "layers": layers, "stream_layers": stream_layers,
-                     "max_abs_err": err, "ms": ms,
+        bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype, qd=qd), dtype, bw)
+        rows.append({"case": name, "family": family, "dtype": str(dtype).split(".")[-1],
+                     "B": b, "T": t, "S": s, "H": h, "qd": qd, "layers": layers,
+                     "stream_layers": stream_layers, "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"[3] K1 {name:24s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h}: "
+        log(f"[3] K1 {name:28s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h} qd={qd}: "
             f"max_err {err:.3e} ok | kernel {ms:.4f} ms (device {dev_ms:.4f}, host "
             f"{host:.1f} us) | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) "
             f"| {bound_ms / ms:.1%} of bound ({bound_ms / dev_ms:.1%} of device time)")
@@ -530,8 +584,8 @@ def phase_k2(bw):
         lib_err = float((sdpa().transpose(1, 2).float() - ref.float()).abs().max())
         backend = _sdpa_backend(sdpa)
         bound_ms, bound_by = bound(*_k2_bytes_ops(b, tq, s, h, d, vd, dtype), dtype, bw)
-        rows.append({"case": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": tq,
-                     "S": s, "H": h, "d": d, "vd": vd, "layers": n_layers,
+        rows.append({"case": name, "family": "conformer", "dtype": str(dtype).split(".")[-1],
+                     "B": b, "T": tq, "S": s, "H": h, "d": d, "vd": vd, "layers": n_layers,
                      "stream_layers": stream_layers,
                      "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -558,8 +612,7 @@ def phase_golden(family):
     log(f"[4] {family} pin on card: {res.text!r} {res.timestamps} (launches {counts})")
     if res.text != spec["pin_text"] or res.timestamps != spec["pin_timestamps"]:
         raise AssertionError(f"{family} pin mismatch: {res.text!r} {res.timestamps}")
-    if counts[spec["kernel"]] == 0:
-        raise AssertionError(f"{family} pin decode did not launch {spec['kernel']}")
+    return family_launches(f"{family} pin decode", spec, counts)
 
 
 def phase_online_pin(family):
@@ -576,8 +629,7 @@ def phase_online_pin(family):
     log(f"[4] {family} online pin on card: {res.text!r} {res.timestamps} (launches {counts})")
     if res.text != spec["online_pin_text"]:
         raise AssertionError(f"{family} online pin mismatch: {res.text!r}")
-    if counts[spec["kernel"]] == 0:
-        raise AssertionError(f"{family} online pin did not launch {spec['kernel']}")
+    return family_launches(f"{family} online pin", spec, counts)
 
 
 def _nbest_pinned(results):
@@ -788,7 +840,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2):
     log(f"[6] {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
         f"{prep_ms:.1f} ms, fbank+encoder {enc_ms:.1f} ms; whole decode {full_ms:.1f} ms -> "
         f"search + readback ~{full_ms - prep_ms - enc_ms:.1f} ms")
-    return counts[spec["kernel"]]
+    return counts.get(spec["kernel"], 0)
 
 
 def phase_streaming_main_path(family, method="greedy_search", seconds=30.0):
@@ -842,7 +894,7 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0):
            "steps": steps, "beam_trips_per_step": trips / steps, "p50_ms": p50, "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
            "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": counts[spec["kernel"]], "launches_per_step": per_step,
+           "launches": counts.get(spec["kernel"], 0), "launches_per_step": per_step,
            "device_busy_share": busy, "stages_ms": stream_stage_split(rec)}
     log(f"[6b] {name} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
         f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
@@ -912,25 +964,47 @@ def stream_stage_split(rec, reps: int = 5) -> dict:
     return {"gather": gather, "fbank": fbank, "encoder": encoder, "scatter": scatter}
 
 
-def kernel_line(name, source, replaces, launches, rows, worst, per):
-    """One kernel's entry: per flagship batch, its calls at the bf16 main-path
-    shapes (``layers`` calls of each such case); under ``streaming``, per
-    step of the streaming main path (``stream_layers`` calls of each
-    streaming-shape case).  ``ms``, ``plain_ms`` and
-    ``library_ms`` are CUDA events around one call; ``device_ms`` and
-    ``library_device_ms`` the device time per call with the queue kept full
-    (``device_ms``)."""
+def _family_sums(rows) -> dict:
+    """One family's K1/K2 numbers: per flagship batch, its calls at the bf16
+    main-path shapes (``layers`` calls of each such case); under
+    ``streaming``, per step of its streaming main path (``stream_layers``
+    calls of each streaming-shape case)."""
     main_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["layers"]]
-    per_batch = {key: sum(r[key] * r["layers"] for r in main_rows)
-                 for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    stream_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["stream_layers"]]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms")
+    per_batch = {key: sum(r[key] * r["layers"] for r in main_rows) for key in keys}
+    per_step = {key: sum(r[key] * r["stream_layers"] for r in stream_rows) for key in keys}
 
     def library(key, rows_, count):
         xs = [r.get(key) for r in rows_]
         return None if None in xs else sum(x * r[count] for x, r in zip(xs, rows_))
 
-    stream_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["stream_layers"]]
-    per_step = {key: sum(r[key] * r["stream_layers"] for r in stream_rows)
-                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    return {
+        "launches_per_batch": sum(r["layers"] for r in main_rows),
+        **per_batch,
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
+                     else "operations"),
+        "library_ms": library("library_ms", main_rows, "layers"),
+        "library_device_ms": library("library_device_ms", main_rows, "layers"),
+        "streaming": {
+            "launches_per_step": sum(r["stream_layers"] for r in stream_rows),
+            **{f"{key}_per_step": v for key, v in per_step.items()},
+            "library_ms_per_step": library("library_ms", stream_rows, "stream_layers"),
+        },
+    }
+
+
+def kernel_line(name, source, replaces, launches, rows, worst, per):
+    """One kernel's entry.  ``by_family`` holds ``_family_sums`` for each
+    family whose main paths call it; the headline numbers are the first
+    family's (``per`` says which).  ``ms``, ``plain_ms`` and ``library_ms``
+    are CUDA events around one call; ``device_ms`` and ``library_device_ms``
+    the device time per call with the queue kept full (``device_ms``)."""
+    by_family = {}
+    for r in rows:
+        by_family.setdefault(r["family"], []).append(r)
+    by_family = {f: _family_sums(rs) for f, rs in by_family.items()}
+    head = next(iter(by_family.values()))
     return {
         "name": name,
         "route": "cuda",
@@ -939,23 +1013,10 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": worst,
-        "ms": per_batch["ms"],
-        "device_ms": per_batch["device_ms"],
-        "plain_ms": per_batch["plain_ms"],
-        "bound_ms": per_batch["bound_ms"],
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
-                     else "operations"),
-        "library_ms": library("library_ms", main_rows, "layers"),
-        "library_device_ms": library("library_device_ms", main_rows, "layers"),
+        **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms", "streaming")},
         "per": per,
-        "streaming": {
-            "launches_per_step": sum(r["stream_layers"] for r in stream_rows),
-            "ms_per_step": per_step["ms"],
-            "device_ms_per_step": per_step["device_ms"],
-            "plain_ms_per_step": per_step["plain_ms"],
-            "bound_ms_per_step": per_step["bound_ms"],
-            "library_ms_per_step": library("library_ms", stream_rows, "stream_layers"),
-        },
+        "by_family": by_family,
     }
 
 
@@ -1004,9 +1065,8 @@ def main() -> int:
     phase_build()
     k1_rows, k1_worst = phase_k1(bw)
     k2_rows, k2_worst = phase_k2(bw)
-    for family in FAMILIES:
-        phase_golden(family)
-        phase_online_pin(family)
+    pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
+            for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
     for family in FAMILIES:
         phase_full_width_vs_cpu(family)
@@ -1025,7 +1085,10 @@ def main() -> int:
     k1_paths = dict(paths("zipformer2"), offline_beam=launches_beam,
                     offline_ctc=launches["zipformer2ctc"],
                     streaming_beam=streaming_beam["launches"],
-                    streaming_ctc=streaming["zipformer2ctc"]["launches"])
+                    streaming_ctc=streaming["zipformer2ctc"]["launches"],
+                    zipformer_offline=launches["zipformer"],
+                    zipformer_streaming=streaming["zipformer"]["launches"],
+                    **{f"zipformer_{k}": n for k, n in pins["zipformer"].items()})
 
     kernels = [
         kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
@@ -1034,8 +1097,12 @@ def main() -> int:
                     "one zipformer2 flagship batch (16 x 30 s): 16 calls at the bf16 stack "
                     "shapes, under greedy, beam (offline_beam) and CTC (offline_ctc) alike; "
                     "streaming: one step of 16 lanes of Zipformer2Config(causal=True), "
-                    "16 calls at the six stacks' (T, S); library_ms null: no PyTorch call "
-                    "returns rel-pos probs"),
+                    "16 calls at the six stacks' (T, S); by_family.zipformer: one "
+                    "ZipformerConfig() batch, 15 calls at H=8 qd=24 (T = 1532 ... 192), and "
+                    "one step of 16 lanes of ZipformerConfig(causal=True), 15 calls at "
+                    "(T, S) = (16, 80) ... (2, 10); its offline, streaming and pin launches are "
+                    "the zipformer_* paths; library_ms null: no PyTorch call returns rel-pos "
+                    "probs"),
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
                     "k2transducerasr_tpu/ops/attention_pallas.py:242", paths("conformer"),
                     k2_rows, k2_worst,

@@ -151,6 +151,23 @@ def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc
     return st
 
 
+def rnnt_greedy_search(dec_params, dec_cfg: decoder_mod.DecoderConfig, join_params,
+                       join_cfg: joiner_mod.JoinerConfig, enc_out, enc_lens,
+                       max_tokens: int = 1024, extra_skip_sos: bool = False,
+                       compute_dtype=None):
+    """Offline whole-utterance greedy search over enc_out [B, T, encoder_dim]
+    (the joiner projection, then ``greedy_frames_skip`` from frame 0):
+    returns (tokens, timestamps, count).  ``join_cfg`` is unused, as in the
+    reference's signature."""
+    b = enc_out.shape[0]
+    enc_proj = joiner_mod.project_encoder(join_params, enc_out, compute_dtype)
+    state = init_state(dec_params, dec_cfg, join_params, b, max_tokens, compute_dtype)
+    zero = torch.zeros((b,), dtype=torch.int64, device=enc_out.device)
+    final = greedy_frames_skip(dec_params, dec_cfg, join_params, state, enc_proj, enc_lens, zero,
+                               extra_skip_sos, compute_dtype)
+    return final.tokens, final.timestamps, final.count
+
+
 def extract_results(tokens, timestamps, count) -> list[tuple[list[int], list[int]]]:
     """Token buffers -> per-lane Python lists (one device-to-host copy each)."""
     tokens, timestamps, count = tokens.cpu(), timestamps.cpu(), count.cpu()

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from k2transducerasr_tpu_torch.ops import layers as L
-from k2transducerasr_tpu_torch.ops.attention import descending_rel_positions
+from k2transducerasr_tpu_torch.ops.attention import sinusoidal_rel_pos as _rel_pos_emb
 from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_ctx
 from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
 
@@ -143,17 +143,6 @@ def subsample(p, cfg: ConformerConfig, x, compute_dtype=None):
     # icefall Conv2dSubsampling flattens (C, F') with F' fastest
     h = h.transpose(2, 3).reshape(b, t, c * f)
     return L.apply_linear(p["out"], h, compute_dtype)
-
-
-def _rel_pos_emb(t_q: int, s_kv: int, dim: int, device=None) -> torch.Tensor:
-    """[R, dim] sinusoidal embeddings of the DESCENDING relative positions
-    (r = s_kv-1 .. -(t_q-1)), interleaved sin/cos (pe[:, 0::2] = sin,
-    pe[:, 1::2] = cos: the espnet/icefall RelPositionalEncoding layout)."""
-    r = descending_rel_positions(t_q, s_kv, device)
-    inv = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
-                    * (-math.log(10000.0) / dim))
-    ang = r[:, None] * inv[None, :]
-    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=2).reshape(len(r), dim)
 
 
 # ---------------------------------------------------------------------------

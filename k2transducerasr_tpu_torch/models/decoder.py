@@ -76,6 +76,20 @@ def forward_from_tables(tables, cfg: DecoderConfig, y: torch.Tensor) -> torch.Te
     return torch.relu(out)
 
 
+def forward_sequence(params, cfg: DecoderConfig, ys: torch.Tensor) -> torch.Tensor:
+    """ys: [B, U] label sequence -> [B, U, decoder_dim], the history
+    left-padded with blanks (a rescoring utility; negative ids embed as
+    the blank id)."""
+    pad = torch.full((ys.shape[0], cfg.context_size - 1), cfg.blank_id, dtype=ys.dtype,
+                     device=ys.device)
+    hist = torch.cat([pad, torch.where(ys < 0, cfg.blank_id, ys)], dim=1)
+    emb = L.apply_embedding(params["embedding"], hist)
+    if cfg.context_size > 1:
+        groups = cfg.decoder_dim // params["conv"]["w"].shape[1]
+        emb = L.apply_conv1d(params["conv"], emb, groups=groups, padding="VALID")
+    return torch.relu(emb)
+
+
 class Decoder(ParamTree):
     def __init__(self, cfg: DecoderConfig, tree: dict, device="cpu"):
         super().__init__(tree, device)

@@ -49,6 +49,15 @@ def joint_logits(params, enc_proj, dec_proj, compute_dtype=None):
     return L.apply_linear(params["output"], torch.tanh(enc_proj + dec_proj), compute_dtype)
 
 
+def forward(params, enc_out, dec_out, project_input: bool = True, compute_dtype=None):
+    """The reference-shaped entry: raw (or, with ``project_input=False``,
+    already projected) activations -> logits."""
+    if project_input:
+        enc_out = project_encoder(params, enc_out, compute_dtype)
+        dec_out = project_decoder(params, dec_out, compute_dtype)
+    return joint_logits(params, enc_out, dec_out, compute_dtype)
+
+
 class Joiner(ParamTree):
     def __init__(self, cfg: JoinerConfig, tree: dict, device="cpu"):
         super().__init__(tree, device)

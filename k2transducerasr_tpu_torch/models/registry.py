@@ -10,9 +10,8 @@ recognizers stay family-agnostic:
                                            -> (enc_out, new_state)
     output_chunk_len(cfg)                  -> output frames per step
 
-zipformer2, zipformer2-CTC (the zipformer2 encoder under a CTC head) and
-conformer are ported so far; every other family of the reference raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Every family of the reference is ported: conformer, LSTM, zipformer v1,
+zipformer2 and zipformer2-CTC (the zipformer2 encoder under a CTC head).
 """
 
 from __future__ import annotations
@@ -21,27 +20,18 @@ import importlib
 
 _PORTED = {
     "conformer": "k2transducerasr_tpu_torch.models.conformer",
+    "lstm": "k2transducerasr_tpu_torch.models.lstm",
+    "zipformer": "k2transducerasr_tpu_torch.models.zipformer",
     "zipformer2": "k2transducerasr_tpu_torch.models.zipformer2",
     # the CTC head replaces decoder and joiner; the encoder is zipformer2's
     "zipformer2ctc": "k2transducerasr_tpu_torch.models.zipformer2",
 }
 
-_NOT_YET = {
-    "lstm": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
-    "zipformer": "ROADMAP 'Modules to port': zipformer v1 and LSTM",
-}
-
 
 def get_encoder(model_type: str):
-    if model_type in _PORTED:
-        return importlib.import_module(_PORTED[model_type])
-    if model_type in _NOT_YET:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported to PyTorch yet ({_NOT_YET[model_type]})"
-        )
-    raise ValueError(
-        f"unknown model_type {model_type!r}; expected one of {sorted({**_PORTED, **_NOT_YET})}"
-    )
+    if model_type not in _PORTED:
+        raise ValueError(f"unknown model_type {model_type!r}; expected one of {sorted(_PORTED)}")
+    return importlib.import_module(_PORTED[model_type])
 
 
 def is_ctc(model_type: str) -> bool:

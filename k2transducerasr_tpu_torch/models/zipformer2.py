@@ -350,14 +350,9 @@ def _nonlin_attention(p, dim, x, probs, compute_dtype, v_cached=None):
     proj = L.apply_linear(p["in_proj"], x, compute_dtype)
     s_gate, xv, y = torch.split(proj, [hidden, hidden, proj.shape[-1] - 2 * hidden], dim=-1)
     v_chunk = xv * torch.tanh(s_gate)
-    v_src = v_chunk if v_cached is None else _with_cache(v_cached, v_chunk)
+    v_src = v_chunk if v_cached is None else L.with_cache(v_cached, v_chunk)
     attended = _attn_apply_head0(probs, v_src)
     return L.apply_linear(p["out"], attended * y, compute_dtype), v_chunk
-
-
-def _with_cache(cache, chunk):
-    """[cache | chunk] along time, the cache cast to the chunk's dtype."""
-    return torch.cat([cache.to(chunk.dtype), chunk], dim=1)
 
 
 def _chunkwise_scale(scale, chunk: int):
@@ -397,7 +392,7 @@ def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None, cache=None
         if cache is None:
             hc = torch.cat([torch.zeros((b, half, d), dtype=h.dtype, device=h.device), h], dim=1)
         else:
-            hc = _with_cache(cache, h)
+            hc = L.with_cache(cache, h)
             new_cache = hc[:, -half:]
         y_causal = L.apply_conv1d(
             p["causal_dw"], hc, groups=dim, padding="VALID", compute_dtype=compute_dtype,
@@ -424,22 +419,12 @@ def _bypass(scale, x_orig, x):
 
 def _simple_downsample(weights, x, ds: int, lens=None):
     """[B, T, D] -> [B, ceil(T/ds), D]: learned softmax weights over each
-    window; the tail window repeats the last frame.  With ``lens``, frames
-    at index >= lens are first replaced by each lane's LAST VALID frame (the
+    window of ``L.downsample_windows`` (the tail repeats the last frame;
+    with ``lens``, each lane's LAST VALID frame fills its padding: the
     reference's padding-invariant form, not icefall's)."""
-    b, t, d = x.shape
-    t_out = -(-t // ds)
-    pad = t_out * ds - t
-    if lens is not None:
-        idx = torch.clamp(lens - 1, min=0)
-        last = x[torch.arange(b, device=x.device), idx][:, None, :]  # [B, 1, D]
-        keep = torch.arange(t, device=x.device)[None, :, None] < lens[:, None, None]
-        x = torch.where(keep, x, last)
-    if pad:
-        x = torch.cat([x, x[:, -1:].expand(b, pad, d)], dim=1)
+    xw = L.downsample_windows(x, ds, lens)
     w = torch.softmax(weights, dim=0).to(x.dtype).float()
-    y = (x.reshape(b, t_out, ds, d).float() * w[None, None, :, None]).sum(dim=2)
-    return y.to(x.dtype)
+    return (xw.float() * w[None, None, :, None]).sum(dim=2).to(x.dtype)
 
 
 def _simple_upsample(x, ds: int, t_target: int):
@@ -479,8 +464,8 @@ def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dty
     caches = caches or {}
     k_src = None
     if streaming:
-        k_src = _with_cache(caches["key"], _project_keys(p["attn_weights"], cfg, si, x,
-                                                         compute_dtype))
+        k_src = L.with_cache(caches["key"], _project_keys(p["attn_weights"], cfg, si, x,
+                                                          compute_dtype))
     probs = _attn_shared(p["attn_weights"], cfg, si, x, compute_dtype, pad_lens=pad_lens,
                          chunk_left=chunk_left, k_src=k_src, kv_start=kv_start)
     x = x + _apply_ff(p["ff1"], x, compute_dtype)
@@ -488,7 +473,7 @@ def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dty
                                          caches.get("nonlin"))
     x = x + na
     v1 = L.apply_linear(p["self_attn1"]["v"], x, compute_dtype)
-    v1_src = _with_cache(caches["val1"], v1) if streaming else v1
+    v1_src = L.with_cache(caches["val1"], v1) if streaming else v1
     x = x + _self_attn(p["self_attn1"], cfg, si, v1_src, probs, compute_dtype)
     c1, new_conv1 = _conv_module(p["conv1"], dim, kernel, x, chunk, compute_dtype, valid,
                                  caches.get("conv1"))
@@ -496,7 +481,7 @@ def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dty
     x = x + _apply_ff(p["ff2"], x, compute_dtype)
     x = _bypass(p["bypass_mid"], x_orig, x)
     v2 = L.apply_linear(p["self_attn2"]["v"], x, compute_dtype)
-    v2_src = _with_cache(caches["val2"], v2) if streaming else v2
+    v2_src = L.with_cache(caches["val2"], v2) if streaming else v2
     x = x + _self_attn(p["self_attn2"], cfg, si, v2_src, probs, compute_dtype)
     c2, new_conv2 = _conv_module(p["conv2"], dim, kernel, x, chunk, compute_dtype, valid,
                                  caches.get("conv2"))
@@ -509,7 +494,7 @@ def _layer_forward(p, cfg: Zipformer2Config, si: int, x, chunk: int, compute_dty
     left = caches["key"].shape[1]
     return x, {
         "key": k_src[:, -left:],
-        "nonlin": _with_cache(caches["nonlin"], nonlin_chunk)[:, -left:],
+        "nonlin": L.with_cache(caches["nonlin"], nonlin_chunk)[:, -left:],
         "val1": v1_src[:, -left:],
         "val2": v2_src[:, -left:],
         "conv1": new_conv1,
@@ -643,7 +628,7 @@ def streaming_step(params, cfg: Zipformer2Config, state: dict, x_chunk, compute_
     ``kv_start = left - min(processed // ds, left)``."""
     c = cfg.chunk_size
     stage = _embed_conv_stack(params["embed"], x_chunk, compute_dtype)  # [B, c+3, F', c3]
-    stage = _with_cache(state["embed_stage"], stage)
+    stage = L.with_cache(state["embed_stage"], stage)
     h = _embed_tail(params["embed"], stage, compute_dtype)  # [B, c, D]
     processed = state["processed"]
 

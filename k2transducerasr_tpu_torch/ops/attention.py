@@ -10,12 +10,26 @@ view of the contiguous table, which costs nothing on any device.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def descending_rel_positions(t_q: int, s_kv: int, device=None) -> torch.Tensor:
     """Relative positions r = (S-1) .. -(T-1), descending (float32)."""
     return torch.arange(s_kv - 1, -t_q, -1, dtype=torch.float32, device=device)
+
+
+def sinusoidal_rel_pos(t_q: int, s_kv: int, dim: int, device=None) -> torch.Tensor:
+    """[R, dim] Transformer-XL sinusoidal embeddings of the DESCENDING
+    relative positions, interleaved sin/cos (pe[:, 0::2] = sin(r*div_i),
+    pe[:, 1::2] = cos(r*div_i), div_i = 10000^(-2i/dim): the espnet/icefall
+    RelPositionalEncoding layout of conformer and zipformer v1)."""
+    r = descending_rel_positions(t_q, s_kv, device)
+    inv = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    ang = r[:, None] * inv[None, :]
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=2).reshape(len(r), dim)
 
 
 def chunk_causal_mask(t: int, chunk: int, left: int, device=None) -> torch.Tensor:

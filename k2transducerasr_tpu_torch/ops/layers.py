@@ -1,5 +1,5 @@
-"""The neural-net ops the zipformer2 and conformer paths use, as plain
-functions on tensors — PyTorch port of the matching subset of
+"""The neural-net ops the encoder families use, as plain functions on
+tensors — PyTorch port of the matching subset of
 ``k2transducerasr_tpu/ops/layers.py``.
 
 Conventions (as in the reference):
@@ -117,6 +117,11 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def double_swish(x: torch.Tensor) -> torch.Tensor:
+    """icefall DoubleSwish: x * sigmoid(x - 1) (zipformer v1, LSTM)."""
+    return x * torch.sigmoid(x - 1.0)
+
+
 def glu(x: torch.Tensor) -> torch.Tensor:
     """First half of the last axis times the sigmoid of the second half."""
     a, b = torch.chunk(x, 2, dim=-1)
@@ -178,6 +183,29 @@ def apply_conv2d(p, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int
 
 def apply_embedding(p, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
+
+
+def with_cache(cache: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """[cache | chunk] along time (dim 1), the cache cast to the chunk's
+    dtype (a streaming layer's keys, values or conv context)."""
+    return torch.cat([cache.to(chunk.dtype), chunk], dim=1)
+
+
+def downsample_windows(x: torch.Tensor, ds: int, lens=None) -> torch.Tensor:
+    """[B, T, D] -> [B, ceil(T/ds), ds, D] windows of ``ds`` frames, the
+    tail window padded by repeating the last frame.  With ``lens``, frames
+    at index >= lens are first replaced by each lane's LAST VALID frame, so
+    a padded lane downsamples as it would unpadded (the reference's
+    padding-invariant form of the zipformers' downsampling)."""
+    b, t, d = x.shape
+    t_out = -(-t // ds)
+    if lens is not None:
+        last = x[torch.arange(b, device=x.device), torch.clamp(lens - 1, min=0)][:, None, :]
+        keep = torch.arange(t, device=x.device)[None, :, None] < lens[:, None, None]
+        x = torch.where(keep, x, last)
+    if t_out * ds > t:
+        x = torch.cat([x, x[:, -1:].expand(b, t_out * ds - t, d)], dim=1)
+    return x.reshape(b, t_out, ds, d)
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

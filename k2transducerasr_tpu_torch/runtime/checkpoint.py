@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -71,13 +72,41 @@ def unflatten_params(flat: dict[str, np.ndarray]) -> Any:
     return listify(root)
 
 
+def _object_members(path: str) -> dict[str, tuple]:
+    """{key: shape} of the members of an .npz whose ``.npy`` header says
+    dtype object, read from the headers alone (nothing is unpickled)."""
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                if version == (1, 0):
+                    shape, _, dtype = np.lib.format.read_array_header_1_0(f)
+                elif version == (2, 0):
+                    shape, _, dtype = np.lib.format.read_array_header_2_0(f)
+                else:
+                    raise ValueError(f"{path}: member {name!r} has .npy format {version}")
+            if dtype.hasobject:
+                out[name[: -len(".npy")] if name.endswith(".npy") else name] = shape
+    return out
+
+
 def load_params(path: str) -> Any:
     """params.npz -> numpy tree; ``::q8``/``::scale`` pairs (int8 storage)
-    are dequantized to float32."""
+    are dequantized to float32.  A 0-d object member is the ``None`` the
+    JAX package's ``ModelBundle.save`` writes for a ``None`` node (zipformer
+    v1's ``skip_combiners``) and loads as ``None``, from its header alone;
+    any other object member raises ``ValueError``."""
+    objects = _object_members(path)
     with np.load(path) as data:
-        flat: dict[str, np.ndarray] = {}
+        flat: dict[str, Any] = {}
         for k in data.files:
-            if k.endswith("::q8"):
+            if k in objects:
+                if objects[k] != ():
+                    raise ValueError(f"{path}: member {k!r} is an object array of shape "
+                                     f"{objects[k]}; only 0-d ones (None) are read")
+                flat[k] = None
+            elif k.endswith("::q8"):
                 base = k[: -len("::q8")]
                 flat[base] = data[k].astype(np.float32) * data[base + "::scale"]
             elif k.endswith("::scale"):
@@ -113,9 +142,10 @@ def model_dir_files(model_dir: str, accuracy: str = "") -> dict[str, str]:
 
 class ParamTree(nn.Module):
     """A parameter tree as an ``nn.Module``: dict nodes become child
-    modules, lists of dicts become ``nn.ModuleList``s, arrays become frozen
-    ``nn.Parameter``s.  ``node["key"]`` and ``"key" in node`` work as on the
-    JAX package's dicts, so the model code reads like the reference."""
+    modules, lists of dicts become ``nn.ModuleList``s (a ``None`` entry stays
+    ``None``: an empty slot, absent from the ``state_dict``), arrays become
+    frozen ``nn.Parameter``s.  ``node["key"]`` and ``"key" in node`` work as
+    on the JAX package's dicts, so the model code reads like the reference."""
 
     def __init__(self, tree: dict, device: torch.device | str = "cpu"):
         super().__init__()
@@ -123,9 +153,10 @@ class ParamTree(nn.Module):
             if isinstance(value, dict):
                 self.add_module(key, ParamTree(value, device))
             elif isinstance(value, (list, tuple)):
-                if not all(isinstance(v, dict) for v in value):
-                    raise TypeError(f"list node {key!r} must hold dicts")
-                self.add_module(key, nn.ModuleList(ParamTree(v, device) for v in value))
+                if not all(v is None or isinstance(v, dict) for v in value):
+                    raise TypeError(f"list node {key!r} must hold dicts or None")
+                self.add_module(key, nn.ModuleList(None if v is None else ParamTree(v, device)
+                                                   for v in value))
             else:
                 t = torch.from_numpy(np.array(value, copy=True)).to(device)
                 self.register_parameter(key, nn.Parameter(t, requires_grad=False))

@@ -44,6 +44,10 @@ class OfflineRecognizerResult:
     tokens: list[str]
     timestamps: list[int]
 
+    @property
+    def text_len(self) -> int:
+        return len(self.text)
+
 
 class OfflineStream:
     """Per-utterance sample accumulator; features are computed batched at
@@ -65,6 +69,7 @@ class OfflineStream:
             self._chunks = [np.concatenate(self._chunks)]
         return self._chunks[0]
 
+    AddSamples = add_samples
 
 
 def _bucket(n: int, step: int, minimum: int) -> int:
@@ -144,11 +149,17 @@ class OfflineRecognizer:
     def create_offline_stream(self) -> OfflineStream:
         return OfflineStream(self.bundle.frontend_cfg.sample_rate)
 
+    create_stream = create_offline_stream
+    CreateOfflineStream = create_offline_stream
+
     def get_result(self, stream: OfflineStream) -> OfflineRecognizerResult:
         return self.get_results([stream])[0]
 
     def get_results(self, streams: list[OfflineStream]) -> list[OfflineRecognizerResult]:
         return self.end_decode(self.begin_decode(streams))
+
+    GetResult = get_result
+    GetResults = get_results
 
     def pcm_batch(self, streams: list[OfflineStream]):
         """Streams -> (samples [B, N] int16, true sample counts [B]) on the

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the searches (beam and CTC) on CUDA tensors against their CPU runs.
+the searches (beam and CTC) on CUDA tensors against their CPU runs, the
+zipformer v1 and LSTM pin dirs on the card, and the LSTM's cuDNN recurrence
+against its CPU run.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -17,19 +19,28 @@ of the exact product; then both round the output once).  Searches: tokens,
 timestamps, counts and contexts exactly; beam scores, sums of float32
 log-probs over up to 40 frames reaching |score| ~ 130, to rtol 1e-5 plus
 atol 1e-4 (summation order of the log-softmax on the card: a few float32
-ulps per frame).
+ulps per frame).  LSTM: float32 encoder output to atol 1e-5 with TF32 off
+(cuDNN against ATen's loop: summation order), bf16 to atol 0.05 (bf16
+linears that may round one ulp apart, over LayerNorm outputs).
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
 from k2transducerasr_tpu_torch.decode import ctc_greedy as TCtcG
 from k2transducerasr_tpu_torch.decode import rnnt_beam as TBeam
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
+from k2transducerasr_tpu_torch.models import lstm as TL
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
+from k2transducerasr_tpu_torch.runtime.device import exact_f32
+
+PIN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_data")
 
 pytestmark = pytest.mark.cuda
 
@@ -388,3 +399,98 @@ def test_ctc_frames_does_not_sync(cuda):
     lens = torch.tensor([16, 5, 0, 16], device=cuda)
     off = torch.zeros(4, dtype=torch.int64, device=cuda)
     assert _host_syncs(lambda: TCtcG.ctc_frames(st, lp, lens, off)) == []
+
+
+# K1 at zipformer v1's shapes (ZipformerConfig(): 8 heads, q head 24 = 192/8,
+# which the bf16 body pads to 32, pos_dim 4): the offline stacks of a
+# 16 x 30 s batch (T = S = 1532, 766, 383, 192) with ragged lens, and the
+# streaming stacks of ZipformerConfig(causal=True) (chunk 16, left 64:
+# T = 16 ... 2 queries against S = T + left keys) with kv_start per lane.
+K1_V1 = [(1532, 1532), (766, 766), (383, 383), (192, 192), (16, 80), (8, 40), (4, 20),
+         (2, 10)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,s", K1_V1, ids=[f"T{t}-S{s}" for t, s in K1_V1])
+def test_k1_at_zipformer_v1_shapes(cuda, dtype, t, s):
+    q, k, pq, pk = _inputs(t + s, 3, t, s, 8, 24, 4, dtype)
+    if t == s:
+        lens, kv = torch.tensor([s, s // 2 + 1, 1], device=cuda, dtype=torch.int32), None
+    else:
+        lens, kv = None, _kv_starts(cuda, t, s)
+    before = AC.relpos_attn_probs.launches
+    out = AC.relpos_attn_probs(q, k, pq, pk, lens, kv_start=kv)
+    torch.cuda.synchronize()
+    assert AC.relpos_attn_probs.launches == before + 1 and out.shape == (3, 8, t, s)
+    _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, lens, kv_start=kv))
+
+
+def _pcm(n, seed=9):
+    """tests/test_pinned_transcripts.py's signal."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    return (0.3 * np.sin(2 * np.pi * 420 * t) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+
+# tests/test_pinned_transcripts.py's pins: (offline text, timestamps, online
+# text) and the K1 launches of one offline decode (one per layer)
+V1_LSTM_PINS = {
+    "zipformer": ("tok5tok17tok5tok17tok5tok17tok5tok17", list(range(8)),
+                  "tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23", 2),
+    "lstm": ("tok6tok15tok15tok15tok15tok15tok15", list(range(8)),
+             "tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9", 0),
+}
+
+
+@pytest.mark.parametrize("family", list(V1_LSTM_PINS))
+def test_zipformer_v1_and_lstm_pins_on_the_card(cuda, family):
+    text, stamps, online_text, k1 = V1_LSTM_PINS[family]
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+    s = rec.create_offline_stream()
+    s.add_samples(_pcm(6400))
+    before = (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches)
+    res = rec.get_result(s)
+    assert (AC.relpos_attn_probs.launches - before[0], AC.relpos_attn_ctx.launches) == (
+        k1, before[1])
+    assert (res.text, res.timestamps) == (text, stamps)
+    online = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=2, device="cuda")
+    st = online.create_online_stream()
+    st.add_samples(_pcm(6400))
+    assert online.decode_to_end(st).text == online_text
+
+
+def test_lstm_cudnn_equals_cpu(cuda):
+    """The cuDNN recurrence (one flat weight buffer per layer) against
+    ATen's loop on the CPU, from one numpy tree: float32 inside exact_f32()
+    to atol 1e-5, bf16 to atol 0.05; the h and c carried by streaming steps
+    likewise at float32."""
+    cfg = TL.LstmConfig(d_model=64, rnn_hidden_size=160, num_layers=3, ff_dim=128, chunk_size=4)
+    tree = TL.init_params(np.random.default_rng(2), cfg)
+    encs = {dev: TL.Lstm(cfg, tree, dev) for dev in ("cpu", "cuda")}
+    for w in encs["cuda"].rnn_weights(None) + encs["cuda"].rnn_weights(torch.bfloat16):
+        assert len({x.untyped_storage().data_ptr() for x in w}) == 1  # one flat buffer
+    x = np.random.default_rng(3).standard_normal((3, 131, 80)).astype(np.float32) * 0.5
+    lens = np.array([131, 90, 40])
+    out = {}
+    for dev, enc in encs.items():
+        with torch.inference_mode():
+            with exact_f32():
+                f32, _ = enc(torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev))
+                state = enc.init_state(3)
+                steps = []
+                for i in range(3):
+                    win = x[:, i * cfg.decode_chunk_len: i * cfg.decode_chunk_len
+                            + cfg.chunk_input_len]
+                    o, state = enc.streaming_step(state, torch.from_numpy(win).to(dev))
+                    steps.append(o.cpu())
+            bf16, _ = enc(torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev),
+                          torch.bfloat16)
+        out[dev] = (f32.cpu(), bf16.cpu(), steps, {k: v.cpu() for k, v in state.items()})
+    (fg, bg, sg, stg), (fc, bc, sc, stc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(fg, fc, atol=1e-5, rtol=0)
+    torch.testing.assert_close(bg, bc, atol=0.05, rtol=0)
+    for g, c in zip(sg, sc):
+        torch.testing.assert_close(g, c, atol=1e-5, rtol=0)
+    for key in ("h", "c"):
+        torch.testing.assert_close(stg[key], stc[key], atol=1e-5, rtol=0)

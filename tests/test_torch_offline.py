@@ -1,6 +1,8 @@
 """The whole slice: the port's OfflineRecognizer(device="cpu") against the
 JAX package's on the same model dir, plus the model-dir fixture, the
-parameter bridge, the import rule and the device default.
+parameter bridge, the import rule, the device default and the reference's
+public surface (C#-style names, ``rnnt_greedy_search``, ``joiner.forward``,
+``decoder.forward_sequence``).
 
 Tolerances: at float32 (``compute_dtype=None``) tokens and timestamps are
 identical and the encoder output agrees to atol 1e-4 (summation order
@@ -22,14 +24,18 @@ import numpy as np
 import pytest
 import torch
 
+from k2transducerasr_tpu.decode import rnnt_greedy as JG
 from k2transducerasr_tpu.frontend.fbank import fbank_compute as j_fbank_compute
 from k2transducerasr_tpu.frontend.fbank import fbank_matrices as j_fbank_matrices
 from k2transducerasr_tpu.frontend.fbank import num_frames_jnp
+from k2transducerasr_tpu.models import decoder as JD
+from k2transducerasr_tpu.models import joiner as JJ
 from k2transducerasr_tpu.models import zipformer2 as JZ
 from k2transducerasr_tpu.runtime.bundle import ModelBundle as JBundle
 from k2transducerasr_tpu.runtime.checkpoint import flatten_params as j_flatten
 from k2transducerasr_tpu.runtime.offline import OfflineRecognizer as JRecognizer
 from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer
+from k2transducerasr_tpu_torch.decode import rnnt_greedy as TG
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import zipformer2 as TZ
@@ -170,6 +176,76 @@ def test_params_from_numpy_round_trips_state_dict():
             np.testing.assert_array_equal(v.numpy(), flat[f"{part}.{k}"])
 
 
+def test_offline_public_surface_matches_jax():
+    """The reference's C#-style names and ``text_len`` on the zipformer2
+    pin dir: streams made by ``create_stream`` and ``CreateOfflineStream``,
+    fed by ``AddSamples`` in two parts, decoded by ``GetResult`` and
+    ``GetResults``, give the JAX recognizer's results, text lengths
+    included."""
+    jrec = JRecognizer(JBundle.from_dir(PIN_DIR), compute_dtype=None)
+    trec = OfflineRecognizer(ModelBundle.from_dir(PIN_DIR, device="cpu"), compute_dtype=None,
+                             device="cpu")
+    out = []
+    for rec in (jrec, trec):
+        streams = []
+        for make, x in ((rec.create_stream, _pcm(6400)), (rec.CreateOfflineStream, _pcm(3900, 2))):
+            s = make()
+            s.AddSamples(x[:2000])
+            s.AddSamples(x[2000:])
+            streams.append(s)
+        results = [rec.GetResult(streams[0]), *rec.GetResults(streams)]
+        out.append([(r.text, r.text_len, r.tokens, r.timestamps) for r in results])
+    assert out[1] == out[0] and out[1][0][:2] == (PIN_TEXT, len(PIN_TEXT))
+
+
+@pytest.mark.parametrize("extra_skip_sos", [False, True], ids=["offline", "skip-sos"])
+def test_rnnt_greedy_search_matches_jax(extra_skip_sos):
+    """The whole-utterance greedy entry on a ragged batch (a lane of 0
+    frames, a token buffer that fills): tokens, timestamps and counts
+    exactly."""
+    jb = JBundle.random("zipformer2", JZ.Zipformer2Config(**TINY), vocab_size=16, seed=1,
+                        decoder_dim=8, joiner_dim=8)
+    tree = jax.device_get(jb.params)
+    enc = np.random.default_rng(4).standard_normal((3, 40, 32)).astype(np.float32)
+    lens = np.array([40, 17, 0], np.int32)
+    want = JG.rnnt_greedy_search(jb.params["decoder"], jb.decoder_cfg, jb.params["joiner"],
+                                 jb.joiner_cfg, jnp.asarray(enc), jnp.asarray(lens),
+                                 max_tokens=24, extra_skip_sos=extra_skip_sos)
+    got = TG.rnnt_greedy_search(params_from_numpy(tree["decoder"]),
+                                TD.DecoderConfig(**dataclasses.asdict(jb.decoder_cfg)),
+                                params_from_numpy(tree["joiner"]),
+                                TJ.JoinerConfig(**dataclasses.asdict(jb.joiner_cfg)),
+                                torch.from_numpy(enc), torch.from_numpy(lens), max_tokens=24,
+                                extra_skip_sos=extra_skip_sos)
+    assert int(np.asarray(want[2]).max()) == 24  # a full buffer
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("context_size", [1, 2])
+def test_joiner_forward_and_decoder_forward_sequence_match_jax(context_size):
+    """``joiner.forward`` from raw and from projected activations, and
+    ``decoder.forward_sequence`` over label sequences with -1 entries,
+    float32 to atol 1e-5."""
+    rng = np.random.default_rng(3)
+    jcfg, dcfg = JJ.JoinerConfig(16, 24, 20, 40), JD.DecoderConfig(40, 24, context_size)
+    jp = jax.device_get(JJ.init_params(jax.random.PRNGKey(0), jcfg))
+    dp = jax.device_get(JD.init_params(jax.random.PRNGKey(1), dcfg))
+    for project, widths in ((True, (16, 24)), (False, (20, 20))):
+        enc = rng.standard_normal((2, 5, widths[0])).astype(np.float32)
+        dec = rng.standard_normal((2, 5, widths[1])).astype(np.float32)
+        want = JJ.forward(jp, jnp.asarray(enc), jnp.asarray(dec), project_input=project)
+        got = TJ.forward(params_from_numpy(jp), torch.from_numpy(enc), torch.from_numpy(dec),
+                         project_input=project)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    ys = rng.integers(-1, 40, (3, 7))
+    want = JD.forward_sequence(dp, dcfg, jnp.asarray(ys, jnp.int32))
+    got = TD.forward_sequence(params_from_numpy(dp), TD.DecoderConfig(40, 24, context_size),
+                              torch.from_numpy(ys))
+    assert got.shape == (3, 7, 24)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -199,6 +275,7 @@ def test_port_imports_no_jax():
         "import k2transducerasr_tpu_torch.models.conformer, k2transducerasr_tpu_torch.frontend.fbank\n"
         "import k2transducerasr_tpu_torch.decode.rnnt_beam, k2transducerasr_tpu_torch.decode.ctc_greedy\n"
         "import k2transducerasr_tpu_torch.models.ctc, k2transducerasr_tpu_torch.text.hotwords\n"
+        "import k2transducerasr_tpu_torch.models.zipformer, k2transducerasr_tpu_torch.models.lstm\n"
         "from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'k2transducerasr_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'k2transducerasr_tpu.'))]\n"
