@@ -38,7 +38,19 @@ Phases (any failure exits non-zero; none is caught):
   6b. each streaming main path at full width (each family's causal config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
      per step; per-step latency, streaming RTF and the launches per step
-     (the same methods as phase 6).
+     (the same methods as phase 6);
+  8. int8 (accuracy="int8"): zipformer2 and conformer at full width, f32,
+     card against CPU (the int8 weights bit for bit, the encoder within int8's
+     own change from float32, tokens identical); their offline main paths
+     (bf16, 16 x 30 s, 2 batches, launches counted) and zipformer2's streaming
+     main path (16 lanes) under int8; torch._int_mm against a bf16 matmul at
+     the flagship's largest linear shapes;
+  9. ingest: a 5 s 44.1 kHz stereo wav through the native read_wav and
+     resampling against the numpy route (the same tokens from the
+     zipformer2 pin dir on the card), whisper features card vs CPU, dither's
+     noise on the card;
+ 10. convert: a full-width zipformer2 bundle exported as a synthetic ONNX
+     dir, converted, loaded on the card: the source bundle's tokens.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
 
@@ -115,6 +127,8 @@ FAMILIES = {
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
+# the families whose int8 paths [8] drives: the flagship and K2's family
+INT8_FAMILIES = ("zipformer2", "conformer")
 # Every n-best hypothesis (text, timestamps), best first, of the pin dirs
 # under modified_beam_search with K=4 at float32 on the pin signal
 # (pin_pcm(6400)): offline get_nbest_results, and online get_nbest_results
@@ -712,7 +726,7 @@ def stream_encoder_outputs(rec, pcm):
             x = torch.from_numpy(w).to(rec.device)[None].float() * (1.0 / 32768.0)
             feats = fbank_compute(x, b.frontend_cfg, b.encoder_cfg.chunk_input_len,
                                   tables=rec._fbank_tables)
-            out, state = rec._enc.streaming_step(b.encoder, b.encoder_cfg, state, feats, None)
+            out, state = rec._enc.streaming_step(rec.encoder, b.encoder_cfg, state, feats, None)
             outs.append(out.cpu())
     rec.dispose_stream(stream)
     return outs
@@ -776,15 +790,16 @@ def phase_full_width_vs_cpu(family):
         raise AssertionError(f"{family}: tokens differ between card and CPU")
 
 
-def phase_main_path(family, method="greedy_search", n_batches=2):
+def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     """An offline main path (a CTC family always decodes CTC greedy): one
     warm-up batch, then ``n_batches`` timed; the launches and, for beam
-    search, the loop's trips are counted from 0 over the timed batches."""
+    search, the loop's trips are counted from 0 over the timed batches.
+    ``accuracy="int8"``: the encoder's linears in int8 ([8])."""
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
     rec = OfflineRecognizer(bundle, decoding_method=method, max_active_paths=BEAM_K,
-                            device="cuda")  # bf16 compute
-    name = f"{family}/{rec.decoding_method}"
+                            accuracy=accuracy, device="cuda")  # bf16 compute
+    name = f"{family}/{rec.decoding_method}" + (f"/{accuracy}" if accuracy else "")
     n = 30 * 16000
     batches = [streams_for(rec, [synth_pcm(n, k * FLAGSHIP_B + i) for i in range(FLAGSHIP_B)])
                for k in range(n_batches + 1)]
@@ -832,30 +847,33 @@ def phase_main_path(family, method="greedy_search", n_batches=2):
         score = pending[4][3]
         if not bool(torch.isfinite(score).all()) or bool((score[:, 1:] > score[:, :-1]).any()):
             raise AssertionError(f"{name}: n-best scores not finite or not sorted")
-    log(f"[6] {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
+    tag = "[8]" if accuracy else "[6]"
+    log(f"{tag} {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
         f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
         f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
         f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), "
         f"enc out {tuple(enc.shape)}" + (f", beam loop {trips:.0f} trips/batch" if trips else ""))
-    log(f"[6] {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
+    log(f"{tag} {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
         f"{prep_ms:.1f} ms, fbank+encoder {enc_ms:.1f} ms; whole decode {full_ms:.1f} ms -> "
         f"search + readback ~{full_ms - prep_ms - enc_ms:.1f} ms")
     return counts.get(spec["kernel"], 0)
 
 
-def phase_streaming_main_path(family, method="greedy_search", seconds=30.0):
+def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accuracy=None):
     """The streaming main path as benchmarks/streaming_latency.py drives the
     JAX recognizer: the causal flagship config at bf16, STREAM_LANES lanes
     of ``seconds`` of audio each buffered up front, get_results over every
     lane until none has a window; one warm-up step, then each step timed on
     the host clock (get_results ends in the readback).  Every kernel's
-    launches are counted from 0 over the timed steps."""
+    launches are counted from 0 over the timed steps.  ``accuracy="int8"``:
+    the encoder's linears in int8 ([8])."""
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
                                 device="cuda")
     rec = OnlineRecognizer(bundle, decoding_method=method, max_lanes=STREAM_LANES,
-                           max_active_paths=BEAM_K, device="cuda")  # bf16 compute
-    name = f"{family}/{rec.decoding_method}"
+                           max_active_paths=BEAM_K, accuracy=accuracy,
+                           device="cuda")  # bf16 compute
+    name = f"{family}/{rec.decoding_method}" + (f"/{accuracy}" if accuracy else "")
     n = int(16000 * seconds)
     streams = []
     for i in range(STREAM_LANES):
@@ -890,20 +908,22 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0):
     toks = [len(r.tokens) for r in results]
     if min(toks) == 0 or max(toks) > rec.max_tokens:
         raise AssertionError(f"{name} streaming: implausible token counts {toks}")
-    row = {"family": family, "method": rec.decoding_method, "lanes": STREAM_LANES,
+    row = {"family": family, "method": rec.decoding_method, "accuracy": accuracy,
+           "lanes": STREAM_LANES,
            "steps": steps, "beam_trips_per_step": trips / steps, "p50_ms": p50, "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
            "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": counts.get(spec["kernel"], 0), "launches_per_step": per_step,
            "device_busy_share": busy, "stages_ms": stream_stage_split(rec)}
-    log(f"[6b] {name} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
+    tag = "[8]" if accuracy else "[6b]"
+    log(f"{tag} {name} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
         f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
         f"{hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, {row['audio_s_per_s']:.1f} audio-s/s, "
         f"peak {row['peak_gib']:.2f} GiB, launches {counts} ({per_step}/step of "
         f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}"
         + (f", beam loop {trips / steps:.1f} trips/step" if trips else ""))
     st = row["stages_ms"]
-    log(f"[6b] {name} step split (host clock with device syncs, median of 5, all "
+    log(f"{tag} {name} step split (host clock with device syncs, median of 5, all "
         f"{STREAM_LANES} lanes): lane gather {st['gather']:.2f} ms, fbank {st['fbank']:.2f}, "
         f"encoder streaming_step {st['encoder']:.2f}, lane scatter {st['scatter']:.2f} -> "
         f"search + readback ~{p50 - sum(st.values()):.2f} of the p50 step; device busy "
@@ -957,11 +977,256 @@ def stream_stage_split(rec, reps: int = 5) -> dict:
         state, gather = timed(lambda: tree_map(lambda a: a.index_select(0, lanes), rec._enc_state))
         feats, fbank = timed(lambda: fbank_compute(x, b.frontend_cfg, cfg.chunk_input_len,
                                                    tables=rec._fbank_tables))
-        (_, new), encoder = timed(lambda: rec._enc.streaming_step(b.encoder, cfg, state, feats,
+        (_, new), encoder = timed(lambda: rec._enc.streaming_step(rec.encoder, cfg, state, feats,
                                                                   rec.compute_dtype))
         _, scatter = timed(lambda: tree_map(lambda p, v: p.index_copy_(0, lanes, v.to(p.dtype)),
                                             rec._enc_state, new))
     return {"gather": gather, "fbank": fbank, "encoder": encoder, "scatter": scatter}
+
+
+# [8] int8 against the CPU.  The quantization is exact: w_q8 and w_scale of
+# every linear equal the CPU's bit for bit.  The encoder output is not: card
+# and CPU sum float32 in other orders (phase 5: a median 7e-8 apart), which
+# flips some activation's int8 rounding at a .5 tie; the flip's one-step
+# change is then large beside float32 noise and re-rounds later activations
+# differently, so after a few layers the two int8 runs differ by about the
+# quantization's own noise (measured on an H100: zipformer2 median 9.2e-4
+# against int8 - float32's 2.2e-3; conformer 4.4e-3 against 8.7e-3).  So the
+# card's int8 may differ from the CPU's int8 by no more than int8 differs
+# from float32 on the CPU, in median and in max (a wrong scale, layout or
+# product moves outputs by their own size); tokens and timestamps identical.
+INT8_MEDIAN_RATIO, INT8_MAX_RATIO = 1.0, 1.0
+# the flagship's (Zipformer2Config()) largest linears per 16 x 30 s batch:
+# (rows = 16 x stack frames, in, out)
+INT_MM_SHAPES = [(16 * 1532, 192, 512), (16 * 766, 256, 768), (16 * 192, 512, 1536),
+                 (16 * 192, 1536, 512)]
+
+
+def phase_int8_vs_cpu(family):
+    """accuracy="int8" at full width from a seed, one 5 s utterance,
+    float32: the card against the CPU — the quantized weights bit for bit,
+    the encoder within INT8_MEDIAN_RATIO, INT8_MAX_RATIO of the CPU's int8 -
+    float32 difference, the tokens exactly."""
+    cfg = FAMILIES[family]["cfg"]()
+    pcm = [synth_pcm(5 * 16000, 101)]
+    outs, q8_trees = {}, {}
+    for dev in ("cuda", "cpu"):
+        bundle = ModelBundle.random(family, cfg, vocab_size=500, seed=0, device=dev)
+        for accuracy in ("int8", None) if dev == "cpu" else ("int8",):
+            rec = OfflineRecognizer(bundle, compute_dtype=None, accuracy=accuracy, device=dev)
+            if accuracy:
+                q8_trees[dev] = {k: v.cpu() for k, v in rec.encoder.state_dict().items()
+                                 if k.endswith((".w_q8", ".w_scale"))}
+            t0 = time.time()
+            samples, counts = rec.pcm_batch(streams_for(rec, pcm))
+            enc, lens = rec.encode(samples, counts)
+            res = rec.get_results(streams_for(rec, pcm))[0]
+            q8 = sum(k.endswith(".w_q8") for k in rec.encoder.state_dict())
+            outs[dev, accuracy] = (enc.float().cpu(), lens.cpu(), res)
+            log(f"[8] {family} {accuracy or 'float32'} full width f32 on {dev}: {q8} linears in "
+                f"int8, enc {tuple(enc.shape)}, {len(res.tokens)} tokens, {time.time() - t0:.1f} s")
+            if accuracy and not q8:
+                raise AssertionError(f"{family}: accuracy='int8' quantized no linear")
+    unequal = [k for k, v in q8_trees["cpu"].items() if not torch.equal(q8_trees["cuda"][k], v)]
+    log(f"[8] {family} int8 quantization card vs CPU: {len(q8_trees['cpu'])} w_q8/w_scale "
+        f"leaves, {len(unequal)} not bit-equal")
+    if unequal or set(q8_trees["cuda"]) != set(q8_trees["cpu"]):
+        raise AssertionError(f"{family}: int8 weights differ between card and CPU: {unequal[:4]}")
+    (eg, lg, rg), (ec, lc, rc), (ef, _, _) = outs["cuda", "int8"], outs["cpu", "int8"], \
+        outs["cpu", None]
+    if not torch.equal(lg, lc):
+        raise AssertionError(f"{family} int8 enc lens differ: {lg} vs {lc}")
+    diff, quant = (eg - ec).abs(), (ec - ef).abs()
+    med, worst = float(diff.median()), float(diff.max())
+    qmed, qmax = float(quant.median()), float(quant.max())
+    log(f"[8] {family} int8 encoder card vs CPU: max abs diff {worst:.3e}, median {med:.3e}; "
+        f"int8 vs float32 on the CPU: max {qmax:.3e}, median {qmed:.3e} (max |enc| "
+        f"{float(ec.abs().max()):.3f}); tokens identical: {rg.tokens == rc.tokens}")
+    if med > INT8_MEDIAN_RATIO * qmed or worst > INT8_MAX_RATIO * qmax:
+        raise AssertionError(f"{family} int8 encoder card vs CPU: median {med}, max {worst} "
+                             f"beyond {INT8_MEDIAN_RATIO}, {INT8_MAX_RATIO} of int8's own "
+                             f"{qmed}, {qmax}")
+    if rg.tokens != rc.tokens or rg.timestamps != rc.timestamps:
+        raise AssertionError(f"{family}: int8 tokens differ between card and CPU")
+
+
+def phase_int_mm(bw):
+    """torch._int_mm (through ops/layers.int8_matmul's padding) against a
+    bf16 torch.matmul at the flagship's largest linear shapes, and the whole
+    int8 linear (per-token quantisation, product, scales) against the bf16
+    one; the int32 product equals the CPU's on the first 256 rows."""
+    from k2transducerasr_tpu_torch.ops import layers as L
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for m, k, n in INT_MM_SHAPES:
+        x = torch.randn((m, k), generator=g, device="cuda")
+        w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+        b = torch.randn((n,), generator=g, device="cuda")
+        q = L.quantize_linear_int8({"w": w, "b": b})
+        xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        got = L.int8_matmul(xq, q["w_q8"])
+        want = L.int8_matmul(xq[:256].cpu(), q["w_q8"].cpu())
+        if not torch.equal(got[:256].cpu(), want):
+            raise AssertionError(f"int8_matmul {m}x{k}x{n}: card differs from the CPU")
+        xb, wb = x.bfloat16(), w.bfloat16()
+        ops = 2 * m * k * n
+        row = {"m": m, "k": k, "n": n,
+               "int_mm_ms": cuda_ms(lambda: L.int8_matmul(xq, q["w_q8"]), reps=20),
+               "bf16_mm_ms": cuda_ms(lambda: torch.matmul(xb, wb), reps=20),
+               "int8_linear_ms": cuda_ms(lambda: L.apply_linear(q, xb, torch.bfloat16), reps=20),
+               "bf16_linear_ms": cuda_ms(
+                   lambda: L.apply_linear({"w": w, "b": b}, xb, torch.bfloat16), reps=20)}
+        row["int_mm_tops"] = ops / row["int_mm_ms"] / 1e9
+        row["bf16_tflops"] = ops / row["bf16_mm_ms"] / 1e9
+        row["int_mm_bound_ms"] = max((m * k + k * n + 4 * m * n) / bw, ops / 1979e12) * 1e3
+        rows.append(row)
+        log(f"[8] int8 product {m}x{k}x{n}: _int_mm {row['int_mm_ms']:.4f} ms "
+            f"({row['int_mm_tops']:.1f} TOP/s, bound {row['int_mm_bound_ms']:.4f}), bf16 matmul "
+            f"{row['bf16_mm_ms']:.4f} ms ({row['bf16_tflops']:.1f} TFLOP/s); whole linear int8 "
+            f"{row['int8_linear_ms']:.4f} ms vs bf16 {row['bf16_linear_ms']:.4f} ms")
+        del x, w, b, q, xq, got, xb, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _wav_file(path, rate, channels, seconds, seed):
+    """A 16-bit wav written with the standard library's wave module."""
+    import wave
+
+    n = int(rate * seconds)
+    x = np.stack([synth_pcm(n, seed + c) for c in range(channels)], 1)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def phase_ingest():
+    """[9] A 5 s, 44.1 kHz, 2-channel, 16-bit wav, read by the port's
+    read_wav (the native library, which must have been built) and resampled
+    to 16 kHz natively, against the numpy route (wave + numpy decode + numpy
+    resampling) on the same file: the zipformer2 pin dir on the card, f32,
+    gives the same tokens.  Then FbankConfig.whisper() features on the card
+    against the CPU, and dither's noise on the card.  Returns the pin
+    decodes' K1 launches."""
+    import tempfile
+    import wave
+
+    from k2transducerasr_tpu_torch import native
+    from k2transducerasr_tpu_torch.audio import read_wav, resample_linear
+    from k2transducerasr_tpu_torch.audio.wav import _decode_pcm
+    from k2transducerasr_tpu_torch.frontend import FbankConfig, FbankExtractor
+    from k2transducerasr_tpu_torch.frontend.fbank import dither_noise
+
+    rate = 44100
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ingest.wav")
+        _wav_file(path, rate, 2, 5.0, 31)
+        if not native.available():
+            raise AssertionError("the native audio library was not built (g++)")
+        t1 = time.perf_counter()
+        audio = read_wav(path)
+        pcm_native = native.resample_linear(audio.samples, audio.sample_rate, 16000)
+        t2 = time.perf_counter()
+        with wave.open(path) as w:
+            raw, width, channels = w.readframes(w.getnframes()), w.getsampwidth(), w.getnchannels()
+        pcm_numpy = resample_linear(_decode_pcm(raw, width, channels), rate, 16000)
+        t3 = time.perf_counter()
+        with open(path, "rb") as f:
+            direct = native.wav_decode(f.read())
+    lib = os.path.relpath(native.get_lib()._name, REPO)
+    if direct is None or not np.array_equal(direct[0], audio.samples) or direct[1] != rate:
+        raise AssertionError("read_wav's samples are not the native decoder's")
+    diff = float(np.abs(pcm_native - pcm_numpy).max())
+    log(f"[9] ingest: the native library {lib} (built with g++ at first use); 5 s 44.1 kHz "
+        f"stereo wav: native read + resample {(t2 - t1) * 1e3:.2f} ms, numpy route "
+        f"{(t3 - t2) * 1e3:.2f} ms (host); {len(pcm_native)} samples at 16 kHz, max |native - "
+        f"numpy| {diff:.2e}")
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+    reset_counts()
+    got = [rec.get_result(streams_for(rec, [x])[0]) for x in (pcm_native, pcm_numpy)]
+    launches = family_launches("[9] ingest decodes", FAMILIES["zipformer2"], read_counts())
+    log(f"[9] zipformer2 pin on card, f32: native route {len(got[0].tokens)} tokens, numpy route "
+        f"{len(got[1].tokens)}; identical: {got[0].tokens == got[1].tokens}")
+    if (got[0].tokens, got[0].timestamps) != (got[1].tokens, got[1].timestamps):
+        raise AssertionError("the native and numpy ingest routes decode differently")
+
+    wcfg = FbankConfig.whisper()
+    lens = np.array([80000, 61234, 33333, 16000], np.int32)
+    batch = np.zeros((4, 80000), np.float32)
+    for i, m in enumerate(lens):
+        batch[i, :m] = synth_pcm(int(m), 50 + i)
+    fg, ng = FbankExtractor(wcfg, device="cuda")(batch, lens)
+    fc, nc = FbankExtractor(wcfg, device="cpu")(batch, lens)
+    if not np.array_equal(ng, nc):
+        raise AssertionError(f"whisper frame counts differ: {ng} vs {nc}")
+    worst = 0.0
+    for i, t in enumerate(nc):
+        g_, c_ = fg[i, :t].cpu(), fc[i, :t]
+        worst = max(worst, float((g_ - c_).abs().max()))
+        if not torch.allclose(g_, c_, rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"whisper fbank lane {i}: card vs CPU beyond rtol 1e-4 atol 1e-3")
+    noise = dither_noise((16, 3000, 400), FbankConfig(dither=1.0), "cuda")
+    mean, std = float(noise.mean()), float(noise.std())
+    dcfg = FbankConfig(dither=1.0, input_scale=32768.0)
+    x = torch.from_numpy(batch).cuda()
+    feats = fbank_compute(x, dcfg, 300)
+    clean = fbank_compute(x, FbankConfig(input_scale=32768.0), 300)
+    log(f"[9] whisper fbank card vs CPU: max abs diff {worst:.3e} over {int(nc.sum())} frames; "
+        f"dither 1.0 on the card: noise mean {mean:.2e}, std {std:.5f} over {noise.numel()} "
+        f"draws; dithered - clean features std {float((feats[0] - clean[0]).std()):.3e} (lane 0)")
+    if abs(mean) > 5e-3 or abs(std - 1.0) > 5e-3:
+        raise AssertionError(f"dither noise mean {mean}, std {std}: not N(0, 1)")
+    if not bool(torch.isfinite(feats).all()) or torch.equal(feats, clean):
+        raise AssertionError("dithered features not finite or equal to the clean ones")
+    return launches
+
+
+def phase_convert():
+    """[10] A synthetic icefall-style ONNX dir (encoder, decoder, joiner,
+    tokens) from a full-width Zipformer2Config() random bundle of the port,
+    converted by convert_model_dir and loaded on the card: a 5 s utterance
+    decodes to the source bundle's tokens (f32), with 16 K1 launches.
+    Returns those launches and the host seconds."""
+    import tempfile
+
+    from k2transducerasr_tpu_torch.convert.importer import convert_model_dir, export_model_dir
+
+    src = ModelBundle.random("zipformer2", Zipformer2Config(), vocab_size=500, seed=0,
+                             device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_model_dir(src, os.path.join(tmp, "onnx"))
+        t1 = time.perf_counter()
+        convert_model_dir(os.path.join(tmp, "onnx"), os.path.join(tmp, "dir"))
+        t2 = time.perf_counter()
+        conv = ModelBundle.from_dir(os.path.join(tmp, "dir"), device="cuda")
+        t3 = time.perf_counter()
+        mb = os.path.getsize(os.path.join(tmp, "onnx", "encoder.onnx")) / 2**20
+        with open(os.path.join(tmp, "dir", "IMPORT_REPORT.txt")) as f:
+            report = f.read()
+    if "UNMAPPED" in report or "initial value" in report:
+        raise AssertionError(f"the full-width conversion left weights out:\n{report}")
+    pcm = [synth_pcm(5 * 16000, 101)]
+    res = []
+    for bundle in (src, conv):
+        rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+        reset_counts()
+        res.append(rec.get_results(streams_for(rec, pcm))[0])
+        counts = read_counts()
+    launches = counts["relpos_attn_probs"]
+    log(f"[10] convert: full-width zipformer2 export {t1 - t0:.2f} s (encoder.onnx {mb:.0f} MiB),"
+        f" convert_model_dir {t2 - t1:.2f} s, from_dir on the card {t3 - t2:.2f} s (host); "
+        f"{report.splitlines()[0]}; converted dir on the card, f32: {len(res[1].tokens)} tokens, "
+        f"identical to the source bundle's: {res[0].tokens == res[1].tokens}; launches {counts}")
+    if (res[0].tokens, res[0].timestamps) != (res[1].tokens, res[1].timestamps):
+        raise AssertionError("the converted dir decodes other tokens than its source bundle")
+    if counts != {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"], "relpos_attn_ctx": 0}:
+        raise AssertionError(f"the converted dir's decode launched {counts}")
+    return launches, t2 - t1
 
 
 def _family_sums(rows) -> dict:
@@ -1076,7 +1341,15 @@ def main() -> int:
     launches_beam = phase_main_path("zipformer2", BEAM)
     streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
     streaming_beam = phase_streaming_main_path("zipformer2", BEAM)
-    print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam]}), flush=True)
+    for family in INT8_FAMILIES:
+        phase_int8_vs_cpu(family)
+    launches_int8 = {family: phase_main_path(family, accuracy="int8") for family in INT8_FAMILIES}
+    streaming_int8 = phase_streaming_main_path("zipformer2", accuracy="int8")
+    int_mm = phase_int_mm(bw)
+    ingest_launches = phase_ingest()
+    converted_launches, convert_s = phase_convert()
+    print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
+                      "int_mm": int_mm, "convert_host_s": convert_s}), flush=True)
 
     def paths(family):
         return {"offline": launches[family], "streaming": streaming[family]["launches"],
@@ -1088,7 +1361,10 @@ def main() -> int:
                     streaming_ctc=streaming["zipformer2ctc"]["launches"],
                     zipformer_offline=launches["zipformer"],
                     zipformer_streaming=streaming["zipformer"]["launches"],
-                    **{f"zipformer_{k}": n for k, n in pins["zipformer"].items()})
+                    **{f"zipformer_{k}": n for k, n in pins["zipformer"].items()},
+                    int8_offline=launches_int8["zipformer2"],
+                    int8_streaming=streaming_int8["launches"],
+                    ingest_pin=ingest_launches, converted_offline=converted_launches)
 
     kernels = [
         kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
@@ -1101,13 +1377,18 @@ def main() -> int:
                     "ZipformerConfig() batch, 15 calls at H=8 qd=24 (T = 1532 ... 192), and "
                     "one step of 16 lanes of ZipformerConfig(causal=True), 15 calls at "
                     "(T, S) = (16, 80) ... (2, 10); its offline, streaming and pin launches are "
-                    "the zipformer_* paths; library_ms null: no PyTorch call returns rel-pos "
-                    "probs"),
+                    "the zipformer_* paths; int8_offline and int8_streaming: the same main "
+                    "paths under accuracy='int8' (its K1 shapes unchanged); ingest_pin: the "
+                    "zipformer2 pin dir's two decodes in [9]; converted_offline: one 5 s "
+                    "decode of the converted full-width dir in [10]; library_ms null: no "
+                    "PyTorch call returns rel-pos probs"),
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
-                    "k2transducerasr_tpu/ops/attention_pallas.py:242", paths("conformer"),
+                    "k2transducerasr_tpu/ops/attention_pallas.py:242",
+                    dict(paths("conformer"), int8_offline=launches_int8["conformer"]),
                     k2_rows, k2_worst,
                     "one conformer flagship batch (16 x 30 s): 12 calls at B=16 T=S=767 H=8 "
-                    "d=64 bf16; streaming: one step of 16 lanes of ConformerConfig(causal=True),"
+                    "d=64 bf16 (int8_offline: the same under accuracy='int8'); streaming: one "
+                    "step of 16 lanes of ConformerConfig(causal=True),"
                     " 12 calls at T=16 S=80; library_ms: scaled_dot_product_attention with the "
                     "skewed position bias precomputed (not timed)"),
     ]

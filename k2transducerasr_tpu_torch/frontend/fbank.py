@@ -11,10 +11,14 @@ so the chain is pre-composed (numpy, float64, then float32) into one
 
 Both matmuls are true float32: TF32 is turned off around them on the card
 (``runtime.device.exact_f32``), as the reference keeps them at
-``precision=HIGHEST``.
+``precision=HIGHEST``.  With dither > 0, ``dither * N(0, 1)`` noise from an
+explicit ``torch.Generator`` is added to the frames before the first
+matmul (the reference draws it from ``jax.random``: the same distribution,
+other values).
 
-``OnlineFbank`` is the streaming front: a host sample buffer whose completed
-frames go through the same ``fbank_compute``.
+``FbankExtractor`` is the batched whole-buffer front; ``OnlineFbank`` the
+streaming one: a host sample buffer whose completed frames go through the
+same ``fbank_compute``.
 """
 
 from __future__ import annotations
@@ -70,6 +74,13 @@ class FbankConfig:
                 p *= 2
             return p
         return n
+
+    @classmethod
+    def whisper(cls, sample_rate: int = 16000) -> "FbankConfig":
+        """The reference's whisper front: hanning window, 80 mels,
+        snip_edges=False."""
+        return cls(sample_rate=sample_rate, window_type="hanning", num_mel_bins=80,
+                   snip_edges=False)
 
 
 def num_frames_for(num_samples: int, cfg: FbankConfig) -> int:
@@ -198,17 +209,27 @@ def _reflected_frames(x: torch.Tensor, cfg: FbankConfig, num_frames: int,
     return torch.gather(x, 1, idx.reshape(x.shape[0], -1)).reshape(idx.shape)
 
 
+def dither_noise(shape, cfg: FbankConfig, device,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """``cfg.dither * N(0, 1)`` float32 noise of ``shape`` on ``device``,
+    drawn from ``generator`` (a generator on ``device``); by default a fresh
+    one seeded with 0, as the reference's default key is ``PRNGKey(0)``."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return cfg.dither * torch.randn(shape, generator=generator, dtype=torch.float32,
+                                    device=device)
+
+
 def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
-                  n_valid: torch.Tensor | None = None, tables=None) -> torch.Tensor:
+                  n_valid: torch.Tensor | None = None, tables=None,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """samples: [B, N] float32 -> feats [B, num_frames, num_mel_bins].
 
     n_valid: [B] true sample counts — used when snip_edges=False (frame
     centring reflects at the true signal boundaries).  tables: (dft, mel)
-    tensors on the samples' device, as ``fbank_matrices`` gives them."""
-    if cfg.dither > 0.0:
-        raise NotImplementedError(
-            "dither > 0 is not ported yet (ROADMAP: dither); use dither=0"
-        )
+    tensors on the samples' device, as ``fbank_matrices`` gives them.
+    generator: the source of the dither noise (cfg.dither > 0,
+    ``dither_noise``)."""
     if tables is None:
         tables = tuple(torch.from_numpy(m).to(samples.device) for m in fbank_matrices(cfg))
     dft, mel = tables
@@ -219,6 +240,8 @@ def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
         if n_valid is None:
             n_valid = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64)
         frames = _reflected_frames(x, cfg, num_frames, n_valid)
+    if cfg.dither > 0.0:
+        frames = frames + dither_noise(frames.shape, cfg, frames.device, generator)
     with exact_f32():
         spec = torch.matmul(frames, dft)
         n_bins = dft.shape[1] // 2
@@ -229,6 +252,40 @@ def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
     if cfg.use_log_fbank:
         feats = torch.log(torch.clamp(feats, min=_EPS))
     return feats
+
+
+class FbankExtractor:
+    """Batched whole-buffer fbank on ``device``.  (The reference pads the
+    frame axis to 64-frame buckets to bound XLA recompiles; the port
+    computes exactly the frames the longest buffer has.)"""
+
+    def __init__(self, cfg: FbankConfig, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._tables = tuple(torch.from_numpy(m).to(self.device) for m in fbank_matrices(cfg))
+
+    def __call__(self, samples: np.ndarray, n_valid=None,
+                 generator: torch.Generator | None = None):
+        """samples: [B, N] or [N] float32 -> (feats [B, T, M] on the device,
+        n_frames [B] int32 numpy), T the most frames of any buffer; a
+        lane's frames past its ``n_frames`` are not part of the result.
+        For [N], (feats [T, M], n_frames int)."""
+        cfg = self.cfg
+        samples = np.asarray(samples, np.float32)
+        squeeze = samples.ndim == 1
+        if squeeze:
+            samples = samples[None, :]
+        b, n = samples.shape
+        if n_valid is None:
+            n_valid = np.full((b,), n, dtype=np.int32)
+        n_frames = np.array([num_frames_for(int(v), cfg) for v in n_valid], dtype=np.int32)
+        t = int(n_frames.max(initial=0))
+        x = torch.from_numpy(samples).to(self.device)
+        lens = torch.from_numpy(np.asarray(n_valid, np.int64)).to(self.device)
+        feats = fbank_compute(x, cfg, t, n_valid=lens, tables=self._tables, generator=generator)
+        if squeeze:
+            return feats[0], int(n_frames[0])
+        return feats, n_frames
 
 
 class OnlineFbank:

@@ -298,7 +298,7 @@ class Conformer(ParamTree):
         return forward(self, self.cfg, x, x_lens, compute_dtype)
 
     def init_state(self, batch: int) -> dict:
-        return init_state(self.cfg, batch, self.subsample["out"]["w"].device)
+        return init_state(self.cfg, batch, self.subsample["conv1"]["w"].device)
 
     def streaming_step(self, state: dict, x_chunk, compute_dtype=None):
         return streaming_step(self, self.cfg, state, x_chunk, compute_dtype)

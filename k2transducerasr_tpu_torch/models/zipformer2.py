@@ -313,7 +313,10 @@ def _project_keys(p, cfg: Zipformer2Config, si: int, x, compute_dtype):
     which join the key cache)."""
     heads, qd = cfg.num_heads[si], cfg.query_head_dim
     sl = slice(heads * qd, 2 * heads * qd)
-    sub = {"w": p["in_proj"]["w"][:, sl]}
+    if "w_q8" in p["in_proj"]:  # int8: the key columns and their scales
+        sub = {"w_q8": p["in_proj"]["w_q8"][:, sl], "w_scale": p["in_proj"]["w_scale"][sl]}
+    else:
+        sub = {"w": p["in_proj"]["w"][:, sl]}
     if "b" in p["in_proj"]:
         sub["b"] = p["in_proj"]["b"][sl]
     return L.apply_linear(sub, x, compute_dtype)

@@ -9,6 +9,12 @@ Conventions (as in the reference):
     cast to; products accumulate in float32, the bias is added in float32,
     and the result is cast back to ``compute_dtype``.
 
+A linear whose tree holds ``w_q8``/``w_scale`` (``quantize_tree_int8``)
+runs in int8: per-token symmetric activation scales, an int8 x int8 ->
+int32 product (``torch._int_mm``: cuBLASLt on the card), then the scales and
+the bias in float32 — the reference's ``accuracy="int8"`` mode, whose
+product XLA computes (no Pallas kernel).
+
 One rounding differs from the reference under bf16: ``apply_linear`` takes
 PyTorch's bf16 matmul, whose float32 accumulator is rounded to bf16 before
 the float32 bias add (the reference rounds once, after the add).  That is a
@@ -78,12 +84,104 @@ def _cast(x: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def apply_linear(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) — see the module docstring for the
-    bf16 rounding."""
+    bf16 rounding and the int8 form."""
+    if "w_q8" in p:
+        return _apply_linear_int8(p, x, compute_dtype)
     w = p["w"]
     if compute_dtype is None:
         y = torch.matmul(x.to(w.dtype), w)
     else:
         y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).float()
+    if "b" in p:
+        y = y + p["b"]
+    return _cast(y, compute_dtype)
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, correctly rounded on every device, as the reference
+    quantizes its weights (eagerly).  (On CUDA, dividing by a Python number
+    multiplies by its rounded reciprocal, one float32 ulp off for some x; a
+    tensor divisor divides.)"""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
+def _mul_inv127(x: torch.Tensor) -> torch.Tensor:
+    """x * float32(1/127): the reference's activation scale, which XLA
+    compiles from ``amax / 127.0`` into this product; exactly rounded on
+    every device."""
+    return x * torch.full((), 1.0 / 127.0, dtype=x.dtype, device=x.device)
+
+
+def quantize_linear_int8(p) -> dict:
+    """{"w": [in, out], ...} -> {"w_q8": int8 [in, out], "w_scale": [out]
+    float32, ...}: symmetric per-output-channel weights, a zero scale taken
+    as 1, round half to even, clipped to +-127.  On the tree's own device;
+    ``w_q8`` is stored column-major, the layout ``int8_matmul`` wants."""
+    w = p["w"]
+    scale = _div127(torch.amax(torch.abs(w), dim=0))
+    scale = torch.where(scale == 0, 1.0, scale)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    out = {"w_q8": _col_major(q), "w_scale": scale.float()}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_tree_int8(tree, min_size: int = 4096):
+    """Every linear-shaped node ({"w": 2-D, at least ``min_size``
+    elements}) of a tree of dicts and lists of tensors, quantized by
+    ``quantize_linear_int8``; conv weights (more than 2-D), small
+    projections and other leaves stay as they are."""
+    if isinstance(tree, dict):
+        w = tree.get("w")
+        if isinstance(w, torch.Tensor) and w.ndim == 2 and w.numel() >= min_size:
+            return quantize_linear_int8(tree)
+        return {k: quantize_tree_int8(v, min_size) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [quantize_tree_int8(v, min_size) for v in tree]
+    return tree
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _col_major(b: torch.Tensor) -> torch.Tensor:
+    """The same matrix stored column-major (a no-op if it is already)."""
+    return b.t().contiguous().t()
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 -> int32 [M, N] by ``torch._int_mm``.
+    On the card (cuBLASLt) it takes more than 16 rows and K, N multiples of
+    8, and with a row-major ``b`` it refuses many shapes whose M is not a
+    multiple of 32 (measured on an H100, torch 2.11); with a column-major
+    ``b`` it took every shape tried.  So ``a`` goes row-major and ``b``
+    column-major, both zero-padded to M >= 24 and M, K, N multiples of 8 —
+    exact, since the padded rows and columns add zeros — and the result is
+    cut back.  The same padding runs on every device."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(_round_up(m, 8), 24), _round_up(k, 8), _round_up(n, 8)
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a.contiguous(), _col_major(b))[:m, :n]
+
+
+def _apply_linear_int8(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """(q(x) @ w_q8) * x_scale * w_scale + b with dynamic per-token
+    activation scales ``amax/127`` (a zero amax taken as 1; as the compiled
+    reference rounds it, ``_mul_inv127``), all in float32 as the reference
+    computes it, then cast to ``compute_dtype``."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    xs = _mul_inv127(torch.where(amax == 0, 1.0, amax))
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    w_q8 = p["w_q8"]
+    y = int8_matmul(xq.reshape(-1, xq.shape[-1]), w_q8).reshape(*x.shape[:-1], w_q8.shape[1])
+    y = y.float() * xs * p["w_scale"]
     if "b" in p:
         y = y + p["b"]
     return _cast(y, compute_dtype)

@@ -1,11 +1,12 @@
-"""ModelBundle: everything a recognizer needs, loadable from a model dir —
-port of ``k2transducerasr_tpu/runtime/bundle.py``.  The encoder and either
-the decoder and joiner (a transducer) or the CTC head (a ``*ctc`` model
-type) are ``nn.Module``s on one device."""
+"""ModelBundle: everything a recognizer needs, loadable from and saved to a
+model dir — port of ``k2transducerasr_tpu/runtime/bundle.py``.  The encoder
+and either the decoder and joiner (a transducer) or the CTC head (a ``*ctc``
+model type) are ``nn.Module``s on one device."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -16,6 +17,7 @@ from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.registry import get_encoder, is_ctc
+from k2transducerasr_tpu_torch.ops.layers import quantize_tree_int8
 from k2transducerasr_tpu_torch.runtime import checkpoint
 from k2transducerasr_tpu_torch.runtime.device import resolve_device
 from k2transducerasr_tpu_torch.text.symbol_table import SymbolTable
@@ -102,6 +104,36 @@ class ModelBundle:
             device=dev,
             **heads,
         )
+
+    def save(self, model_dir: str) -> None:
+        """Write config.json, params.npz and tokens.txt as the JAX package's
+        ``ModelBundle.save`` does; the parameters come back to the host."""
+        os.makedirs(model_dir, exist_ok=True)
+        checkpoint.save_config(
+            os.path.join(model_dir, "config.json"),
+            self.model_type,
+            {
+                "encoder": self.encoder_cfg,
+                "decoder": self.decoder_cfg,
+                "joiner": self.joiner_cfg,
+                "ctc": self.ctc_cfg,
+                "frontend": self.frontend_cfg,
+            },
+        )
+        heads = ("ctc",) if self.is_ctc else ("decoder", "joiner")
+        params = {"encoder": self.encoder.tree(), **{h: getattr(self, h).tree() for h in heads}}
+        checkpoint.save_params(os.path.join(model_dir, "params.npz"),
+                               checkpoint.tree_to_numpy(params))
+        with open(os.path.join(model_dir, "tokens.txt"), "w", encoding="utf-8") as f:
+            for i in range(len(self.tokens)):
+                f.write(f"{self.tokens[i]} {i}\n")
+
+    def int8_encoder(self) -> torch.nn.Module:
+        """The encoder with its linears quantized by ``quantize_tree_int8``
+        (``accuracy="int8"``), built on the bundle's device from its
+        tensors; the leaves that stay float are shared with ``encoder``."""
+        qtree = quantize_tree_int8(self.encoder.tree())
+        return get_encoder(self.model_type).Encoder(self.encoder_cfg, qtree, self.device)
 
     @classmethod
     def random(cls, model_type: str, encoder_cfg, vocab_size: int, seed: int = 0,

@@ -1,6 +1,7 @@
-"""Param persistence (.npz with dotted-path keys) + model config JSON, the
-one bridge from a numpy parameter tree to the port's modules, and the
-bridge for a stream's state between the JAX package's snapshot layout and
+"""Param persistence (.npz with dotted-path keys) + model config JSON, read
+and written as the JAX package does; the one bridge from a numpy parameter
+tree to the port's modules (and back, ``ParamTree.tree``); and the bridge
+for a stream's state between the JAX package's snapshot layout and
 the port's tensors (``state_from_numpy``/``state_to_numpy``).
 
 A model directory holds
@@ -70,6 +71,37 @@ def unflatten_params(flat: dict[str, np.ndarray]) -> Any:
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
+
+
+def save_params(path: str, tree: Any, dtype: str = "float32") -> None:
+    """Write a numpy tree as params.npz, as the JAX package writes it.
+    ``dtype="int8"``: each float leaf of >= 2 dims and >= 1024 elements is
+    stored as ``key::q8`` (int8) and ``key::scale`` (one symmetric float32
+    scale per tensor), which ``load_params`` dequantizes.  A ``None`` node
+    is written as a 0-d object member."""
+    flat = flatten_params(tree)
+    if dtype == "int8":
+        out: dict[str, np.ndarray] = {}
+        for k, v in flat.items():
+            if v.dtype.kind == "f" and v.ndim >= 2 and v.size >= 1024:
+                scale = np.abs(v).max() / 127.0 or 1.0
+                out[k + "::q8"] = np.round(v / scale).astype(np.int8)
+                out[k + "::scale"] = np.float32(scale)
+            else:
+                out[k] = v
+        flat = out
+    np.savez(path, **flat)
+
+
+def save_config(path: str, model_type: str, configs: dict[str, Any]) -> None:
+    """configs: {"encoder": EncoderConfig, "decoder": ..., "joiner": ...,
+    "ctc": ..., "frontend": FbankConfig} (None values skipped)."""
+    payload: dict[str, Any] = {"model_type": model_type}
+    for name, cfg in configs.items():
+        if cfg is not None:
+            payload[name] = dataclasses.asdict(cfg)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
 
 
 def _object_members(path: str) -> dict[str, tuple]:
@@ -145,10 +177,13 @@ class ParamTree(nn.Module):
     modules, lists of dicts become ``nn.ModuleList``s (a ``None`` entry stays
     ``None``: an empty slot, absent from the ``state_dict``), arrays become
     frozen ``nn.Parameter``s.  ``node["key"]`` and ``"key" in node`` work as
-    on the JAX package's dicts, so the model code reads like the reference."""
+    on the JAX package's dicts, so the model code reads like the reference.
+    Leaves may be numpy arrays (copied) or tensors (kept, moved to
+    ``device`` if need be)."""
 
     def __init__(self, tree: dict, device: torch.device | str = "cpu"):
         super().__init__()
+        self._keys = tuple(tree)
         for key, value in tree.items():
             if isinstance(value, dict):
                 self.add_module(key, ParamTree(value, device))
@@ -158,11 +193,22 @@ class ParamTree(nn.Module):
                 self.add_module(key, nn.ModuleList(None if v is None else ParamTree(v, device)
                                                    for v in value))
             else:
-                t = torch.from_numpy(np.array(value, copy=True)).to(device)
+                t = (value.detach() if isinstance(value, torch.Tensor)
+                     else torch.from_numpy(np.array(value, copy=True))).to(device)
                 self.register_parameter(key, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def tree(self) -> dict:
+        """The tree this node holds, as dicts and lists of its tensors (a
+        ``None`` slot stays ``None``), in the order it was built from."""
+        def node(v):
+            if isinstance(v, nn.ModuleList):
+                return [None if m is None else m.tree() for m in v]
+            return v.tree() if isinstance(v, ParamTree) else v.detach()
+
+        return {k: node(getattr(self, k)) for k in self._keys}
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
@@ -219,6 +265,12 @@ def state_from_numpy(tree, device: torch.device | str = "cpu"):
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
     t = torch.from_numpy(np.array(a, copy=True))
     return (t.long() if t.dtype == torch.int32 else t).to(device)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (``ParamTree.tree()``) -> the same tree of numpy
+    arrays on the host; ``None`` stays ``None``."""
+    return tree_map(lambda t: None if t is None else t.cpu().numpy(), tree)
 
 
 def state_to_numpy(tree):

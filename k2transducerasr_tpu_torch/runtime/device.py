@@ -44,7 +44,6 @@ def exact_f32():
 # options of the JAX package's recognizers that the port does not run yet,
 # and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "accuracy='int8'": "ROADMAP 'Still to port' item 2: int8",
     "mesh": "ROADMAP 'Still to port' item 7: parallelism",
 }
 

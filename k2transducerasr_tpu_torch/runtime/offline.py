@@ -10,7 +10,8 @@ Per batch: int16 PCM -> fbank -> encoder -> one of
   * ``greedy_search_ctc`` (forced for a CTC model type): CTC head ->
     vectorised CTC greedy,
 all on the bundle's device; the host reads back only the token buffers.
-``mesh`` and ``accuracy="int8"`` are not ported yet and raise.
+``accuracy="int8"`` runs the encoder's linears in int8
+(``ModelBundle.int8_encoder``).  ``mesh`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -121,9 +122,7 @@ class OfflineRecognizer:
             raise ValueError("hotwords require decoding_method='modified_beam_search'")
         if mesh is not None:
             raise not_ported("mesh")
-        if accuracy == "int8":
-            raise not_ported("accuracy='int8'")
-        if accuracy not in (None, "auto", "float32"):
+        if accuracy not in (None, "auto", "float32", "int8"):
             raise ValueError(f"unsupported accuracy {accuracy!r}")
         dev = resolve_device(device)
         if dev != bundle.device:
@@ -133,6 +132,9 @@ class OfflineRecognizer:
             )
         self.bundle = bundle
         self.device = dev
+        self.accuracy = accuracy
+        # accuracy="int8": the encoder's linears quantized once, here
+        self.encoder = bundle.int8_encoder() if accuracy == "int8" else bundle.encoder
         self.decoding_method = decoding_method
         self.compute_dtype = compute_dtype
         self.max_tokens = max_tokens
@@ -251,7 +253,7 @@ class OfflineRecognizer:
         """fbank and encoder: -> (enc_out [B, T', D], enc_lens [B])."""
         with torch.inference_mode(), self._precision():
             feats, feat_lens = self.features(samples, sample_counts)
-            return self.bundle.encoder(feats, feat_lens, self.compute_dtype)
+            return self.encoder(feats, feat_lens, self.compute_dtype)
 
     def _decode(self, samples, sample_counts):
         """-> (tokens, timestamps, count) of each lane's best hypothesis and

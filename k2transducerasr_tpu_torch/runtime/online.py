@@ -26,7 +26,8 @@ non-blocking on the card), recording an event; ``end_step`` waits on it.  A
 later step never writes what a pending handle reads, so a serving loop may
 call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
 
-``accuracy="int8"`` and ``mesh`` are not ported yet and raise.
+``accuracy="int8"`` runs the encoder's linears in int8
+(``ModelBundle.int8_encoder``).  ``mesh`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from k2transducerasr_tpu_torch import native
 from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute, fbank_matrices
 from k2transducerasr_tpu_torch.models import ctc as ctc_mod
@@ -64,12 +66,15 @@ class OnlineRecognizerResult:
 
 class OnlineStream:
     """Host half of a stream: a raw-sample buffer and a lane of the
-    recognizer's pool, where its decode state lives."""
+    recognizer's pool, where its decode state lives.  The buffer is the
+    native ring buffer when the native library is built
+    (``native.available()``), else numpy; both give the same windows."""
 
     def __init__(self, recognizer: "OnlineRecognizer", lane: int):
         self._rec = recognizer
         self.lane = lane
-        self._buf = np.zeros(0, np.float32)
+        self._rb = native.RingBuffer() if native.available() else None
+        self._buf = np.zeros(0, np.float32)  # the numpy fallback
         self._consumed = 0  # samples already consumed (hops)
         self.finished_input = False
         self.is_finished = False  # fully drained after input_finished
@@ -78,7 +83,7 @@ class OnlineStream:
     def add_samples(self, samples: np.ndarray) -> None:
         if self.finished_input:
             raise RuntimeError("add_samples after input_finished")
-        self._buf = np.concatenate([self._buf, np.asarray(samples, np.float32)])
+        self._push(np.asarray(samples, np.float32))
 
     def input_finished(self) -> None:
         """Declare the end of audio; pads zeros so every remaining frame
@@ -88,24 +93,41 @@ class OnlineStream:
         self.finished_input = True
         win, hop = self._rec.window_samples, self._rec.hop_samples
         # pad so that at least one more full window exists past current data
-        n = len(self._buf)
+        n = self._size()
         k = max(0, -(-max(n - win, 0) // hop)) + 1
         need = win + k * hop
         if need > n:
-            self._buf = np.concatenate([self._buf, np.zeros(need - n, np.float32)])
+            self._push(np.zeros(need - n, np.float32))
 
     AddSamples = add_samples
     InputFinished = input_finished
 
+    def _push(self, x: np.ndarray) -> None:
+        if self._rb is not None:
+            self._rb.push(x)
+        else:
+            self._buf = np.concatenate([self._buf, x])
+
+    def _size(self) -> int:
+        return len(self._rb) if self._rb is not None else len(self._buf)
+
+    def _samples(self) -> np.ndarray:
+        """Every buffered sample (a copy)."""
+        return self._rb.window(self._size()) if self._rb is not None else self._buf.copy()
+
     def _ready(self) -> bool:
-        return not self.is_finished and len(self._buf) >= self._rec.window_samples
+        return not self.is_finished and self._size() >= self._rec.window_samples
 
     def _take_window(self) -> np.ndarray:
         win, hop = self._rec.window_samples, self._rec.hop_samples
-        out = self._buf[:win]
-        self._buf = self._buf[hop:]
+        if self._rb is not None:
+            out = self._rb.window(win)
+            self._rb.advance(hop)
+        else:
+            out = self._buf[:win]
+            self._buf = self._buf[hop:]
         self._consumed += hop
-        if self.finished_input and len(self._buf) < win:
+        if self.finished_input and self._size() < win:
             self.is_finished = True
         return out
 
@@ -140,9 +162,7 @@ class OnlineRecognizer:
             raise ValueError("hotwords require decoding_method='modified_beam_search'")
         if mesh is not None:
             raise not_ported("mesh")
-        if accuracy == "int8":
-            raise not_ported("accuracy='int8'")
-        if accuracy not in (None, "auto", "float32"):
+        if accuracy not in (None, "auto", "float32", "int8"):
             raise ValueError(f"unsupported accuracy {accuracy!r}")
         if windows_per_step < 1:
             raise ValueError("windows_per_step must be >= 1")
@@ -154,6 +174,9 @@ class OnlineRecognizer:
             )
         self.bundle = bundle
         self.device = dev
+        self.accuracy = accuracy
+        # accuracy="int8": the encoder's linears quantized once, here
+        self.encoder = bundle.int8_encoder() if accuracy == "int8" else bundle.encoder
         self.decoding_method = decoding_method
         self.compute_dtype = compute_dtype
         self.max_lanes = max_lanes
@@ -300,7 +323,7 @@ class OnlineRecognizer:
             "enc": state_to_numpy(tree_map(pick, self._enc_state)),
             "dec": state_to_numpy(tree_map(pick, self._dec_state)),
             "frames": int(self._frame_count[lane]),
-            "buffer": stream._buf.copy(),
+            "buffer": stream._samples(),
             "consumed": stream._consumed,
             "finished_input": stream.finished_input,
         }
@@ -315,7 +338,7 @@ class OnlineRecognizer:
         tree_map(lambda pool, v: pool[lane].copy_(v), self._enc_state, enc)
         tree_map(lambda pool, v: pool[lane].copy_(v), self._dec_state, dec)
         self._frame_count[lane] = int(snapshot["frames"])
-        stream._buf = np.asarray(snapshot["buffer"], np.float32).copy()
+        stream._push(np.asarray(snapshot["buffer"], np.float32))
         stream._consumed = snapshot["consumed"]
         stream.finished_input = snapshot["finished_input"]
         return stream
@@ -402,7 +425,7 @@ class OnlineRecognizer:
             state = tree_map(lambda a: a.index_select(0, idx), self._enc_state)
             feats = fbank_compute(samples[rows, k].float() * (1.0 / 32768.0), b.frontend_cfg,
                                   self._feat_window, tables=self._fbank_tables)
-            out, new_state = self._enc.streaming_step(b.encoder, b.encoder_cfg, state, feats, cd)
+            out, new_state = self._enc.streaming_step(self.encoder, b.encoder_cfg, state, feats, cd)
             tree_map(lambda pool, v: pool.index_copy_(0, idx, v.to(pool.dtype)),
                      self._enc_state, new_state)
             if enc_out is None:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 the searches (beam and CTC) on CUDA tensors against their CPU runs, the
-zipformer v1 and LSTM pin dirs on the card, and the LSTM's cuDNN recurrence
-against its CPU run.
+zipformer v1 and LSTM pin dirs on the card, the LSTM's cuDNN recurrence
+against its CPU run, and int8 (``torch._int_mm`` through its padding, the
+recognizers under ``accuracy="int8"``), the native wav route and a
+converted model dir on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -21,7 +23,8 @@ log-probs over up to 40 frames reaching |score| ~ 130, to rtol 1e-5 plus
 atol 1e-4 (summation order of the log-softmax on the card: a few float32
 ulps per frame).  LSTM: float32 encoder output to atol 1e-5 with TF32 off
 (cuDNN against ATen's loop: summation order), bf16 to atol 0.05 (bf16
-linears that may round one ulp apart, over LayerNorm outputs).
+linears that may round one ulp apart, over LayerNorm outputs).  int8: the
+int32 product exactly; tokens and timestamps exactly.
 """
 
 import os
@@ -494,3 +497,143 @@ def test_lstm_cudnn_equals_cpu(cuda):
         torch.testing.assert_close(g, c, atol=1e-5, rtol=0)
     for key in ("h", "c"):
         torch.testing.assert_close(stg[key], stc[key], atol=1e-5, rtol=0)
+
+
+# -- int8, ingest and the converter on the card ------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3, 5), (17, 8, 8), (24, 16, 9), (40, 33, 64),
+                                   (24, 64, 96), (125, 64, 96), (48, 96, 192),
+                                   (5, 512, 1536), (3072, 1536, 512)])
+def test_int8_matmul_on_the_card_equals_cpu(cuda, m, k, n):
+    """torch._int_mm through int8_matmul's zero padding (few rows, K and N
+    not multiples of 8) and a column slice of the weight, including shapes
+    cuBLASLt refuses with a row-major weight (M not a multiple of 32, K <=
+    96, N >= 32): the card's int32 product equals the CPU's exactly."""
+    from k2transducerasr_tpu_torch.ops.layers import int8_matmul
+
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (k, 2 * n), dtype=np.int8))[:, n:]
+    got = int8_matmul(a.cuda(), b.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), int8_matmul(a, b))
+
+
+def test_int8_quantization_on_the_card_is_bit_equal_to_cpu(cuda):
+    """w_q8 and w_scale quantized on the card, and a linear's int8 output,
+    equal the CPU's bit for bit (the scales divide by 127 correctly rounded
+    on both)."""
+    from k2transducerasr_tpu_torch.ops import layers as L
+
+    rng = np.random.default_rng(8)
+    p = {"w": torch.from_numpy((rng.standard_normal((512, 1536)) / 23).astype(np.float32)),
+         "b": torch.from_numpy(rng.standard_normal(1536).astype(np.float32))}
+    x = torch.from_numpy((3 * rng.standard_normal((500, 512))).astype(np.float32))
+    q_cpu = L.quantize_linear_int8(p)
+    q_gpu = L.quantize_linear_int8({k: v.cuda() for k, v in p.items()})
+    for k in ("w_q8", "w_scale", "b"):
+        assert torch.equal(q_gpu[k].cpu(), q_cpu[k]), k
+    got = L.apply_linear(q_gpu, x.cuda()).cpu()
+    torch.testing.assert_close(got, L.apply_linear(q_cpu, x), atol=1e-5, rtol=0)
+
+
+# a small zipformer2 whose linears min_size=4096 quantizes (its pin dir has none)
+INT8_Z2 = dict(num_encoder_layers=(1, 1), encoder_dims=(64, 96), downsampling_factors=(1, 2),
+               num_heads=(2, 2), feedforward_dims=(128, 192), cnn_module_kernels=(7, 7),
+               query_head_dim=8, value_head_dim=4, pos_head_dim=2, pos_dim=8,
+               embed_channels=(2, 4, 8), causal=True, chunk_size=8, left_context_frames=16)
+
+
+def _int8_bundle(family, dev):
+    if family == "zipformer2":
+        from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+
+        return ModelBundle.random("zipformer2", Zipformer2Config(**INT8_Z2), vocab_size=32,
+                                  seed=3, decoder_dim=24, joiner_dim=20, device=dev)
+    return ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device=dev)
+
+
+@pytest.mark.parametrize("family", ["zipformer2", "conformer", "zipformer", "lstm"])
+def test_int8_recognizers_on_the_card_equal_cpu(cuda, family):
+    """accuracy="int8", float32: offline and online tokens and timestamps on
+    the card equal the CPU's (the pin dirs of conformer, v1 and the LSTM; a
+    small zipformer2 whose linears quantize)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bundle = _int8_bundle(family, dev)
+        rec = OfflineRecognizer(bundle, compute_dtype=None, accuracy="int8", device=dev)
+        assert any(k.endswith(".w_q8") for k in rec.encoder.state_dict())
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(6400))
+        r = rec.get_result(s)
+        online = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=2, accuracy="int8",
+                                  device=dev)
+        st = online.create_online_stream()
+        st.add_samples(_pcm(6400))
+        o = online.decode_to_end(st)
+        out[dev] = ((r.tokens, r.timestamps), (o.tokens, o.timestamps))
+    assert out["cuda"] == out["cpu"] and out["cpu"][0][0]
+
+
+def test_native_wav_route_equals_the_numpy_route(cuda, tmp_path):
+    """A 44.1 kHz stereo wav read and resampled by the native library and by
+    numpy decodes to the same tokens with the zipformer2 pin dir on the
+    card."""
+    import wave
+
+    from k2transducerasr_tpu_torch import native
+    from k2transducerasr_tpu_torch.audio import read_wav, resample_linear
+    from k2transducerasr_tpu_torch.audio.wav import _decode_pcm
+
+    if not native.available():
+        pytest.skip("native toolchain (g++) unavailable")
+    path = str(tmp_path / "a.wav")
+    x = np.stack([_pcm(44100, 1), _pcm(44100, 2)], 1)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    audio = read_wav(path)
+    with open(path, "rb") as f:
+        assert np.array_equal(native.wav_decode(f.read())[0], audio.samples)
+    routes = [native.resample_linear(audio.samples, 44100, 16000)]
+    with wave.open(path) as w:
+        routes.append(resample_linear(_decode_pcm(w.readframes(w.getnframes()), 2, 2),
+                                      44100, 16000))
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+    res = []
+    for pcm in routes:
+        s = rec.create_offline_stream()
+        s.add_samples(pcm)
+        res.append(rec.get_result(s))
+    assert (res[0].tokens, res[0].timestamps) == (res[1].tokens, res[1].timestamps)
+    assert res[0].tokens
+
+
+def test_converted_dir_decodes_on_the_card(cuda, tmp_path):
+    """A zipformer2 bundle exported as a synthetic ONNX dir, converted, and
+    loaded on the card decodes the source bundle's tokens, launching K1
+    once per layer."""
+    from k2transducerasr_tpu_torch.convert.importer import convert_model_dir, export_model_dir
+    from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+
+    cfg = Zipformer2Config(**{k: v for k, v in INT8_Z2.items()
+                              if k not in ("causal", "chunk_size", "left_context_frames")})
+    src = ModelBundle.random("zipformer2", cfg, vocab_size=32, seed=4, decoder_dim=24,
+                             joiner_dim=20, device="cuda")
+    export_model_dir(src, str(tmp_path / "onnx"))
+    convert_model_dir(str(tmp_path / "onnx"), str(tmp_path / "dir"))
+    conv = ModelBundle.from_dir(str(tmp_path / "dir"), device="cuda")
+    res = []
+    for bundle in (src, conv):
+        rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(6400))
+        before = AC.relpos_attn_probs.launches
+        res.append(rec.get_result(s))
+        assert AC.relpos_attn_probs.launches - before == sum(cfg.num_encoder_layers)
+    assert (res[0].tokens, res[0].timestamps) == (res[1].tokens, res[1].timestamps)
+    assert res[0].tokens

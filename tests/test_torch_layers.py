@@ -73,8 +73,13 @@ def test_fbank_tables_and_frame_counts_match_jax():
 
 
 def test_fbank_dither_raises():
-    with pytest.raises(NotImplementedError, match="dither"):
-        TF.fbank_compute(torch.zeros(1, 800), TF.FbankConfig(dither=1.0), 2)
+    """dither > 0 is ported (tests/test_torch_frontend.py): it no longer
+    raises NotImplementedError; a generator that is no torch.Generator
+    raises."""
+    feats = TF.fbank_compute(torch.zeros(1, 800), TF.FbankConfig(dither=1.0), 2)
+    assert feats.shape == (1, 2, 80) and bool(torch.isfinite(feats).all())
+    with pytest.raises(TypeError):
+        TF.fbank_compute(torch.zeros(1, 800), TF.FbankConfig(dither=1.0), 2, generator=0)
 
 
 @pytest.mark.parametrize("bias", [True, False])

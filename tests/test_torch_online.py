@@ -249,9 +249,9 @@ def test_snapshot_carries_a_stream_across_packages(bundles):
 
 def test_unported_options_raise_and_default_device_is_the_card(bundles, monkeypatch):
     tb = bundles["zipformer2"][1]
-    for kw in (dict(accuracy="int8"), dict(mesh=object())):  # not ported yet
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(bundles, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # not ported yet
+        _port(bundles, mesh=object())
+    assert _port(bundles, accuracy="int8").accuracy == "int8"  # ported: tests/test_torch_int8.py
     for kw in (dict(decoding_method="beam"), dict(accuracy="fp16")):
         with pytest.raises(ValueError, match="unsupported"):
             _port(bundles, **kw)
