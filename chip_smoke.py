@@ -50,7 +50,19 @@ Phases (any failure exits non-zero; none is caught):
      zipformer2 pin dir on the card), whisper features card vs CPU, dither's
      noise on the card;
  10. convert: a full-width zipformer2 bundle exported as a synthetic ONNX
-     dir, converted, loaded on the card: the source bundle's tokens.
+     dir, converted, loaded on the card: the source bundle's tokens;
+ 11. the CLI and the demos in this process (so the launches count): the
+     zipformer2 pin dir with the pin signal as a wav, offline (-batch multi)
+     and online, must print the pinned transcripts; ``convert`` on [10]'s
+     ONNX dir must exit 0;
+ 12. data and tensor parallelism on the one card: two ranks of this script
+     (``--parallel-rank``) in a gloo group passing CUDA tensors (NCCL
+     refuses two ranks on one device); TP on mesh 1x2 (zipformer2 and
+     conformer at full width, f32, 2 x 5 s) and DP on mesh 2x1 (zipformer2
+     offline, and streaming with 4 lanes) against one process: tokens and
+     timestamps identical, the TP encoder output within PAR_ATOL; per rank
+     the launches, peak memory and parameter bytes held.  With two cards or
+     more, the same over NCCL.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Needs one card; exits non-zero without CUDA.
 
@@ -69,6 +81,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1111,7 +1124,6 @@ def phase_ingest():
     gives the same tokens.  Then FbankConfig.whisper() features on the card
     against the CPU, and dither's noise on the card.  Returns the pin
     decodes' K1 launches."""
-    import tempfile
     import wave
 
     from k2transducerasr_tpu_torch import native
@@ -1185,29 +1197,27 @@ def phase_ingest():
     return launches
 
 
-def phase_convert():
+def phase_convert(tmp):
     """[10] A synthetic icefall-style ONNX dir (encoder, decoder, joiner,
     tokens) from a full-width Zipformer2Config() random bundle of the port,
-    converted by convert_model_dir and loaded on the card: a 5 s utterance
-    decodes to the source bundle's tokens (f32), with 16 K1 launches.
-    Returns those launches and the host seconds."""
-    import tempfile
-
+    written to ``tmp/onnx`` (kept for [11]), converted by convert_model_dir
+    and loaded on the card: a 5 s utterance decodes to the source bundle's
+    tokens (f32), with 16 K1 launches.  Returns those launches and the host
+    seconds."""
     from k2transducerasr_tpu_torch.convert.importer import convert_model_dir, export_model_dir
 
     src = ModelBundle.random("zipformer2", Zipformer2Config(), vocab_size=500, seed=0,
                              device="cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        export_model_dir(src, os.path.join(tmp, "onnx"))
-        t1 = time.perf_counter()
-        convert_model_dir(os.path.join(tmp, "onnx"), os.path.join(tmp, "dir"))
-        t2 = time.perf_counter()
-        conv = ModelBundle.from_dir(os.path.join(tmp, "dir"), device="cuda")
-        t3 = time.perf_counter()
-        mb = os.path.getsize(os.path.join(tmp, "onnx", "encoder.onnx")) / 2**20
-        with open(os.path.join(tmp, "dir", "IMPORT_REPORT.txt")) as f:
-            report = f.read()
+    t0 = time.perf_counter()
+    export_model_dir(src, os.path.join(tmp, "onnx"))
+    t1 = time.perf_counter()
+    convert_model_dir(os.path.join(tmp, "onnx"), os.path.join(tmp, "dir"))
+    t2 = time.perf_counter()
+    conv = ModelBundle.from_dir(os.path.join(tmp, "dir"), device="cuda")
+    t3 = time.perf_counter()
+    mb = os.path.getsize(os.path.join(tmp, "onnx", "encoder.onnx")) / 2**20
+    with open(os.path.join(tmp, "dir", "IMPORT_REPORT.txt")) as f:
+        report = f.read()
     if "UNMAPPED" in report or "initial value" in report:
         raise AssertionError(f"the full-width conversion left weights out:\n{report}")
     pcm = [synth_pcm(5 * 16000, 101)]
@@ -1227,6 +1237,308 @@ def phase_convert():
     if counts != {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"], "relpos_attn_ctx": 0}:
         raise AssertionError(f"the converted dir's decode launched {counts}")
     return launches, t2 - t1
+
+
+def _pin_wav(path):
+    """The pin signal (pin_pcm(6400)) as a 16 kHz 16-bit mono wav whose
+    samples are exact int16 values, so the PCM a recognizer decodes from it
+    is the pin signal's rounding."""
+    import wave
+
+    x = np.clip(np.round(pin_pcm(6400) * 32767), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(x.tobytes())
+
+
+def _captured(fn, *args):
+    """fn(*args) with its stdout captured: (its return value, the lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_cli(tmp) -> dict:
+    """[11] The port's CLI and demos in this process, on the card, as a user
+    runs them (bf16, the CLI's compute): ``-type offline -batch multi`` and
+    ``-type online`` on the zipformer2 pin dir with the pin signal as a wav
+    must print the pinned transcripts, the demos the same, and ``convert`` on
+    [10]'s synthetic ONNX dir must exit 0.  Returns each run's K1 launches."""
+    from k2transducerasr_tpu_torch.cli.main import main as cli_main
+    from k2transducerasr_tpu_torch.examples import offline_demo, online_demo
+
+    spec = FAMILIES["zipformer2"]
+    pin_dir = os.path.join(PIN_ROOT, "zipformer2_pin")
+    wav = os.path.join(tmp, "pin.wav")
+    _pin_wav(wav)
+    launches = {}
+    runs = [("cli_offline", cli_main, ["-base", pin_dir, "-type", "offline", "-batch", "multi",
+                                       "-files", wav], spec["pin_text"]),
+            ("cli_online", cli_main, ["-base", pin_dir, "-type", "online", "-files", wav],
+             spec["online_pin_text"]),
+            ("demo_offline", offline_demo.main, [pin_dir, wav], spec["pin_text"]),
+            ("demo_online", online_demo.main, [pin_dir, wav], spec["online_pin_text"])]
+    for name, fn, argv, pin in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, lines = _captured(fn, argv)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        # the online demo prints each partial after a carriage return
+        # (splitlines splits there): its final text is the line before the
+        # report's three lines and "end!"
+        text = lines[-5] if name == "demo_online" else lines[1]
+        log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}")
+        if rc not in (0, None) or text != pin:
+            raise AssertionError(f"[11] {name} printed {lines!r}; expected {pin!r}")
+        launches[name] = family_launches(f"[11] {name}", spec, counts)
+    t0 = time.perf_counter()
+    rc, lines = _captured(cli_main, ["convert", os.path.join(tmp, "onnx"),
+                                     os.path.join(tmp, "cli_dir")])
+    log(f"[11] cli convert of [10]'s full-width ONNX dir: exit {rc}, {lines[-1]!r}, "
+        f"{time.perf_counter() - t0:.2f} s host")
+    if rc != 0:
+        raise AssertionError(f"[11] cli convert exited {rc}")
+    return launches
+
+
+# [12] parallel on the one card: two ranks (processes) of this script
+PAR_PCMS = [(5 * 16000, 121), (5 * 16000, 122)]  # two 5 s utterances (synth_pcm)
+PAR_STREAMS = [(5 * 16000, 131 + i) for i in range(4)]  # four 5 s streams, 4 lanes
+PAR_ATOL = 1e-3  # the encoder output, TP against one process: float32 summation order
+PAR_TIMEOUT = 300
+
+
+def _par_offline(rec):
+    """One offline batch of PAR_PCMS: (tokens and timestamps, host ms), the
+    batch timed after a warm-up."""
+    pcms = [synth_pcm(n, seed) for n, seed in PAR_PCMS]
+    rec.get_results(streams_for(rec, pcms))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = rec.get_results(streams_for(rec, pcms))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [(r.tokens, r.timestamps) for r in res], ms
+
+
+def _par_streaming(rec):
+    """PAR_STREAMS buffered up front, get_results until no window is left,
+    then drained: (each stream's final tokens and timestamps, steps, host
+    ms)."""
+    streams = [rec.create_online_stream() for _ in PAR_STREAMS]
+    for s, (n, seed) in zip(streams, PAR_STREAMS):
+        s.add_samples(synth_pcm(n, seed))
+    reset_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    while any(s._ready() for s in streams):
+        rec.get_results(streams)
+        steps += 1
+    res = [rec.decode_to_end(s) for s in streams]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [(r.tokens, r.timestamps) for r in res], steps, ms
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a parameter tree's tensors (a ModelShard: its local slice)."""
+    from k2transducerasr_tpu_torch.parallel.sharding import ModelShard
+
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, ModelShard):
+        tree = tree.local
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def parallel_rank(job_path: str, rank: int) -> int:
+    """One rank of [12] (``chip_smoke.py --parallel-rank JOB RANK``): joins
+    the job's process group, runs TP on mesh 1x2 (zipformer2 and conformer,
+    full width, f32, offline) and DP on mesh 2x1 (zipformer2 offline and
+    streaming), and writes what each returned, its launches, peak memory
+    and parameter bytes to ``<out>.rank<rank>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from k2transducerasr_tpu_torch.parallel import distributed as D
+    from k2transducerasr_tpu_torch.parallel.sharding import make_mesh
+
+    with open(job_path) as f:
+        job = json.load(f)
+    dev = torch.device("cuda", rank if job["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if not D.initialize(job["init"], 2, rank, backend=job["backend"]):
+        raise AssertionError("initialize() returned False for 2 processes")
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        tp = make_mesh(1, 2)
+        for family in ("zipformer2", "conformer"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            bundle = ModelBundle.random(family, FAMILIES[family]["cfg"](), vocab_size=500,
+                                        seed=0, device=dev)
+            rec = OfflineRecognizer(bundle, compute_dtype=None, mesh=tp, device=dev)
+            res, ms = _par_offline(rec)
+            counts = read_counts()
+            enc, lens = rec.encode(*rec.pcm_batch(streams_for(
+                rec, [synth_pcm(n, seed) for n, seed in PAR_PCMS])))
+            out[f"tp_{family}"] = dict(
+                results=res, ms=ms, launches=counts, enc=enc.cpu().numpy(), lens=lens.cpu().numpy(),
+                peak=torch.cuda.max_memory_allocated(dev), held=_tree_bytes(rec.encoder.tree()),
+                whole=_tree_bytes(bundle.encoder.tree()))
+            del rec, bundle
+        dp = make_mesh(2, 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bundle = ModelBundle.random("zipformer2", Zipformer2Config(), vocab_size=500, seed=0,
+                                    device=dev)
+        res, ms = _par_offline(OfflineRecognizer(bundle, compute_dtype=None, mesh=dp, device=dev))
+        out["dp_offline"] = dict(results=res, ms=ms, launches=read_counts(),
+                                 peak=torch.cuda.max_memory_allocated(dev))
+        del bundle
+        bundle = ModelBundle.random("zipformer2", FAMILIES["zipformer2"]["stream_cfg"](),
+                                    vocab_size=500, seed=0, device=dev)
+        rec = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=len(PAR_STREAMS), mesh=dp,
+                               device=dev)
+        res, steps, ms = _par_streaming(rec)
+        out["dp_streaming"] = dict(results=res, steps=steps, ms=ms, launches=read_counts(),
+                                   peak=torch.cuda.max_memory_allocated(dev))
+        with open(f"{job['out']}.rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(tmp, backend: str) -> list[dict]:
+    """Two ranks of this script on the job; both must exit 0 within
+    PAR_TIMEOUT (a rank still running then is killed)."""
+    import pickle
+
+    sub = os.path.join(tmp, backend)
+    os.makedirs(sub)
+    job = {"backend": backend, "init": f"file://{sub}/rdzv", "out": f"{sub}/out"}
+    with open(os.path.join(sub, "job.json"), "w") as f:
+        json.dump(job, f)
+    procs, logs = [], []
+    try:
+        for rank in range(2):
+            logs.append(open(os.path.join(sub, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(  # faulthandler: a crash prints its stack
+                [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+                 "--parallel-rank", os.path.join(sub, "job.json"), str(rank)], cwd=REPO,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PAR_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tails = []
+        for log_file in logs:
+            log_file.seek(0)
+            tails.append(log_file.read()[-4000:])
+            log_file.close()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"[12] {backend} rank {rank} exited {p.returncode}:\n{tails[rank]}")
+    out = []
+    for rank in range(2):
+        with open(f"{job['out']}.rank{rank}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase_parallel(tmp) -> dict:
+    """[12] Data and tensor parallelism on the one card: the single-process
+    runs here, then two ranks (``--parallel-rank``) in a gloo group passing
+    CUDA tensors, TP on mesh 1x2 and DP on mesh 2x1; tokens and timestamps
+    must equal the single process's, the TP encoder output within PAR_ATOL,
+    and every rank must launch its kernels.  With two or more cards, the
+    same with NCCL.  Returns the K1/K2 launches of each path, summed over the
+    ranks of the gloo run."""
+    ref = {}
+    for family in ("zipformer2", "conformer"):
+        bundle = ModelBundle.random(family, FAMILIES[family]["cfg"](), vocab_size=500, seed=0,
+                                    device="cuda")
+        rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+        res, ms = _par_offline(rec)
+        enc, lens = rec.encode(*rec.pcm_batch(streams_for(
+            rec, [synth_pcm(n, seed) for n, seed in PAR_PCMS])))
+        ref[family] = dict(results=res, ms=ms, enc=enc.cpu().numpy(), lens=lens.cpu().numpy())
+        del rec, bundle
+    bundle = ModelBundle.random("zipformer2", FAMILIES["zipformer2"]["stream_cfg"](),
+                                vocab_size=500, seed=0, device="cuda")
+    rec = OnlineRecognizer(bundle, compute_dtype=None, max_lanes=len(PAR_STREAMS), device="cuda")
+    ref["streaming"] = dict(zip(("results", "steps", "ms"), _par_streaming(rec)))
+    del rec, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"[12] one process on {smi}: TP reference batches (2 x 5 s, f32) zipformer2 "
+        f"{ref['zipformer2']['ms']:.1f} ms, conformer {ref['conformer']['ms']:.1f} ms; "
+        f"streaming 4 lanes x 5 s {ref['streaming']['steps']} steps {ref['streaming']['ms']:.1f} ms")
+    log("[12] gloo: NCCL refuses two ranks on one device ('Duplicate GPU detected'), so the two "
+        "ranks join a gloo group and pass CUDA tensors through it (all_gather_into_tensor, "
+        "all_reduce)")
+    runs = {"gloo": _spawn_ranks(tmp, "gloo")}
+    if torch.cuda.device_count() >= 2:
+        runs["nccl"] = _spawn_ranks(tmp, "nccl")
+    else:
+        log("[12] nccl: not run (one card)")
+    want_tp = {"zipformer2": {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"],
+                              "relpos_attn_ctx": 0},
+               "conformer": {"relpos_attn_probs": 0,
+                             "relpos_attn_ctx": FAMILIES["conformer"]["per_batch"]}}
+    want_dp = want_tp["zipformer2"]
+    for backend, ranks in runs.items():
+        for r in ranks:
+            tag = f"[12] {backend} rank {r['rank']}"
+            for family in ("zipformer2", "conformer"):
+                got, want = r[f"tp_{family}"], ref[family]
+                valid = np.arange(got["enc"].shape[1])[None, :] < want["lens"][:, None]
+                diff = float(np.abs(np.where(valid[..., None], got["enc"] - want["enc"], 0)).max())
+                log(f"{tag} TP 1x2 {family}: tokens identical {got['results'] == want['results']}, "
+                    f"encoder max abs diff {diff:.3e} (atol {PAR_ATOL}), batch {got['ms']:.1f} ms, "
+                    f"launches {got['launches']}, peak {got['peak'] / 2**30:.2f} GiB, encoder "
+                    f"parameters held {got['held'] / 2**20:.1f} of {got['whole'] / 2**20:.1f} MiB")
+                if got["results"] != want["results"] or diff > PAR_ATOL:
+                    raise AssertionError(f"{tag} TP {family} differs from one process")
+                if got["launches"] != want_tp[family]:
+                    raise AssertionError(f"{tag} TP {family} launched {got['launches']}")
+            for path, want in (("dp_offline", ref["zipformer2"]), ("dp_streaming", ref["streaming"])):
+                got = r[path]
+                log(f"{tag} DP 2x1 {path}: tokens identical {got['results'] == want['results']}, "
+                    f"{got['ms']:.1f} ms, launches {got['launches']}, "
+                    f"peak {got['peak'] / 2**30:.2f} GiB"
+                    + (f", {got['steps']} steps" if "steps" in got else ""))
+                if got["results"] != want["results"]:
+                    raise AssertionError(f"{tag} {path} differs from one process")
+                if path == "dp_offline" and got["launches"] != want_dp:
+                    raise AssertionError(f"{tag} {path} launched {got['launches']}")
+                if path == "dp_streaming" and not got["launches"]["relpos_attn_probs"]:
+                    raise AssertionError(f"{tag} {path} launched no K1")
+    gloo = runs["gloo"]
+    total = lambda path, k: sum(r[path]["launches"][k] for r in gloo)  # noqa: E731
+    return {"relpos_attn_probs": {"tp_offline": total("tp_zipformer2", "relpos_attn_probs"),
+                                  "dp_offline": total("dp_offline", "relpos_attn_probs"),
+                                  "dp_streaming": total("dp_streaming", "relpos_attn_probs")},
+            "relpos_attn_ctx": {"tp_offline": total("tp_conformer", "relpos_attn_ctx")}}
 
 
 def _family_sums(rows) -> dict:
@@ -1288,7 +1600,6 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
 def mutation_check() -> int:
     """Each of MUTATIONS, in a throwaway copy, must make its phase fail."""
     import shutil
-    import tempfile
 
     caught = 0
     for label, rel, old, new, phase in MUTATIONS:
@@ -1324,6 +1635,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--mutation-check"]:
         return mutation_check()
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one rank of [12]
+        return parallel_rank(sys.argv[2], int(sys.argv[3]))
     t_start = time.time()
     phase_card()
     bw = card_bandwidth(torch.cuda.get_device_name(0))
@@ -1347,7 +1660,10 @@ def main() -> int:
     streaming_int8 = phase_streaming_main_path("zipformer2", accuracy="int8")
     int_mm = phase_int_mm(bw)
     ingest_launches = phase_ingest()
-    converted_launches, convert_s = phase_convert()
+    with tempfile.TemporaryDirectory() as tmp:
+        converted_launches, convert_s = phase_convert(tmp)
+        cli_launches = phase_cli(tmp)
+        par_launches = phase_parallel(tmp)
     print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
                       "int_mm": int_mm, "convert_host_s": convert_s}), flush=True)
 
@@ -1364,7 +1680,8 @@ def main() -> int:
                     **{f"zipformer_{k}": n for k, n in pins["zipformer"].items()},
                     int8_offline=launches_int8["zipformer2"],
                     int8_streaming=streaming_int8["launches"],
-                    ingest_pin=ingest_launches, converted_offline=converted_launches)
+                    ingest_pin=ingest_launches, converted_offline=converted_launches,
+                    **cli_launches, **par_launches["relpos_attn_probs"])
 
     kernels = [
         kernel_line("relpos_attn_probs", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
@@ -1380,17 +1697,23 @@ def main() -> int:
                     "the zipformer_* paths; int8_offline and int8_streaming: the same main "
                     "paths under accuracy='int8' (its K1 shapes unchanged); ingest_pin: the "
                     "zipformer2 pin dir's two decodes in [9]; converted_offline: one 5 s "
-                    "decode of the converted full-width dir in [10]; library_ms null: no "
-                    "PyTorch call returns rel-pos probs"),
+                    "decode of the converted full-width dir in [10]; cli_*/demo_*: [11]'s runs "
+                    "on the zipformer2 pin dir (2 layers: 2 calls per decode or step); "
+                    "tp_offline, dp_offline, dp_streaming: [12]'s runs on meshes 1x2 and 2x1, "
+                    "summed over the 2 ranks (16 calls per rank per batch of Zipformer2Config()); "
+                    "library_ms null: no PyTorch call returns rel-pos probs"),
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
                     "k2transducerasr_tpu/ops/attention_pallas.py:242",
-                    dict(paths("conformer"), int8_offline=launches_int8["conformer"]),
+                    dict(paths("conformer"), int8_offline=launches_int8["conformer"],
+                         **par_launches["relpos_attn_ctx"]),
                     k2_rows, k2_worst,
                     "one conformer flagship batch (16 x 30 s): 12 calls at B=16 T=S=767 H=8 "
                     "d=64 bf16 (int8_offline: the same under accuracy='int8'); streaming: one "
                     "step of 16 lanes of ConformerConfig(causal=True),"
-                    " 12 calls at T=16 S=80; library_ms: scaled_dot_product_attention with the "
-                    "skewed position bias precomputed (not timed)"),
+                    " 12 calls at T=16 S=80; tp_offline: [12]'s mesh 1x2 run, 12 calls per rank "
+                    "per batch, summed over the 2 ranks; library_ms: "
+                    "scaled_dot_product_attention with the skewed position bias precomputed "
+                    "(not timed)"),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

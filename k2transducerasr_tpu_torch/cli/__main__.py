@@ -1,0 +1,3 @@
+from k2transducerasr_tpu_torch.cli.main import main
+
+raise SystemExit(main())

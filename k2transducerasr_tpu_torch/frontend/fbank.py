@@ -192,15 +192,23 @@ def frame_signal(samples: torch.Tensor, cfg: FbankConfig, num_frames: int) -> to
     return samples[:, :need].unfold(1, fl, fs)
 
 
+def frame_indices(num_frames: int, cfg: FbankConfig, device="cpu") -> torch.Tensor:
+    """Sample index matrix [num_frames, frame_len]: frame t covers
+    [t*shift, t*shift + frame_len) with snip_edges, else it is centred at
+    t*shift + shift/2 (kaldi), its out-of-range indices left raw."""
+    starts = torch.arange(num_frames, device=device) * cfg.frame_shift
+    if not cfg.snip_edges:
+        starts = starts + (cfg.frame_shift // 2 - cfg.frame_length // 2)
+    return starts[:, None] + torch.arange(cfg.frame_length, device=device)[None, :]
+
+
 def _reflected_frames(x: torch.Tensor, cfg: FbankConfig, num_frames: int,
                       n_valid: torch.Tensor) -> torch.Tensor:
     """snip_edges=False framing: frame t is centred at t*shift + shift/2 and
     indices reflect at the lane's true sample count (kaldi: s<0 -> -s-1,
     s>=n -> 2n-1-s)."""
     dev = x.device
-    starts = torch.arange(num_frames, device=dev) * cfg.frame_shift
-    starts = starts + (cfg.frame_shift // 2 - cfg.frame_length // 2)
-    idx = starts[:, None] + torch.arange(cfg.frame_length, device=dev)[None, :]
+    idx = frame_indices(num_frames, cfg, dev)
     idx = torch.where(idx < 0, -idx - 1, idx)
     n = n_valid.to(dev, torch.int64)[:, None, None]
     idx = idx[None].expand(x.shape[0], -1, -1)

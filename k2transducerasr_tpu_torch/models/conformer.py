@@ -33,6 +33,7 @@ import torch
 from k2transducerasr_tpu_torch.ops import layers as L
 from k2transducerasr_tpu_torch.ops.attention import sinusoidal_rel_pos as _rel_pos_emb
 from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_ctx
+from k2transducerasr_tpu_torch.parallel.sharding import whole
 from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
 
 
@@ -170,8 +171,8 @@ def rel_pos_attention(p, cfg: ConformerConfig, x_q, x_kv, compute_dtype=None, pa
     pe = _rel_pos_emb(t, s, d, x_q.device)
     pos = L.apply_linear(p["pos"], pe, compute_dtype).reshape(-1, h, dh)  # [R, H, dh]
     scale = 1.0 / math.sqrt(dh)
-    qs = ((q + p["u"]).float() * scale).to(k.dtype)
-    ps = ((q + p["v_bias"]).float() * scale).to(pos.dtype)
+    qs = ((q + whole(p["u"])).float() * scale).to(k.dtype)
+    ps = ((q + whole(p["v_bias"])).float() * scale).to(pos.dtype)
     ch, lf = chunk_left if chunk_left is not None else (0, 0)
     ctx = relpos_attn_ctx(qs, k, ps, pos, v, pad_lens, chunk=ch, left=lf, kv_start=kv_start)
     return L.apply_linear(p["out"], ctx.reshape(b, t, h * dh), compute_dtype)

@@ -24,8 +24,7 @@ class DecoderConfig:
 
 def init_params(rng: np.random.Generator, cfg: DecoderConfig) -> dict:
     """numpy tree with the reference init's shapes (embedding ~ N(0, 1))."""
-    p = {"embedding": {"table": rng.standard_normal((cfg.vocab_size, cfg.decoder_dim))
-                       .astype(np.float32)}}
+    p = {"embedding": L.init_embedding(rng, cfg.vocab_size, cfg.decoder_dim)}
     if cfg.context_size > 1:
         groups = max(1, cfg.decoder_dim // 4)
         p["conv"] = L.init_conv1d(rng, cfg.decoder_dim, cfg.decoder_dim, cfg.context_size,

@@ -42,6 +42,7 @@ import torch
 
 from k2transducerasr_tpu_torch.models.conformer import subsample
 from k2transducerasr_tpu_torch.ops import layers as L
+from k2transducerasr_tpu_torch.parallel.sharding import whole
 from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
 
 
@@ -103,8 +104,11 @@ def init_params(rng: np.random.Generator, cfg: LstmConfig) -> dict:
 def _rnn_weights(p, round_to=None) -> list:
     """One layer's [weight_ih, weight_hh, bias_ih, bias_hh, weight_hr] in
     PyTorch's layout, float32 (``round_to``: the matrices rounded to that
-    dtype first), as views into one flat cuDNN buffer on the card."""
-    mats = [p[k] if round_to is None else p[k].to(round_to).float() for k in ("wx", "wh", "wp")]
+    dtype first), as views into one flat cuDNN buffer on the card.  A
+    model-sharded matrix is gathered whole: each rank holds the whole
+    recurrence."""
+    mats = [whole(p[k]) for k in ("wx", "wh", "wp")]
+    mats = [m if round_to is None else m.to(round_to).float() for m in mats]
     wx, wh, wp = (m.t().contiguous() for m in mats)
     weights = [wx, wh, p["b"].clone(), torch.zeros_like(p["b"]), wp]
     if wx.is_cuda:

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from k2transducerasr_tpu_torch.ops import layers as L
 from k2transducerasr_tpu_torch.ops.attention import sinusoidal_rel_pos
 from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_probs
+from k2transducerasr_tpu_torch.parallel.sharding import whole
 from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
 
 
@@ -126,7 +127,7 @@ def output_chunk_len(cfg: ZipformerConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_basicnorm() -> dict:
+def init_basicnorm(dim: int) -> dict:
     return {"eps_log": np.asarray(math.log(0.25), np.float32)}
 
 
@@ -139,7 +140,7 @@ def _init_embed(rng, cfg: ZipformerConfig) -> dict:
         "conv2": L.init_conv2d(rng, c1, c2, (3, 3)),
         "conv3": L.init_conv2d(rng, c2, c3, (3, 3)),
         "out": L.init_linear(rng, c3 * freq_out, cfg.encoder_dims[0]),
-        "out_norm": _init_basicnorm(),
+        "out_norm": init_basicnorm(cfg.encoder_dims[0]),
     }
 
 
@@ -170,7 +171,7 @@ def _init_layer(rng, cfg: ZipformerConfig, si: int) -> dict:
         "ff1": ffm(),
         "ff2": ffm(),
         "ff3": ffm(),
-        "norm": _init_basicnorm(),
+        "norm": init_basicnorm(dim),
         "bypass_scale": np.asarray(0.5, np.float32),
     }
 
@@ -254,8 +255,10 @@ def _attention_downsample(p, x, ds: int, lens=None):
 
 def _simple_upsample_v1(bias, x, t_target: int):
     """icefall v1 SimpleUpsample: repeat each frame ``ds`` times adding a
-    learned per-phase bias, truncated to the pre-downsample length."""
+    learned per-phase bias, truncated to the pre-downsample length (a
+    model-sharded ``bias`` is gathered whole)."""
     b, t, d = x.shape
+    bias = whole(bias)
     ds = bias.shape[0]
     y = x[:, :, None, :] + bias[None, None].to(x.dtype)
     return y.reshape(b, t * ds, d)[:, :t_target]

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from k2transducerasr_tpu_torch.ops import layers as L
 from k2transducerasr_tpu_torch.ops.attention import descending_rel_positions
 from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_probs
+from k2transducerasr_tpu_torch.parallel.sharding import whole
 from k2transducerasr_tpu_torch.runtime.checkpoint import ParamTree
 
 
@@ -310,13 +311,14 @@ def _attn_shared(p, cfg: Zipformer2Config, si: int, x_q, compute_dtype,
 
 def _project_keys(p, cfg: Zipformer2Config, si: int, x, compute_dtype):
     """The key third of ``in_proj`` alone (streaming: the chunk's keys,
-    which join the key cache)."""
+    which join the key cache); a model-sharded ``in_proj`` is gathered
+    whole first."""
     heads, qd = cfg.num_heads[si], cfg.query_head_dim
     sl = slice(heads * qd, 2 * heads * qd)
     if "w_q8" in p["in_proj"]:  # int8: the key columns and their scales
-        sub = {"w_q8": p["in_proj"]["w_q8"][:, sl], "w_scale": p["in_proj"]["w_scale"][sl]}
+        sub = {"w_q8": whole(p["in_proj"]["w_q8"])[:, sl], "w_scale": p["in_proj"]["w_scale"][sl]}
     else:
-        sub = {"w": p["in_proj"]["w"][:, sl]}
+        sub = {"w": whole(p["in_proj"]["w"])[:, sl]}
     if "b" in p["in_proj"]:
         sub["b"] = p["in_proj"]["b"][sl]
     return L.apply_linear(sub, x, compute_dtype)

@@ -15,6 +15,14 @@ int32 product (``torch._int_mm``: cuBLASLt on the card), then the scales and
 the bias in float32 — the reference's ``accuracy="int8"`` mode, whose
 product XLA computes (no Pallas kernel).
 
+A weight that ``parallel/sharding.shard_params`` split over a mesh's
+``model`` dimension is a ``ModelShard``, and ``apply_linear`` writes out the
+collectives of tensor parallelism (``_product``): split on its output axis,
+the local product's columns are gathered; split on its input axis, the
+product of the input's slice is summed over the group and the bias added
+after the sum.  Under int8 the activation scale is taken over the whole row
+before the slice, and the int32 partial products sum exactly.
+
 One rounding differs from the reference under bf16: ``apply_linear`` takes
 PyTorch's bf16 matmul, whose float32 accumulator is rounded to bf16 before
 the float32 bias add (the reference rounds once, after the add).  That is a
@@ -30,6 +38,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from k2transducerasr_tpu_torch.parallel.sharding import ModelShard, all_gather_dim, all_reduce_sum
 
 NEG_INF = -1e9  # attention mask fill (f32-safe, bf16-safe)
 
@@ -65,6 +75,10 @@ def init_conv2d(rng, in_ch: int, out_ch: int, kernel: tuple) -> dict:
             "b": _uniform(rng, (out_ch,), scale)}
 
 
+def init_embedding(rng, vocab: int, dim: int) -> dict:
+    return {"table": rng.standard_normal((vocab, dim)).astype(np.float32)}
+
+
 def init_biasnorm(dim: int) -> dict:
     return {"bias": np.zeros((dim,), np.float32), "log_scale": np.zeros((), np.float32)}
 
@@ -87,14 +101,29 @@ def apply_linear(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     bf16 rounding and the int8 form."""
     if "w_q8" in p:
         return _apply_linear_int8(p, x, compute_dtype)
-    w = p["w"]
     if compute_dtype is None:
-        y = torch.matmul(x.to(w.dtype), w)
+        def mm(a, w):
+            return torch.matmul(a.to(w.dtype), w)
     else:
-        y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).float()
+        def mm(a, w):
+            return torch.matmul(a.to(compute_dtype), w.to(compute_dtype)).float()
+    y = _product(x, p["w"], mm)
     if "b" in p:
         y = y + p["b"]
     return _cast(y, compute_dtype)
+
+
+def _product(x: torch.Tensor, w, mm) -> torch.Tensor:
+    """``mm(x, w)`` for a whole ``w``; for a ``ModelShard``, the same product
+    from this rank's shard and the ``model`` group's collectives: split on
+    the output axis, the local columns gathered; split on the input axis,
+    the product of ``x``'s matching slice summed over the group."""
+    if not isinstance(w, ModelShard):
+        return mm(x, w)
+    if w.axis == 1:
+        return all_gather_dim(mm(x, w.local), -1, w.group)
+    k = w.local.shape[0]
+    return all_reduce_sum(mm(x[..., w.rank * k:(w.rank + 1) * k], w.local), w.group)
 
 
 def _div127(x: torch.Tensor) -> torch.Tensor:
@@ -179,9 +208,11 @@ def _apply_linear_int8(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
     xs = _mul_inv127(torch.where(amax == 0, 1.0, amax))
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
-    w_q8 = p["w_q8"]
-    y = int8_matmul(xq.reshape(-1, xq.shape[-1]), w_q8).reshape(*x.shape[:-1], w_q8.shape[1])
-    y = y.float() * xs * p["w_scale"]
+
+    def mm(a, w):
+        return int8_matmul(a.reshape(-1, a.shape[-1]), w).reshape(*a.shape[:-1], w.shape[1])
+
+    y = _product(xq, p["w_q8"], mm).float() * xs * p["w_scale"]
     if "b" in p:
         y = y + p["b"]
     return _cast(y, compute_dtype)

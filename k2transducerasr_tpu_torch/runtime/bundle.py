@@ -18,6 +18,7 @@ from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.registry import get_encoder, is_ctc
 from k2transducerasr_tpu_torch.ops.layers import quantize_tree_int8
+from k2transducerasr_tpu_torch.parallel.sharding import shard_params
 from k2transducerasr_tpu_torch.runtime import checkpoint
 from k2transducerasr_tpu_torch.runtime.device import resolve_device
 from k2transducerasr_tpu_torch.text.symbol_table import SymbolTable
@@ -50,6 +51,14 @@ class ModelBundle:
     @property
     def is_ctc(self) -> bool:
         return is_ctc(self.model_type)
+
+    @property
+    def params(self) -> dict:
+        """The parameter tree as the JAX package's ``bundle.params`` holds
+        it: {"encoder", "decoder", "joiner"} or {"encoder", "ctc"}, as dicts
+        and lists of this bundle's tensors."""
+        heads = ("ctc",) if self.is_ctc else ("decoder", "joiner")
+        return {"encoder": self.encoder.tree(), **{h: getattr(self, h).tree() for h in heads}}
 
     @property
     def vocab_size(self) -> int:
@@ -120,10 +129,8 @@ class ModelBundle:
                 "frontend": self.frontend_cfg,
             },
         )
-        heads = ("ctc",) if self.is_ctc else ("decoder", "joiner")
-        params = {"encoder": self.encoder.tree(), **{h: getattr(self, h).tree() for h in heads}}
         checkpoint.save_params(os.path.join(model_dir, "params.npz"),
-                               checkpoint.tree_to_numpy(params))
+                               checkpoint.tree_to_numpy(self.params))
         with open(os.path.join(model_dir, "tokens.txt"), "w", encoding="utf-8") as f:
             for i in range(len(self.tokens)):
                 f.write(f"{self.tokens[i]} {i}\n")
@@ -134,6 +141,25 @@ class ModelBundle:
         tensors; the leaves that stay float are shared with ``encoder``."""
         qtree = quantize_tree_int8(self.encoder.tree())
         return get_encoder(self.model_type).Encoder(self.encoder_cfg, qtree, self.device)
+
+    def compute_modules(self, accuracy: str | None = None, mesh=None):
+        """(encoder, CTC head or None) as a recognizer runs them: the
+        encoder quantized under ``accuracy="int8"`` (first, as the JAX
+        package does), and under a ``mesh`` this rank's shards of both
+        (``parallel/sharding.shard_params``; the decoder and joiner stay
+        whole and are the bundle's own)."""
+        if mesh is None:
+            return (self.int8_encoder() if accuracy == "int8" else self.encoder), self.ctc
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"mesh is on {mesh.device_type}, bundle on {self.device.type}")
+        params = self.params
+        if accuracy == "int8":
+            params["encoder"] = quantize_tree_int8(params["encoder"])
+        params = shard_params(params, mesh)
+        enc = get_encoder(self.model_type).Encoder(self.encoder_cfg, params["encoder"],
+                                                   self.device)
+        ctc = ctc_mod.Ctc(self.ctc_cfg, params["ctc"], self.device) if self.is_ctc else None
+        return enc, ctc
 
     @classmethod
     def random(cls, model_type: str, encoder_cfg, vocab_size: int, seed: int = 0,

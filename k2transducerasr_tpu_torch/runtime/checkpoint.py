@@ -33,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from k2transducerasr_tpu_torch.parallel.sharding import ModelShard
+
 
 def flatten_params(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
@@ -176,8 +178,10 @@ class ParamTree(nn.Module):
     """A parameter tree as an ``nn.Module``: dict nodes become child
     modules, lists of dicts become ``nn.ModuleList``s (a ``None`` entry stays
     ``None``: an empty slot, absent from the ``state_dict``), arrays become
-    frozen ``nn.Parameter``s.  ``node["key"]`` and ``"key" in node`` work as
-    on the JAX package's dicts, so the model code reads like the reference.
+    frozen ``nn.Parameter``s, and a ``ModelShard`` (one rank's slice of a
+    leaf, ``parallel/sharding.shard_params``) stays as it is.
+    ``node["key"]`` and ``"key" in node`` work as on the JAX package's
+    dicts, so the model code reads like the reference.
     Leaves may be numpy arrays (copied) or tensors (kept, moved to
     ``device`` if need be)."""
 
@@ -192,6 +196,8 @@ class ParamTree(nn.Module):
                     raise TypeError(f"list node {key!r} must hold dicts or None")
                 self.add_module(key, nn.ModuleList(None if v is None else ParamTree(v, device)
                                                    for v in value))
+            elif isinstance(value, ModelShard):
+                setattr(self, key, value)
             else:
                 t = (value.detach() if isinstance(value, torch.Tensor)
                      else torch.from_numpy(np.array(value, copy=True))).to(device)
@@ -206,12 +212,14 @@ class ParamTree(nn.Module):
         def node(v):
             if isinstance(v, nn.ModuleList):
                 return [None if m is None else m.tree() for m in v]
+            if isinstance(v, ModelShard):
+                return v
             return v.tree() if isinstance(v, ParamTree) else v.detach()
 
         return {k: node(getattr(self, k)) for k in self._keys}
 
     def __contains__(self, key: str) -> bool:
-        return key in self._parameters or key in self._modules
+        return key in self._keys
 
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cpu") -> ParamTree:

@@ -1,5 +1,4 @@
-"""Device selection for the port's entry points, and the options they do
-not run yet.
+"""Device selection for the port's entry points.
 
 Entry points run on the card unless the caller asks for the CPU.  Asking for
 CUDA where there is none raises: nothing carries on silently on the CPU.
@@ -39,15 +38,3 @@ def exact_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
-
-
-# options of the JAX package's recognizers that the port does not run yet,
-# and the ROADMAP item that ports each
-_NOT_PORTED = {
-    "mesh": "ROADMAP 'Still to port' item 7: parallelism",
-}
-
-
-def not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to PyTorch yet ({_NOT_PORTED[option]})")

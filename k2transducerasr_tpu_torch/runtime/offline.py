@@ -11,7 +11,15 @@ Per batch: int16 PCM -> fbank -> encoder -> one of
     vectorised CTC greedy,
 all on the bundle's device; the host reads back only the token buffers.
 ``accuracy="int8"`` runs the encoder's linears in int8
-(``ModelBundle.int8_encoder``).  ``mesh`` is not ported yet and raises.
+(``ModelBundle.int8_encoder``).
+
+``mesh`` (``parallel/sharding.make_mesh``) runs the batch over every rank of
+the process group, SPMD: each rank makes the same calls with the same
+streams and returns every stream's result.  The batch is padded to a
+multiple of the mesh's data groups and data group ``r`` decodes its ``r``-th
+block of rows; the ranks of one group compute those rows together with the
+encoder's weights split over them (tensor parallelism, ``ops/layers.py``).
+The token buffers are then gathered over ``data``.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from k2transducerasr_tpu_torch.frontend.fbank import (
 )
 from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, all_reduce_max, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, not_ported, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
 
@@ -81,13 +90,16 @@ def _bucket(n: int, step: int, minimum: int) -> int:
 REFERENCE_PAD_FILL = -23.025850929940457
 
 
-def apply_reference_pad(feats, feat_lens, tail_len: int = 19):
+def apply_reference_pad(feats, feat_lens, tail_len: int = 19, longest=None):
     """The reference's offline feature-pad contract: every lane claims
     max(feat_lens)+tail_len frames (capped at the buffer), frames past a
     lane's true length are filled with ln(1e-10), and exact-zero feature
-    values become ln(1e-10) too.  feats: [B, T_pad, F]; feat_lens: [B]."""
+    values become ln(1e-10) too.  feats: [B, T_pad, F]; feat_lens: [B];
+    ``longest``: the max over the whole batch where ``feat_lens`` holds
+    only some of its rows."""
     t_pad = feats.shape[1]
-    claim = torch.clamp(feat_lens.max() + tail_len, max=t_pad)
+    longest = feat_lens.max() if longest is None else longest
+    claim = torch.clamp(longest + tail_len, max=t_pad)
     feats = torch.where(feats == 0.0, REFERENCE_PAD_FILL, feats)
     valid = torch.arange(t_pad, device=feats.device)[None, :] < feat_lens[:, None]
     feats = torch.where(valid[:, :, None], feats, REFERENCE_PAD_FILL)
@@ -103,8 +115,8 @@ class OfflineRecognizer:
         max_tokens: int = 1024,
         frame_bucket: int = 256,
         max_active_paths: int = 4,
-        reference_pad_compat: bool = False,
         mesh=None,
+        reference_pad_compat: bool = False,
         hotwords: list[str] | None = None,
         accuracy: str | None = None,
         device: str | torch.device = "cuda",
@@ -113,15 +125,15 @@ class OfflineRecognizer:
         true float32 on the card (TF32 off while a batch decodes).  A CTC
         bundle always decodes with ``greedy_search_ctc``; ``hotwords`` need
         ``modified_beam_search``.  ``device`` must be the bundle's; the
-        default asks for the card."""
+        default asks for the card.  ``mesh``: a ``DeviceMesh`` of
+        ``parallel/sharding.make_mesh`` on the bundle's device type."""
         if bundle.is_ctc:
             decoding_method = "greedy_search_ctc"
         if decoding_method not in DECODING_METHODS:
             raise ValueError(f"unsupported decoding method {decoding_method!r}")
         if hotwords and decoding_method != "modified_beam_search":
             raise ValueError("hotwords require decoding_method='modified_beam_search'")
-        if mesh is not None:
-            raise not_ported("mesh")
+        n_data, _, data_rank, _ = mesh_coords(mesh)
         if accuracy not in (None, "auto", "float32", "int8"):
             raise ValueError(f"unsupported accuracy {accuracy!r}")
         dev = resolve_device(device)
@@ -133,8 +145,12 @@ class OfflineRecognizer:
         self.bundle = bundle
         self.device = dev
         self.accuracy = accuracy
-        # accuracy="int8": the encoder's linears quantized once, here
-        self.encoder = bundle.int8_encoder() if accuracy == "int8" else bundle.encoder
+        self.mesh = mesh
+        self._n_data, self._data_rank = n_data, data_rank
+        self._data_group = None if mesh is None else mesh.get_group("data")
+        # accuracy="int8": the encoder's linears quantized once, here; under
+        # a mesh, this rank's shards
+        self.encoder, self.ctc = bundle.compute_modules(accuracy, mesh)
         self.decoding_method = decoding_method
         self.compute_dtype = compute_dtype
         self.max_tokens = max_tokens
@@ -166,7 +182,9 @@ class OfflineRecognizer:
     def pcm_batch(self, streams: list[OfflineStream]):
         """Streams -> (samples [B, N] int16, true sample counts [B]) on the
         device, N covering the frame bucket.  PCM becomes int16 by truncation
-        toward zero, exactly as the reference ships it."""
+        toward zero, exactly as the reference ships it.  Under a mesh the
+        batch is padded with empty rows to a multiple of the data groups and
+        only this rank's group's rows are uploaded."""
         cfg = self.bundle.frontend_cfg
         n_samples = [len(s.samples) for s in streams]
         n_frames = np.array([num_frames_for(n, cfg) for n in n_samples], np.int32)
@@ -176,11 +194,15 @@ class OfflineRecognizer:
         t_pad = _bucket(int(n_frames.max(initial=1)) + tail, self.frame_bucket,
                         self.frame_bucket)
         need = (t_pad - 1) * cfg.frame_shift + cfg.frame_length
-        batch = np.zeros((len(streams), need), np.int16)
-        for i, s in enumerate(streams):
-            x = s.samples[:need]
-            batch[i, : len(x)] = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
-        counts = np.minimum(np.array(n_samples, np.int64), need)
+        rows = -(-len(streams) // self._n_data)  # per data group
+        mine = range(self._data_rank * rows, (self._data_rank + 1) * rows)
+        batch = np.zeros((rows, need), np.int16)
+        counts = np.zeros((rows,), np.int64)
+        for i, lane in enumerate(mine):
+            if lane < len(streams):
+                x = streams[lane].samples[:need]
+                batch[i, : len(x)] = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
+                counts[i] = min(n_samples[lane], need)
         return torch.from_numpy(batch).to(self.device), torch.from_numpy(counts).to(self.device)
 
     def begin_decode(self, streams: list[OfflineStream]):
@@ -191,7 +213,11 @@ class OfflineRecognizer:
         hotwords need it."""
         samples, sample_counts = self.pcm_batch(streams)
         with torch.inference_mode(), self._precision():
-            return (streams, *self._decode(samples, sample_counts))
+            tokens, timestamps, count, nbest = self._decode(samples, sample_counts)
+            if self._n_data > 1:  # every data group's rows, in order
+                tokens, timestamps, count = (self._all_rows(t) for t in (tokens, timestamps, count))
+                nbest = None if nbest is None else tuple(self._all_rows(t) for t in nbest)
+        return streams, tokens, timestamps, count, nbest
 
     def end_decode(self, pending) -> list[OfflineRecognizerResult]:
         """Read back a ``begin_decode`` handle's tokens and build results.
@@ -204,8 +230,8 @@ class OfflineRecognizer:
                 texts = [c.text for c in cands]
                 results.append(cands[texts.index(apply_hotwords(texts, self.hotwords))])
         else:
-            results = [self._result(toks, stamps) for toks, stamps
-                       in rnnt_greedy.extract_results(tokens, timestamps, count)]
+            rows = rnnt_greedy.extract_results(tokens, timestamps, count)[:len(streams)]
+            results = [self._result(toks, stamps) for toks, stamps in rows]
         for stream, res in zip(streams, results):
             stream.result = res
         return results
@@ -233,6 +259,9 @@ class OfflineRecognizer:
 
     # -- the decode program -------------------------------------------------
 
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather_dim(t, 0, self._data_group)
+
     def _precision(self):
         """float32 compute means true float32: TF32 off while it runs."""
         return exact_f32() if self.compute_dtype is None else contextlib.nullcontext()
@@ -246,7 +275,10 @@ class OfflineRecognizer:
         feats = fbank_compute(x, fcfg, t_pad, n_valid=sample_counts, tables=self._fbank_tables)
         feat_lens = num_frames_tensor(sample_counts, fcfg)
         if self.reference_pad_compat:
-            feats, feat_lens = apply_reference_pad(feats, feat_lens)
+            longest = feat_lens.max()
+            if self._n_data > 1:  # over every data group's rows
+                longest = all_reduce_max(longest, self._data_group)
+            feats, feat_lens = apply_reference_pad(feats, feat_lens, longest=longest)
         return feats, feat_lens
 
     def encode(self, samples: torch.Tensor, sample_counts: torch.Tensor):
@@ -264,7 +296,7 @@ class OfflineRecognizer:
         zero = torch.zeros((batch,), dtype=torch.int64, device=self.device)
         enc_out, enc_lens = self.encode(samples, sample_counts)
         if self.decoding_method == "greedy_search_ctc":
-            lp = ctc_mod.log_probs(b.ctc, enc_out, cd)
+            lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
             state = ctc_greedy.init_state(batch, self.max_tokens, device=self.device)
             final = ctc_greedy.ctc_frames(state, lp, enc_lens, zero)
             return final.tokens, final.timestamps, final.count, None

@@ -27,7 +27,16 @@ later step never writes what a pending handle reads, so a serving loop may
 call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
 
 ``accuracy="int8"`` runs the encoder's linears in int8
-(``ModelBundle.int8_encoder``).  ``mesh`` is not ported yet and raises.
+(``ModelBundle.int8_encoder``).
+
+``mesh`` (``parallel/sharding.make_mesh``) runs the pool over every rank of
+the process group, SPMD: each rank makes the same calls with the same
+streams, so lanes are handed out in the same order everywhere.  Data group
+``r`` owns the ``r``-th contiguous block of ``max_lanes / n_data`` lanes and
+holds the state of those lanes only; a step computes only its own lanes'
+windows (its ranks together, with the encoder's weights split over them),
+and the readback gathers every lane's buffers over ``data`` in one
+collective.  ``snapshot_stream`` broadcasts the owner's state to every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from k2transducerasr_tpu_torch import native
 from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
@@ -44,9 +54,10 @@ from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute, fbank_matric
 from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.registry import get_encoder
+from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, not_ported, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
 from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
 from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
@@ -153,15 +164,21 @@ class OnlineRecognizer:
         true float32 on the card (TF32 off while a step runs).  A CTC bundle
         always decodes with ``greedy_search_ctc``; ``hotwords`` need
         ``modified_beam_search``.  ``device`` must be the bundle's; the
-        default asks for the card."""
+        default asks for the card.  ``mesh``: a ``DeviceMesh`` of
+        ``parallel/sharding.make_mesh`` whose data groups divide
+        ``max_lanes``."""
         if bundle.is_ctc:
             decoding_method = "greedy_search_ctc"
         if decoding_method not in DECODING_METHODS:
             raise ValueError(f"unsupported decoding method {decoding_method!r}")
         if hotwords and decoding_method != "modified_beam_search":
             raise ValueError("hotwords require decoding_method='modified_beam_search'")
-        if mesh is not None:
-            raise not_ported("mesh")
+        n_data, _, data_rank, _ = mesh_coords(mesh)
+        if max_lanes % n_data:
+            raise ValueError(
+                f"max_lanes={max_lanes} must be a multiple of the mesh "
+                f"data axis ({n_data})"
+            )
         if accuracy not in (None, "auto", "float32", "int8"):
             raise ValueError(f"unsupported accuracy {accuracy!r}")
         if windows_per_step < 1:
@@ -175,8 +192,15 @@ class OnlineRecognizer:
         self.bundle = bundle
         self.device = dev
         self.accuracy = accuracy
-        # accuracy="int8": the encoder's linears quantized once, here
-        self.encoder = bundle.int8_encoder() if accuracy == "int8" else bundle.encoder
+        self.mesh = mesh
+        self._n_data = n_data
+        self._data_group = None if mesh is None else mesh.get_group("data")
+        # this rank's data group holds lanes [_lane0, _lane0 + _pool_lanes)
+        self._pool_lanes = max_lanes // n_data
+        self._lane0 = data_rank * self._pool_lanes
+        # accuracy="int8": the encoder's linears quantized once, here; under
+        # a mesh, this rank's shards
+        self.encoder, self.ctc = bundle.compute_modules(accuracy, mesh)
         self.decoding_method = decoding_method
         self.compute_dtype = compute_dtype
         self.max_lanes = max_lanes
@@ -197,10 +221,10 @@ class OnlineRecognizer:
 
         self._free_lanes = list(range(max_lanes))
         self._streams: dict[int, OnlineStream] = {}
-        # the lane pool
-        self._enc_state = self._enc.init_state(enc_cfg, max_lanes, dev)
-        self._dec_state = self._init_dec_state(max_lanes)
-        self._frame_count = torch.zeros((max_lanes,), dtype=torch.int64, device=dev)
+        # the lane pool (this data group's lanes)
+        self._enc_state = self._enc.init_state(enc_cfg, self._pool_lanes, dev)
+        self._dec_state = self._init_dec_state(self._pool_lanes)
+        self._frame_count = torch.zeros((self._pool_lanes,), dtype=torch.int64, device=dev)
         self._reset_template = None
         self._endpoint_host = None  # (trailing, count, frames) from the last readback
 
@@ -212,7 +236,8 @@ class OnlineRecognizer:
                 f"all {self.max_lanes} lanes busy; raise max_lanes or dispose streams"
             )
         lane = self._free_lanes.pop()
-        self._reset_lane(lane)
+        if self._owns(lane):
+            self._reset_lane(lane - self._lane0)
         stream = OnlineStream(self, lane)
         self._streams[lane] = stream
         return stream
@@ -246,7 +271,8 @@ class OnlineRecognizer:
         if self.decoding_method != "modified_beam_search":
             raise ValueError("get_nbest_results requires modified_beam_search")
         self.end_step(self.begin_step(streams))
-        toks, stamps, counts = (t.cpu() for t in rnnt_beam.nbest_beams(self._dec_state)[:3])
+        bufs = self._all_lanes(rnnt_beam.nbest_beams(self._dec_state)[:3])
+        toks, stamps, counts = (t.cpu() for t in bufs)
         return [self._lane_nbest(s.lane, toks, stamps, counts) if s.lane >= 0 else []
                 for s in streams]
 
@@ -266,8 +292,12 @@ class OnlineRecognizer:
                                             32767).astype(np.int16)
                     k += 1
                 wcount[i] = k
-            with torch.inference_mode(), self._precision():
-                self._step(np.array([s.lane for s in active]), windows, wcount)
+            # every rank takes every stream's windows; it steps its own lanes
+            own = [i for i, s in enumerate(active) if self._owns(s.lane)]
+            if own:
+                with torch.inference_mode(), self._precision():
+                    self._step(np.array([active[i].lane - self._lane0 for i in own]),
+                               windows[own], wcount[own])
         st = self._dec_state
         if self.hotwords:  # every beam's partial text, for the selection
             bufs = rnnt_beam.nbest_beams(st)[:3]
@@ -277,7 +307,7 @@ class OnlineRecognizer:
             bufs = (st.tokens, st.timestamps, st.count)
         if self.enable_endpoint and self.decoding_method != "modified_beam_search":
             bufs = bufs + (st.trailing_blanks, self._frame_count)
-        host = tuple(_readback(t) for t in bufs)
+        host = tuple(_readback(t) for t in self._all_lanes(bufs))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -314,15 +344,27 @@ class OnlineRecognizer:
         """A stream's whole decode state (encoder caches, decode state, frame
         counter, buffered samples) as host arrays in the JAX package's
         layout (``runtime/checkpoint.state_to_numpy``): restorable into any
-        lane of a recognizer with the same bundle, of either package."""
+        lane of a recognizer with the same bundle, of either package, on any
+        mesh.  Under a mesh every rank returns it, broadcast from the lane's
+        data group."""
         lane = stream.lane
         if lane < 0:
             raise ValueError("stream has no lane (disposed?)")
-        pick = lambda a: a[lane]  # noqa: E731
+        local = lane - self._lane0
+        if self._n_data == 1:
+            pick = lambda a: a[local]  # noqa: E731
+        else:
+            src = dist.get_global_rank(self._data_group, lane // self._pool_lanes)
+
+            def pick(a):
+                t = a[local].clone() if self._owns(lane) else torch.empty_like(a[0])
+                dist.broadcast(t, src=src, group=self._data_group)
+                return t
+
         return {
             "enc": state_to_numpy(tree_map(pick, self._enc_state)),
             "dec": state_to_numpy(tree_map(pick, self._dec_state)),
-            "frames": int(self._frame_count[lane]),
+            "frames": int(pick(self._frame_count)),
             "buffer": stream._samples(),
             "consumed": stream._consumed,
             "finished_input": stream.finished_input,
@@ -332,12 +374,13 @@ class OnlineRecognizer:
         """A new stream whose device and host state continue exactly from a
         snapshot (``state_from_numpy`` takes either package's)."""
         stream = self.create_online_stream()
-        lane = stream.lane
-        enc = state_from_numpy(snapshot["enc"], self.device)
-        dec = state_from_numpy(snapshot["dec"], self.device)
-        tree_map(lambda pool, v: pool[lane].copy_(v), self._enc_state, enc)
-        tree_map(lambda pool, v: pool[lane].copy_(v), self._dec_state, dec)
-        self._frame_count[lane] = int(snapshot["frames"])
+        if self._owns(stream.lane):
+            lane = stream.lane - self._lane0
+            enc = state_from_numpy(snapshot["enc"], self.device)
+            dec = state_from_numpy(snapshot["dec"], self.device)
+            tree_map(lambda pool, v: pool[lane].copy_(v), self._enc_state, enc)
+            tree_map(lambda pool, v: pool[lane].copy_(v), self._dec_state, dec)
+            self._frame_count[lane] = int(snapshot["frames"])
         stream._push(np.asarray(snapshot["buffer"], np.float32))
         stream._consumed = snapshot["consumed"]
         stream.finished_input = snapshot["finished_input"]
@@ -357,8 +400,8 @@ class OnlineRecognizer:
         )
         if self._endpoint_host is None:
             st = self._dec_state
-            self._endpoint_host = tuple(t.cpu() for t in (st.trailing_blanks, st.count,
-                                                          self._frame_count))
+            self._endpoint_host = tuple(t.cpu() for t in self._all_lanes(
+                (st.trailing_blanks, st.count, self._frame_count)))
         trailing, count, frames = (int(a[stream.lane]) for a in self._endpoint_host)
         return is_endpoint(cfg, trailing, count, frames)
 
@@ -395,8 +438,27 @@ class OnlineRecognizer:
         return rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                       self.max_tokens, cd)
 
+    def _owns(self, lane: int) -> bool:
+        """Whether this rank's data group holds ``lane``."""
+        return 0 <= lane - self._lane0 < self._pool_lanes
+
+    def _all_lanes(self, bufs: tuple) -> tuple:
+        """Per-lane int64 buffers of this data group's lanes -> the same of
+        every lane: one gather over ``data`` of the buffers side by side."""
+        if self._n_data == 1:
+            return tuple(bufs)
+        flat = all_gather_dim(torch.cat([t.reshape(t.shape[0], -1) for t in bufs], dim=1), 0,
+                              self._data_group)
+        out, at = [], 0
+        for t in bufs:
+            n = t[0].numel()
+            out.append(flat[:, at:at + n].reshape(flat.shape[0], *t.shape[1:]))
+            at += n
+        return tuple(out)
+
     def _reset_lane(self, lane: int) -> None:
-        """Zero one lane's state (a fresh stream)."""
+        """Zero one lane's state (a fresh stream); ``lane`` indexes the
+        pool."""
         if self._reset_template is None:
             self._reset_template = (
                 self._enc.init_state(self.bundle.encoder_cfg, 1, self.device),
@@ -409,7 +471,7 @@ class OnlineRecognizer:
         self._endpoint_host = None  # the lane's counters changed
 
     def _step(self, lanes: np.ndarray, windows: np.ndarray, wcount: np.ndarray) -> None:
-        """One step on ``lanes`` (in pool order of ``windows``' rows):
+        """One step on the pool's ``lanes`` (in the order of ``windows``' rows):
         windows [N, W, n] int16, wcount [N] windows per lane.  Window slot k
         steps the encoder of the lanes with more than k windows; one decode
         pass then runs over each lane's concatenated encoder output."""
@@ -435,7 +497,7 @@ class OnlineRecognizer:
         lens = torch.from_numpy(wcount * chunk).to(dev)
         offset = self._frame_count.index_select(0, lanes_t)
         if self.decoding_method == "greedy_search_ctc":
-            lp = ctc_mod.log_probs(b.ctc, enc_out, cd)
+            lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
             new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
         else:
             # online search also skips <sos/eos> = 1 (extra_skip_sos)

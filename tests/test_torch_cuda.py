@@ -637,3 +637,54 @@ def test_converted_dir_decodes_on_the_card(cuda, tmp_path):
         assert AC.relpos_attn_probs.launches - before == sum(cfg.num_encoder_layers)
     assert (res[0].tokens, res[0].timestamps) == (res[1].tokens, res[1].timestamps)
     assert res[0].tokens
+
+
+def _pin_wav(path):
+    """The pin signal as a 16 kHz 16-bit wav of exact int16 samples."""
+    import wave
+
+    x = np.clip(np.round(_pcm(6400) * 32767), -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(x.tobytes())
+
+
+CLI_PINS = {  # the zipformer2 pin dir's transcripts of the pin signal
+    "offline": "tok25tok25tok18tok8tok12tok6tok25tok6",
+    "online": "tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6",
+}
+
+
+@pytest.mark.parametrize("args,pin", [
+    (["-type", "offline", "-batch", "multi"], "offline"),
+    (["-type", "offline", "-batch", "one", "-accuracy", "int8"], "offline"),
+    (["-type", "online", "-batch", "multi"], "online"),
+    (["-type", "online", "-batch", "one"], "online"),
+], ids=["offline-multi", "offline-int8", "online-multi", "online-one"])
+def test_cli_on_the_card_prints_the_pins(cuda, tmp_path, capsys, args, pin):
+    """The CLI as shipped (bf16, the card by default) on the zipformer2 pin
+    dir launches K1 and prints the pinned transcript."""
+    from k2transducerasr_tpu_torch.cli.main import main
+
+    _pin_wav(tmp_path / "pin.wav")
+    before = AC.relpos_attn_probs.launches
+    rc = main(["-base", os.path.join(PIN_ROOT, "zipformer2_pin"), "-files",
+               str(tmp_path / "pin.wav"), *args])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0 and lines[1] == CLI_PINS[pin] and lines[-1] == "end!"
+    assert AC.relpos_attn_probs.launches > before
+
+
+def test_cli_device_flag_on_the_card(cuda, tmp_path, capsys):
+    """-device cpu and -device cuda print the same transcript lines."""
+    from k2transducerasr_tpu_torch.cli.main import main
+
+    _pin_wav(tmp_path / "pin.wav")
+    outs = []
+    for device in ("cpu", "cuda"):
+        assert main(["-base", os.path.join(PIN_ROOT, "zipformer2_pin"), "-files",
+                     str(tmp_path / "pin.wav"), "-device", device]) == 0
+        outs.append(capsys.readouterr().out.splitlines()[:2])
+    assert outs[0] == outs[1]

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from k2transducerasr_tpu.decode import rnnt_greedy as JG
 from k2transducerasr_tpu.frontend.fbank import fbank_compute as j_fbank_compute
@@ -40,6 +41,7 @@ from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import zipformer2 as TZ
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
+from torch_parallel_worker import fake_world
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIN_DIR = os.path.join(REPO, "tests", "torch_port_data", "zipformer2_pin")
@@ -253,8 +255,12 @@ def test_default_device_is_the_card(monkeypatch):
     bundle = ModelBundle.from_dir(PIN_DIR, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         OfflineRecognizer(bundle)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # not ported yet
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is make_mesh's
         OfflineRecognizer(bundle, device="cpu", mesh=object())
+    with fake_world(4):  # the mesh's dimensions must be ("data", "model")
+        bad = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("a", "b"))
+        with pytest.raises(ValueError, match="dimensions"):
+            OfflineRecognizer(bundle, device="cpu", mesh=bad)
     assert OfflineRecognizer(bundle, device="cpu", accuracy="int8").accuracy == "int8"
 
 
@@ -282,6 +288,11 @@ def test_port_imports_no_jax():
         "import k2transducerasr_tpu_torch.convert.zipformer2_map\n"
         "import k2transducerasr_tpu_torch.convert.zipformer1_map\n"
         "import k2transducerasr_tpu_torch.convert.family_maps\n"
+        "import k2transducerasr_tpu_torch.parallel.sharding, k2transducerasr_tpu_torch.parallel.distributed\n"
+        "import k2transducerasr_tpu_torch.cli.main, k2transducerasr_tpu_torch.utils.metrics\n"
+        "import k2transducerasr_tpu_torch.utils.profiling\n"
+        "import k2transducerasr_tpu_torch.examples.offline_demo\n"
+        "import k2transducerasr_tpu_torch.examples.online_demo\n"
         "from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'k2transducerasr_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'k2transducerasr_tpu.'))]\n"

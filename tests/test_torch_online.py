@@ -20,6 +20,7 @@ from k2transducerasr_tpu.runtime.bundle import ModelBundle as JBundle
 from k2transducerasr_tpu.runtime.online import OnlineRecognizer as JOnline
 from k2transducerasr_tpu_torch import ModelBundle, OnlineRecognizer
 from k2transducerasr_tpu_torch.runtime import endpoint as TE
+from torch_parallel_worker import fake_world
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
@@ -249,8 +250,12 @@ def test_snapshot_carries_a_stream_across_packages(bundles):
 
 def test_unported_options_raise_and_default_device_is_the_card(bundles, monkeypatch):
     tb = bundles["zipformer2"][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # not ported yet
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is make_mesh's
         _port(bundles, mesh=object())
+    with fake_world(4) as mesh:  # the JAX package's message
+        with pytest.raises(ValueError, match=r"max_lanes=6 must be a multiple of the mesh "
+                                             r"data axis \(4\)"):
+            _port(bundles, max_lanes=6, mesh=mesh("cpu", 4, 1))
     assert _port(bundles, accuracy="int8").accuracy == "int8"  # ported: tests/test_torch_int8.py
     for kw in (dict(decoding_method="beam"), dict(accuracy="fp16")):
         with pytest.raises(ValueError, match="unsupported"):
