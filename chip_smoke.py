@@ -19,6 +19,14 @@ Phases (any failure exits non-zero; none is caught):
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
      streaming), plus the time of scaled_dot_product_attention on the same
      function (yardstick);
+  3c. the greedy search kernel (rnnt_greedy) against its plain version at
+     the main paths' shapes (offline: 16 lanes x 766 frames; streaming: 16
+     lanes x one window's frames, frame_offset per lane, extra_skip_sos,
+     steps chained), float32 identical (dec_proj within 1e-5), bf16 through
+     the tie-aware replay at 2 ulps with the frames decided otherwise than
+     the plain argmax counted, and on dyadic inputs (every float32 sum
+     exact, ties everywhere) bit for bit in both dtypes; its time, the plain
+     loop's and the bound from these inputs' frames and emissions;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -34,11 +42,19 @@ Phases (any failure exits non-zero; none is caught):
      through begin_decode/end_decode, every kernel's launches counted from 0
      (greedy search for each family, zipformer2-CTC, and zipformer2 under
      modified_beam_search with its loop's trips per batch; LSTM launches
-     neither kernel);
+     neither attention kernel; every greedy path one rnnt_greedy per batch);
+     each greedy batch's search held to the tie-aware replay;
   6b. each streaming main path at full width (each family's causal config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
      per step; per-step latency, streaming RTF and the launches per step
      (the same methods as phase 6);
+  6c. no wait: zipformer2 at full width, 16 x 30 s, bf16: begin_decode
+     under torch.cuda.set_sync_debug_mode("error") (greedy and CTC,
+     reference_pad_compat off and on) and begin_step (greedy and CTC, 16
+     lanes) raise nothing and give the sequential run's tokens; then the
+     2-deep pipeline of bench.py over 7 batches against the same batches
+     one by one (audio-s/s each, begin_decode's host ms beside the batch
+     ms);
   8. int8 (accuracy="int8"): zipformer2 and conformer at full width, f32,
      card against CPU (the int8 weights bit for bit, the encoder within int8's
      own change from float32, tokens identical); their offline main paths
@@ -89,41 +105,48 @@ import torch
 import torch.nn.functional as F
 
 from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
-from k2transducerasr_tpu_torch.decode import rnnt_beam
+from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute
 from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
+from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.models.decoder import DecoderConfig
 from k2transducerasr_tpu_torch.models.lstm import LstmConfig
+from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.models.zipformer import ZipformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
-from k2transducerasr_tpu_torch.runtime.checkpoint import tree_map
+from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
+from k2transducerasr_tpu_torch.testing import tie_aware_replay
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
 
 # family -> its config and causal (streaming) config, the kernel its attention
 # launches (once per layer: per flagship batch and per streaming step; None:
-# the family launches no kernel), and its pins
-# (tests/test_pinned_transcripts.py)
+# the family launches no attention kernel), its pins
+# (tests/test_pinned_transcripts.py), and whether greedy search runs the
+# rnnt_greedy kernel (every transducer: once per batch and per step)
 FAMILIES = {
     "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                        kernel="relpos_attn_probs",
                        per_batch=sum(Zipformer2Config().num_encoder_layers),
                        pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
                        pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
-                       online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6"),
+                       online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6",
+                       greedy=True),
     "conformer": dict(cfg=ConformerConfig, stream_cfg=lambda: ConformerConfig(causal=True),
                       kernel="relpos_attn_ctx",
                       per_batch=ConformerConfig().num_layers,
                       pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
-                      online_pin_text="tok28tok28tok28tok28"),
+                      online_pin_text="tok28tok28tok28tok28", greedy=True),
     # the zipformer2 encoder under a CTC head (vocab 500 at full width)
     "zipformer2ctc": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                           kernel="relpos_attn_probs",
                           per_batch=sum(Zipformer2Config().num_encoder_layers),
-                          pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27"),
+                          pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27",
+                          greedy=False),
     # zipformer v1 (icefall pruned_transducer_stateless7): 15 layers, 8 heads
     # of 24, K1 once per layer
     "zipformer": dict(cfg=ZipformerConfig, stream_cfg=lambda: ZipformerConfig(causal=True),
@@ -131,12 +154,14 @@ FAMILIES = {
                       per_batch=sum(ZipformerConfig().num_encoder_layers),
                       pin_text="tok5tok17tok5tok17tok5tok17tok5tok17",
                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
-                      online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23"),
+                      online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23",
+                      greedy=True),
     # the LSTM transducer: a cuDNN recurrence, no kernel of this port
     "lstm": dict(cfg=LstmConfig, stream_cfg=LstmConfig, kernel=None, per_batch=0,
                  pin_text="tok6tok15tok15tok15tok15tok15tok15",
                  pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
-                 online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9"),
+                 online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9",
+                 greedy=True),
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
@@ -174,7 +199,11 @@ BEAM_PINS = {
                     _TS16)],
     },
 }
-KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx}
+KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx,
+           "rnnt_greedy": rnnt_greedy.greedy_frames_skip}
+GREEDY = "greedy_search"
+# rnnt_greedy's launches on each counted path, filled in by the phases
+GREEDY_PATHS: dict[str, int] = {}
 
 # flagship (Zipformer2Config()) at 16 x 30 s: t_pad 3072 frames -> 1532
 # encoder-rate frames; (T, heads, layers) per stack at downsampling 1,2,4,8,4,2
@@ -220,6 +249,12 @@ MUTATIONS = [
      "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu", " * inv_l[r];", ";", "phase_k1"),
     ("K1 bf16 without the kv_start mask", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
      "rp::KeyMask mask(S, a.lens, a.kv_start,", "rp::KeyMask mask(S, a.lens, nullptr,", "phase_k1"),
+    ("greedy ties broken toward the higher index", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+     "(v == bv && i < bi)", "(v == bv && i > bi)", "phase_greedy"),
+    ("greedy extra_skip_sos ignored", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+     "(a.skip_sos && y == 1)", "(false && y == 1)", "phase_greedy"),
+    ("greedy timestamps without frame_offset", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+     "= offset + t + f;", "= t + f;", "phase_greedy"),
 ]
 
 
@@ -339,13 +374,23 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def family_launches(what, spec, counts) -> int:
-    """A run of one family launched its kernel and no other (a family
-    without a kernel launched none): the family's launches."""
-    kernel = spec["kernel"]
-    if any(n for k, n in counts.items() if k != kernel) or (kernel and not counts[kernel]):
-        raise AssertionError(f"{what} launched {counts}; expected {kernel or 'no kernel'} only")
-    return counts.get(kernel, 0)
+def path_kernels(spec, method=GREEDY) -> set:
+    """The kernels a run of the family launches: its attention kernel, and
+    under greedy search of a transducer rnnt_greedy."""
+    return ({spec["kernel"]} - {None}) | ({"rnnt_greedy"} if spec["greedy"] and method == GREEDY
+                                          else set())
+
+
+def family_launches(what, spec, counts, method=GREEDY) -> int:
+    """A run of one family launched each kernel of its path and no other;
+    rnnt_greedy's launches are recorded in GREEDY_PATHS under ``what``.
+    Returns the family's attention kernel's launches."""
+    want = path_kernels(spec, method)
+    if {k for k, n in counts.items() if n} != want:
+        raise AssertionError(f"{what} launched {counts}; expected {sorted(want) or 'none'}")
+    if "rnnt_greedy" in want:
+        GREEDY_PATHS[what] = counts["rnnt_greedy"]
+    return counts.get(spec["kernel"], 0)
 
 
 def reset_peak_memory():
@@ -464,9 +509,11 @@ def phase_k1(bw):
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((f"stream-stack{si}-T{t}-S{s}", "zipformer2", STREAM_LANES, t, s, h, QD,
                           dtype, {"kv_start": True}, 0, layers))
-    # past the float32 body's shared-memory cap of 11,249 keys: bf16 takes any S
-    cases.append(("long-T32-S12000", "zipformer2", FLAGSHIP_B, 32, 12000, 4, QD, torch.bfloat16,
-                  {}, 0, 0))
+    # past the 11,249 keys the float32 body once held in shared memory: both
+    # bodies tile the key axis and take any S
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(("long-T32-S12000", "zipformer2", FLAGSHIP_B, 32, 12000, 4, QD, dtype, {},
+                      0, 0))
     # zipformer v1: q head 24 (the bf16 body pads it to 32), T down to 2
     for si, (t, layers) in enumerate(V1_STACKS):
         for dtype in (torch.bfloat16, torch.float32):
@@ -629,6 +676,222 @@ def phase_k2(bw):
     return rows, worst
 
 
+# [3c] the greedy search kernel.  GREEDY_T: encoder frames of a 30 s lane of
+# Zipformer2Config() (t_pad 3072 -> 1532 at the first stack -> 766 out);
+# GREEDY_STEPS streaming steps are chained through the kernel's state
+GREEDY_T = (FLAGSHIP_STACKS[0][0] + 1) // 2
+GREEDY_STEPS = 8
+GREEDY_ULPS = 2.0  # bf16: the tie-aware replay's margin (decode/rnnt_greedy.py)
+GREEDY_MAX_TOKENS = 1024  # OfflineRecognizer's default buffer
+GREEDY_FIELDS = ("hyp", "tokens", "timestamps", "count", "trailing_blanks")
+
+
+def _greedy_lens(b, t):
+    """Ragged valid frames: lane i loses i/2b of T, the last lane has none."""
+    lens = torch.tensor([t - (i * t) // (2 * b) for i in range(b)], device="cuda")
+    lens[-1] = 0
+    return lens
+
+
+def _greedy_bytes_ops(ops, b, frames, emissions):
+    """The least bytes and operations of one search, counted from what this
+    run's data needs: the valid frames of enc_proj read once, the two
+    weights and biases once, the context-table rows the emissions gather
+    (at most the whole tables), the small state (contexts, decoder outputs,
+    counts, trailing blanks) read and written once, the lanes' lengths and
+    offsets read, and 16 bytes written per emission (its token and
+    timestamp); a joiner row per valid frame (2 J V) and a decoder refresh
+    per emission (2 D J)."""
+    c, v, d = ops.tables.shape
+    j = ops.joiner_dim
+    e = 4 if ops.compute_dtype is None else 2
+    weights = (j * v + d * j) * e + (j + v) * 4
+    tables = min(c * v * d, emissions * c * d) * 4
+    state = b * c * 8 + b * j * e + 2 * b * 8
+    nbytes = frames * j * e + weights + tables + 2 * state + 2 * b * 8 + 16 * emissions
+    return nbytes, 2 * frames * j * v + 2 * emissions * d * j
+
+
+def _greedy_dyadic(dtype, v=500, d=512, j=512, ctx=2, seed=0):
+    """A decoder and joiner of small multiples of powers of two, and an
+    encoder-frame maker, such that every float32 sum of the search is exact
+    in any order: then the kernel equals the plain version bit for bit and
+    its tie rule shows.  Output columns 4 .. V-1 come in equal pairs (exact
+    ties); blank and sos carry large biases (blank runs, sos frames).  The
+    frames are +-16 .. 28 for float32 (tanh exactly +-1), +-1 .. 1.75 for
+    bf16 (the decoder state moves the logits)."""
+    rng = np.random.default_rng(seed)
+
+    def q(lo, hi, scale, shape):
+        return torch.from_numpy((rng.integers(lo, hi + 1, shape) * scale).astype(np.float32))
+
+    cfg = DecoderConfig(vocab_size=v, decoder_dim=d, context_size=ctx)
+    dp = {"embedding": {"table": q(-2, 2, 0.25, (v, d))},
+          "conv": {"w": q(-1, 1, 0.25, (ctx, 4, d))}}
+    w_out, b_out = q(-2, 2, 0.125, (j, v)), q(-2, 2, 0.125, (v,))
+    pairs = (v - 4) // 2
+    w_out[:, 5:5 + 2 * pairs:2] = w_out[:, 4:4 + 2 * pairs:2]
+    b_out[5:5 + 2 * pairs:2] = b_out[4:4 + 2 * pairs:2]
+    b_out[0] += 10.0
+    b_out[1] += 9.0
+    jp = {"decoder_proj": {"w": q(-1, 1, 2.0**-7, (d, j)), "b": q(-1, 1, 2.0**-6, (j,))},
+          "output": {"w": w_out, "b": b_out}}
+    tree = lambda x: {k: {n: a.numpy() for n, a in p.items()} for k, p in x.items()}  # noqa: E731
+    big = 16.0 if dtype is None else 1.0
+
+    def frames(b, t):
+        mag = big * (1.0 + torch.from_numpy(rng.integers(0, 4, (b, t, j))).float() * 0.25)
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], (b, t, j))).float()
+        x = (mag * sign).cuda()
+        return x if dtype is None else x.to(dtype)
+
+    return params_from_numpy(tree(dp), "cuda"), params_from_numpy(tree(jp), "cuda"), cfg, frames
+
+
+def _greedy_compare(case, dtype, dec, cfg, join, st, enc, lens, offset, sos, got, exact):
+    """The kernel's state ``got`` against the plain version from ``st``:
+    ``exact`` (dyadic inputs) every field bit for bit; float32 every field
+    but dec_proj exactly and dec_proj within F32_ATOL; bf16 the tie-aware
+    replay at GREEDY_ULPS.  Returns (max abs dec_proj error, frames decided
+    otherwise than the plain argmax)."""
+    def fail(detail):
+        raise AssertionError(f"rnnt_greedy {case}: kernel disagrees with plain ({detail})")
+
+    if exact or dtype is None:
+        want = rnnt_greedy.greedy_frames_skip_reference(dec, cfg, join, st, enc, lens, offset,
+                                                        sos, dtype)
+        for f in GREEDY_FIELDS:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                lanes = (getattr(got, f) != getattr(want, f)).reshape(len(lens), -1).any(1)
+                fail(f"{f} differs in lanes {lanes.nonzero()[:, 0].tolist()}")
+        err = float((got.dec_proj.float() - want.dec_proj.float()).abs().max())
+        if err > (0.0 if exact else F32_ATOL):
+            fail(f"dec_proj max abs error {err}")
+        return err, 0
+    res = tie_aware_replay(dec, cfg, join, st, enc, lens, offset, got, sos, dtype, GREEDY_ULPS)
+    if not res.ok:
+        fail(f"tie-aware replay: {res.reason}")
+    return 0.0, res.differing
+
+
+def _greedy_row(case, dtype, ops, st, got, enc, lens, bw, kernel, plain, err, differing,
+                exact):
+    b, t = enc.shape[:2]
+    frames = int(lens.clamp(max=t).sum())
+    emissions = int((got.count - st.count).sum())
+    ms = cuda_ms(kernel, reps=10)
+    dev_ms = device_ms(kernel, reps=10)
+    plain_ms = cuda_ms(plain, reps=2, warm=1)
+    peak_dtype = torch.float32 if dtype is None else dtype
+    bound_ms, bound_by = bound(*_greedy_bytes_ops(ops, b, frames, emissions), peak_dtype, bw)
+    row = {"case": case, "dtype": str(peak_dtype).split(".")[-1], "B": b, "T": t,
+           "J": ops.joiner_dim, "V": ops.vocab, "frames": frames, "emissions": emissions,
+           "max_abs_err": err, "differing_frames": differing, "exact": exact, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[3c] rnnt_greedy {case:20s} {row['dtype']:8s} B={b} T={t} J={row['J']} V={row['V']}: "
+        f"{frames} frames, {emissions} emissions, "
+        + ("bit for bit" if exact else f"max dec_proj err {err:.2e}" if dtype is None else
+           f"replay ok at {GREEDY_ULPS:g} ulps, {differing} frames decided otherwise than the "
+           f"plain argmax")
+        + f" | kernel {ms:.4f} ms (device {dev_ms:.4f}) | plain {plain_ms:.2f} ms | bound "
+        f"{bound_ms:.5f} ms ({bound_by}) | {bound_ms / ms:.2%} of bound")
+    return row
+
+
+def phase_greedy(bw):
+    """[3c] rnnt_greedy against its plain version at the main paths' shapes,
+    on the decoder and joiner of Zipformer2Config(causal=True) from seed 0
+    (vocab 500, decoder and joiner 512 wide, context 2) and random encoder
+    frames through its encoder projection; then on dyadic inputs.  Offline:
+    16 lanes x GREEDY_T frames from frame 0, extra_skip_sos False, every
+    lane full (the main path's batch, the headline) and ragged
+    (``_greedy_lens``).  Streaming: 16 lanes x one window's encoder frames, frame_offset per lane,
+    extra_skip_sos True, GREEDY_STEPS steps chained through the kernel's
+    state, each held against the plain version from the same state."""
+    bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
+                                seed=0, device="cuda")
+    dec, join, cfg = bundle.decoder, bundle.joiner, bundle.decoder_cfg
+    chunk = get_encoder("zipformer2").output_chunk_len(bundle.encoder_cfg)
+    enc_dim = join["encoder_proj"]["w"].shape[0]
+    b = FLAGSHIP_B
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+
+    def frames(t, dtype):
+        x = torch.randn((b, t, enc_dim), generator=g, device="cuda")
+        with torch.inference_mode():
+            return joiner_mod.project_encoder(join, x, dtype)
+
+    def run(case, dtype, dec, cfg, join, make, t, sos, steps, exact, ragged=True):
+        ops = rnnt_greedy.greedy_operands(dec, cfg, join, dtype)
+        st = rnnt_greedy.init_state(dec, cfg, join, b, GREEDY_MAX_TOKENS, dtype)
+        offset = (torch.arange(b, device="cuda") * 997) if steps > 1 else torch.zeros(
+            b, dtype=torch.int64, device="cuda")
+        worst, differing = 0.0, 0
+        for step in range(steps):
+            enc = make(t, dtype)
+            lens = _greedy_lens(b, t) if ragged else torch.full((b,), t, device="cuda")
+            if steps > 1:  # streaming: lanes that skip a step, or take part of a window
+                lens = torch.roll(lens, step)
+            with exact_f32():
+                got = rnnt_greedy.greedy_frames_skip(dec, cfg, join, st, enc, lens, offset, sos,
+                                                     dtype, operands=ops)
+                torch.cuda.synchronize()
+                err, diff = _greedy_compare(f"{case} step {step}", dtype, dec, cfg, join, st,
+                                            enc, lens, offset, sos, got, exact)
+            worst, differing = max(worst, err), differing + diff
+            if step == steps - 1:
+                def kernel(st=st, enc=enc, lens=lens, offset=offset):
+                    return rnnt_greedy.greedy_frames_skip(dec, cfg, join, st, enc, lens, offset,
+                                                          sos, dtype, operands=ops)
+
+                def plain(st=st, enc=enc, lens=lens, offset=offset):
+                    return rnnt_greedy.greedy_frames_skip_reference(dec, cfg, join, st, enc,
+                                                                    lens, offset, sos, dtype)
+
+                with exact_f32():
+                    rows.append(_greedy_row(case, dtype, ops, st, got, enc, lens, bw, kernel,
+                                            plain, worst, differing, exact))
+            st, offset = got, offset + lens
+
+    for dtype in (None, torch.bfloat16):
+        run("offline", dtype, dec, cfg, join, frames, GREEDY_T, False, 1, False, ragged=False)
+        run("offline-ragged", dtype, dec, cfg, join, frames, GREEDY_T, False, 1, False)
+        run("streaming", dtype, dec, cfg, join, frames, chunk, True, GREEDY_STEPS, False)
+    for dtype in (None, torch.bfloat16):
+        ddec, djoin, dcfg, make = _greedy_dyadic(dtype)
+        run("dyadic-offline", dtype, ddec, dcfg, djoin, lambda t, _: make(b, t), GREEDY_T,
+            False, 1, True)
+        run("dyadic-streaming", dtype, ddec, dcfg, djoin, lambda t, _: make(b, t), chunk, True,
+            GREEDY_STEPS, True)
+    del bundle
+    torch.cuda.empty_cache()
+    return rows
+
+
+def greedy_replay(name, rec, enc, lens):
+    """An offline main path's greedy search on one batch's encoder output
+    (bf16), held to the plain ops by the tie-aware replay (not part of any
+    counted run)."""
+    b, cd = rec.bundle, rec.compute_dtype
+    with torch.inference_mode():
+        proj = joiner_mod.project_encoder(b.joiner, enc, cd)
+        st = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, enc.shape[0],
+                                    rec.max_tokens, cd)
+        zero = torch.zeros((enc.shape[0],), dtype=torch.int64, device="cuda")
+        got = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, st, proj, lens,
+                                             zero, False, cd, operands=rec._greedy_ops)
+        res = tie_aware_replay(b.decoder, b.decoder_cfg, b.joiner, st, proj, lens, zero, got,
+                               False, cd, GREEDY_ULPS)
+    log(f"[6] {name} greedy search on one batch vs the plain ops: tie-aware replay "
+        f"{'ok' if res.ok else 'FAILED'} at {GREEDY_ULPS:g} ulps over {res.frames} frames, "
+        f"{res.differing} decided otherwise than the plain argmax (worst {res.worst_ulps:.2f} "
+        f"ulps)")
+    if not res.ok:
+        raise AssertionError(f"rnnt_greedy {name}: kernel disagrees with plain ({res.reason})")
+    return res
+
+
 def phase_golden(family):
     spec = FAMILIES[family]
     bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
@@ -639,7 +902,7 @@ def phase_golden(family):
     log(f"[4] {family} pin on card: {res.text!r} {res.timestamps} (launches {counts})")
     if res.text != spec["pin_text"] or res.timestamps != spec["pin_timestamps"]:
         raise AssertionError(f"{family} pin mismatch: {res.text!r} {res.timestamps}")
-    return family_launches(f"{family} pin decode", spec, counts)
+    return family_launches(f"{family}_pin_offline", spec, counts)
 
 
 def phase_online_pin(family):
@@ -656,7 +919,7 @@ def phase_online_pin(family):
     log(f"[4] {family} online pin on card: {res.text!r} {res.timestamps} (launches {counts})")
     if res.text != spec["online_pin_text"]:
         raise AssertionError(f"{family} online pin mismatch: {res.text!r}")
-    return family_launches(f"{family} online pin", spec, counts)
+    return family_launches(f"{family}_pin_online", spec, counts)
 
 
 def _nbest_pinned(results):
@@ -691,6 +954,8 @@ def phase_beam_pins(family) -> dict:
         raise AssertionError(f"{family} online beam pin mismatch: {got}")
     if 0 in launches.values():
         raise AssertionError(f"{family} beam pins did not launch {spec['kernel']}: {launches}")
+    if read_counts()["rnnt_greedy"]:
+        raise AssertionError(f"{family} beam pins launched rnnt_greedy")
     return launches
 
 
@@ -759,7 +1024,10 @@ def phase_streaming_vs_cpu(family):
         steps = stream_encoder_outputs(rec, pcm)
         stream = rec.create_online_stream()
         stream.add_samples(pcm)
+        reset_counts()
         res = rec.decode_to_end(stream)
+        if dev == "cuda":
+            family_launches(f"{family}_card_vs_cpu_streaming", FAMILIES[family], read_counts())
         outs[dev] = (steps, res)
         log(f"[5] {family} streaming full width f32 on {dev}: {len(steps)} steps of "
             f"{tuple(steps[0].shape)}, {len(res.tokens)} tokens, {time.time() - t0:.1f} s")
@@ -786,7 +1054,10 @@ def phase_full_width_vs_cpu(family):
         t0 = time.time()
         samples, counts = rec.pcm_batch(streams_for(rec, pcm))
         enc, lens = rec.encode(samples, counts)
+        reset_counts()
         res = rec.get_results(streams_for(rec, pcm))[0]
+        if dev == "cuda":
+            family_launches(f"{family}_card_vs_cpu_offline", FAMILIES[family], read_counts())
         outs[dev] = (enc.float().cpu(), lens.cpu(), res)
         log(f"[5] {family} full width f32 on {dev}: enc {tuple(enc.shape)}, "
             f"{len(res.tokens)} tokens, {time.time() - t0:.1f} s")
@@ -830,9 +1101,13 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     counts = read_counts()
     trips = rnnt_beam.beam_frames_skip.trips / n_batches
 
+    greedy = "rnnt_greedy" in path_kernels(spec, rec.decoding_method)
     want = {k: (spec["per_batch"] * n_batches if k == spec["kernel"] else 0) for k in KERNELS}
+    want["rnnt_greedy"] = n_batches if greedy else 0
     if counts != want:
         raise AssertionError(f"{name} main path launched {counts}, expected {want}")
+    if greedy:
+        GREEDY_PATHS[name] = counts["rnnt_greedy"]
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -861,6 +1136,8 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         if not bool(torch.isfinite(score).all()) or bool((score[:, 1:] > score[:, :-1]).any()):
             raise AssertionError(f"{name}: n-best scores not finite or not sorted")
     tag = "[8]" if accuracy else "[6]"
+    if greedy and not accuracy:
+        greedy_replay(name, rec, enc, lens)
     log(f"{tag} {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
         f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
         f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
@@ -911,10 +1188,14 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
 
     steps = len(lat)
     per_step = spec["per_batch"]  # one call per layer
+    greedy = "rnnt_greedy" in path_kernels(spec, rec.decoding_method)
     want = {k: (per_step * steps if k == spec["kernel"] else 0) for k in KERNELS}
+    want["rnnt_greedy"] = steps if greedy else 0  # every lane steps every time
     if counts != want:
         raise AssertionError(f"{name} streaming main path launched {counts} in {steps} steps, "
                              f"expected {want}")
+    if greedy:
+        GREEDY_PATHS[f"{name}/streaming"] = counts["rnnt_greedy"]
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
@@ -943,6 +1224,116 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
         + ("not measured (the profiler recorded no device activity)" if busy is None else
            f"{busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included)"))
     return row
+
+
+NO_WAIT_BATCHES = 7  # the pipeline's batches (bench.py drives 2-deep over its n_batches)
+
+
+def _no_sync(what, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any call that
+    makes the host wait for the card raises.  Returns (fn's value, its host
+    ms)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        host = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as e:
+        raise AssertionError(f"[6c] {what} made the host wait for the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, host
+
+
+def phase_no_wait() -> dict:
+    """[6c] zipformer2 and zipformer2-CTC at full width, 16 x 30 s, bf16:
+    begin_decode (reference_pad_compat off and on) and begin_step (16 lanes)
+    under set_sync_debug_mode("error"), each giving the tokens of the same
+    work done with waits; then the 2-deep pipeline of bench.py:385-395 over
+    NO_WAIT_BATCHES batches against the same batches one by one.  Returns
+    the pipeline's numbers."""
+    n = 30 * 16000
+    pipeline_rec = None
+    for family in ("zipformer2", "zipformer2ctc"):
+        spec = FAMILIES[family]
+        bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
+        for compat in (False, True):
+            rec = OfflineRecognizer(bundle, reference_pad_compat=compat, device="cuda")
+            batch = streams_for(rec, [synth_pcm(n, 600 + i) for i in range(FLAGSHIP_B)])
+            want = [(r.tokens, r.timestamps) for r in rec.get_results(batch)]  # warm, with waits
+            pending, host = _no_sync(f"{family} begin_decode (compat {compat})",
+                                     lambda: rec.begin_decode(batch))
+            t0 = time.perf_counter()
+            got = [(r.tokens, r.timestamps) for r in rec.end_decode(pending)]
+            wait = (time.perf_counter() - t0) * 1e3
+            log(f"[6c] {family}/{rec.decoding_method} begin_decode, reference_pad_compat={compat}:"
+                f" no host sync; host {host:.1f} ms, then end_decode waited {wait:.1f} ms; tokens "
+                f"equal to the run with waits: {got == want}")
+            if got != want:
+                raise AssertionError(f"[6c] {family} begin_decode (compat {compat}) gave other "
+                                     f"tokens than get_results")
+            if family == "zipformer2" and not compat:
+                pipeline_rec = rec
+        del bundle
+        sbundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
+                                     device="cuda")
+        online = OnlineRecognizer(sbundle, max_lanes=STREAM_LANES, device="cuda")
+        streams = []
+        for i in range(STREAM_LANES):
+            s = online.create_online_stream()
+            s.add_samples(synth_pcm(4 * 16000, 700 + i))
+            streams.append(s)
+        online.get_results(streams)  # warm
+        steps, host = [], []
+        while all(s._ready() for s in streams):
+            pending, ms = _no_sync(f"{family} begin_step", lambda: online.begin_step(streams))
+            online.end_step(pending)
+            steps.append(ms)
+        log(f"[6c] {family}/{online.decoding_method} begin_step, {STREAM_LANES} lanes: "
+            f"{len(steps)} steps with no host sync, host {statistics.median(steps):.2f} ms per "
+            f"step (median)")
+        if not steps:
+            raise AssertionError(f"[6c] {family}: no streaming step ran")
+        del online, sbundle
+
+    rec = pipeline_rec
+    batches = [streams_for(rec, [synth_pcm(n, 800 + k * FLAGSHIP_B + i)
+                                 for i in range(FLAGSHIP_B)]) for k in range(NO_WAIT_BATCHES)]
+    audio = NO_WAIT_BATCHES * FLAGSHIP_B * 30.0
+    rec.get_results(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [rec.get_results(bt) for bt in batches]
+    seq_s = time.perf_counter() - t0
+    host = []
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    pending = rec.begin_decode(batches[0])
+    host.append(time.perf_counter() - t1)
+    pipe = []
+    for k in range(1, NO_WAIT_BATCHES):
+        t1 = time.perf_counter()
+        nxt = rec.begin_decode(batches[k])
+        host.append(time.perf_counter() - t1)
+        pipe.append(rec.end_decode(pending))
+        pending = nxt
+    pipe.append(rec.end_decode(pending))
+    pipe_s = time.perf_counter() - t0
+    same = [[r.tokens for r in b] for b in seq] == [[r.tokens for r in b] for b in pipe]
+    out = dict(sequential_audio_s_per_s=audio / seq_s, pipelined_audio_s_per_s=audio / pipe_s,
+               sequential_batch_ms=seq_s / NO_WAIT_BATCHES * 1e3,
+               pipelined_batch_ms=pipe_s / NO_WAIT_BATCHES * 1e3,
+               begin_decode_host_ms=statistics.mean(host) * 1e3, batches=NO_WAIT_BATCHES)
+    log(f"[6c] zipformer2/greedy_search pipeline, {NO_WAIT_BATCHES} batches x {FLAGSHIP_B} x 30 s "
+        f"bf16: sequential {out['sequential_audio_s_per_s']:.1f} audio-s/s "
+        f"({out['sequential_batch_ms']:.1f} ms/batch), 2-deep pipelined "
+        f"{out['pipelined_audio_s_per_s']:.1f} audio-s/s ({out['pipelined_batch_ms']:.1f} "
+        f"ms/batch); begin_decode host {out['begin_decode_host_ms']:.1f} ms per batch; tokens "
+        f"equal: {same}")
+    if not same:
+        raise AssertionError("[6c] the pipelined batches gave other tokens than the sequential")
+    return out
 
 
 def device_busy_share(fn, reps: int) -> float | None:
@@ -1160,7 +1551,7 @@ def phase_ingest():
     rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
     reset_counts()
     got = [rec.get_result(streams_for(rec, [x])[0]) for x in (pcm_native, pcm_numpy)]
-    launches = family_launches("[9] ingest decodes", FAMILIES["zipformer2"], read_counts())
+    launches = family_launches("ingest_pin", FAMILIES["zipformer2"], read_counts())
     log(f"[9] zipformer2 pin on card, f32: native route {len(got[0].tokens)} tokens, numpy route "
         f"{len(got[1].tokens)}; identical: {got[0].tokens == got[1].tokens}")
     if (got[0].tokens, got[0].timestamps) != (got[1].tokens, got[1].timestamps):
@@ -1234,8 +1625,10 @@ def phase_convert(tmp):
         f"identical to the source bundle's: {res[0].tokens == res[1].tokens}; launches {counts}")
     if (res[0].tokens, res[0].timestamps) != (res[1].tokens, res[1].timestamps):
         raise AssertionError("the converted dir decodes other tokens than its source bundle")
-    if counts != {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"], "relpos_attn_ctx": 0}:
+    if counts != {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"], "relpos_attn_ctx": 0,
+                  "rnnt_greedy": 1}:
         raise AssertionError(f"the converted dir's decode launched {counts}")
+    GREEDY_PATHS["converted_offline"] = counts["rnnt_greedy"]
     return launches, t2 - t1
 
 
@@ -1297,7 +1690,7 @@ def phase_cli(tmp) -> dict:
         log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}")
         if rc not in (0, None) or text != pin:
             raise AssertionError(f"[11] {name} printed {lines!r}; expected {pin!r}")
-        launches[name] = family_launches(f"[11] {name}", spec, counts)
+        launches[name] = family_launches(name, spec, counts)
     t0 = time.perf_counter()
     rc, lines = _captured(cli_main, ["convert", os.path.join(tmp, "onnx"),
                                      os.path.join(tmp, "cli_dir")])
@@ -1502,9 +1895,10 @@ def phase_parallel(tmp) -> dict:
     else:
         log("[12] nccl: not run (one card)")
     want_tp = {"zipformer2": {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"],
-                              "relpos_attn_ctx": 0},
+                              "relpos_attn_ctx": 0, "rnnt_greedy": 1},
                "conformer": {"relpos_attn_probs": 0,
-                             "relpos_attn_ctx": FAMILIES["conformer"]["per_batch"]}}
+                             "relpos_attn_ctx": FAMILIES["conformer"]["per_batch"],
+                             "rnnt_greedy": 1}}
     want_dp = want_tp["zipformer2"]
     for backend, ranks in runs.items():
         for r in ranks:
@@ -1531,10 +1925,14 @@ def phase_parallel(tmp) -> dict:
                     raise AssertionError(f"{tag} {path} differs from one process")
                 if path == "dp_offline" and got["launches"] != want_dp:
                     raise AssertionError(f"{tag} {path} launched {got['launches']}")
-                if path == "dp_streaming" and not got["launches"]["relpos_attn_probs"]:
-                    raise AssertionError(f"{tag} {path} launched no K1")
+                if path == "dp_streaming" and not (got["launches"]["relpos_attn_probs"]
+                                                   and got["launches"]["rnnt_greedy"]):
+                    raise AssertionError(f"{tag} {path} launched no K1 or no rnnt_greedy")
     gloo = runs["gloo"]
     total = lambda path, k: sum(r[path]["launches"][k] for r in gloo)  # noqa: E731
+    for r in gloo:  # every rank launches the greedy kernel on its own rows
+        for path in ("tp_zipformer2", "tp_conformer", "dp_offline", "dp_streaming"):
+            GREEDY_PATHS[f"{path}_rank{r['rank']}"] = r[path]["launches"]["rnnt_greedy"]
     return {"relpos_attn_probs": {"tp_offline": total("tp_zipformer2", "relpos_attn_probs"),
                                   "dp_offline": total("dp_offline", "relpos_attn_probs"),
                                   "dp_streaming": total("dp_streaming", "relpos_attn_probs")},
@@ -1597,6 +1995,37 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
     }
 
 
+def greedy_kernel_line(rows) -> dict:
+    """rnnt_greedy's entry: the headline numbers are the offline bf16 case
+    (one launch per 16 x 30 s batch of the main path), ``streaming`` the bf16
+    streaming step's; ``max_abs_err`` the worst float32 dec_proj error
+    against the plain version (every other field exact; bf16 is held by the
+    replay, its frames decided otherwise counted in ``cases``)."""
+    def pick(case):
+        return next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
+
+    head, step = pick("offline"), pick("streaming")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    return {
+        "name": "rnnt_greedy",
+        "route": "cuda",
+        "source": "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+        "replaces": "k2transducerasr_tpu/decode/rnnt_greedy.py:138",
+        "launches": sum(GREEDY_PATHS.values()),
+        "launches_by_path": dict(GREEDY_PATHS),
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
+        **{k: head[k] for k in keys},
+        "library_ms": None,
+        "streaming": {f"{k}_per_step": step[k] for k in keys},
+        "per": "one greedy search of a 16 x 30 s batch (B=16, T=766, J=512, V=500, bf16, "
+               "random weights: an emission on most frames); streaming: one step of 16 lanes "
+               "(T = one window's encoder frames); launches: one per offline batch and per "
+               "streaming step of every transducer greedy path, per rank in [12] "
+               "(launches_by_path); library_ms null: no PyTorch call runs a greedy search",
+        "cases": rows,
+    }
+
+
 def mutation_check() -> int:
     """Each of MUTATIONS, in a throwaway copy, must make its phase fail."""
     import shutil
@@ -1643,6 +2072,7 @@ def main() -> int:
     phase_build()
     k1_rows, k1_worst = phase_k1(bw)
     k2_rows, k2_worst = phase_k2(bw)
+    greedy_rows = phase_greedy(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
@@ -1654,6 +2084,7 @@ def main() -> int:
     launches_beam = phase_main_path("zipformer2", BEAM)
     streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
     streaming_beam = phase_streaming_main_path("zipformer2", BEAM)
+    no_wait = phase_no_wait()
     for family in INT8_FAMILIES:
         phase_int8_vs_cpu(family)
     launches_int8 = {family: phase_main_path(family, accuracy="int8") for family in INT8_FAMILIES}
@@ -1665,7 +2096,8 @@ def main() -> int:
         cli_launches = phase_cli(tmp)
         par_launches = phase_parallel(tmp)
     print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
-                      "int_mm": int_mm, "convert_host_s": convert_s}), flush=True)
+                      "int_mm": int_mm, "convert_host_s": convert_s, "no_wait": no_wait}),
+          flush=True)
 
     def paths(family):
         return {"offline": launches[family], "streaming": streaming[family]["launches"],
@@ -1714,6 +2146,7 @@ def main() -> int:
                     "per batch, summed over the 2 ranks; library_ms: "
                     "scaled_dot_product_attention with the skewed position bias precomputed "
                     "(not timed)"),
+        greedy_kernel_line(greedy_rows),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,14 +34,19 @@
 // launch by template per operand group; the zero pad columns are written
 // once.
 //
-// float32 inputs: the CUDA-core body below, unchanged from the first port
-// (tensor cores would round f32 to TF32, which the exact float32 paths on
-// the card forbid).  One block of 256 threads per (b, h, `rows` query rows);
-// the whole score rows [rows][S] stay in shared memory in float32, then one
-// warp per row takes the max and sum and writes coalesced rows.  `rows` is
-// chosen by the wrapper so the score rows fit shared memory, which caps S.
-// Its pos dot runs as pd float32 FMAs in order, as the TPU kernel's
-// pos_vpu path does.
+// float32 inputs: the CUDA-core body below (tensor cores would round f32 to
+// TF32, which the exact float32 paths on the card forbid).  One block of 256
+// threads per (b, h, `rows` <= 8 query rows), over tiles of 256 keys: each
+// thread scores one key of the tile for every row (the tile's pos_k rows
+// staged in shared memory), then one warp per row writes the raw scores to
+// its output row, coalesced, and folds them into the row's running max and
+// sum.  A second pass reads the row back and rescales it in place to
+// exp(score - max) / sum.  Each score is computed once, and shared memory
+// holds one tile, not whole score rows, so any S runs, with pd up to 64;
+// the price is one more write and read of the float32 probs, which the
+// scores' FMAs outweigh.  Its output is float32; the wrapper casts for a
+// bf16 output.  Its pos dot runs as pd float32 FMAs in order, as the TPU
+// kernel's pos_vpu path does.
 //
 // What bounds it on an H100: writing the probs.  A call reads 2*B*T*H*qd
 // q/k values plus small pos tensors and writes B*H*T*S probs; at the
@@ -234,24 +239,17 @@ namespace cuda_core {
 
 constexpr float kNegInf = -1e9f;  // ops/layers.NEG_INF
 constexpr int kMaxQd = 64;        // q row stride in shared memory
-constexpr int kMaxPd = 8;         // pos_q row stride in shared memory
+constexpr int kMaxPd = 64;        // pos_q row stride in shared memory
+constexpr int kMaxRows = 8;       // query rows per block: one warp each
 constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int kTile = kThreads;   // keys per tile: one per thread
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) / 4 * 4; }
 
 // must match _smem_bytes() in ops/attention_cuda.py
-size_t smem_bytes(int rows, int s, int pd) {
+size_t smem_bytes(int rows, int pd) {
   return sizeof(float) * ((size_t)rows * kMaxQd + (size_t)rows * kMaxPd +
-                          (size_t)(s + rows - 1) * round4(pd) + (size_t)rows * s);
+                          (size_t)(kTile + rows - 1) * round4(pd) + (size_t)rows * kTile);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -265,12 +263,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // QD: register length of one key vector (qd <= QD, zero-padded).
-template <typename Tout, int QD>
+template <int QD>
 __global__ void __launch_bounds__(kThreads)
 relpos_attn_probs_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ pq, const float* __restrict__ pk,
                          const int* __restrict__ lens, const int* __restrict__ kv_start,
-                         Tout* __restrict__ out, int T, int S, int H, int qd, int pd,
+                         float* __restrict__ out, int T, int S, int H, int qd, int pd,
                          int chunk, int left, int rows) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z;
@@ -278,13 +276,13 @@ relpos_attn_probs_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int t0 = blockIdx.x * rows;
   const int nrows = min(rows, T - t0);
   const int pd4 = round4(pd);
-  const int nm = S + nrows - 1;      // pos_k rows this block reads
-  const int m_lo = T - t0 - nrows;   // first of them: (T-1) - (t0 + nrows - 1)
+  const int n_pos = T + S - 1;       // rows of pos_k
+  const int m_lo = T - t0 - nrows;   // pos_k row of (query t0 + nrows - 1, key 0)
 
   float* sq = smem;                  // [rows][kMaxQd]
   float* spq = sq + rows * kMaxQd;   // [rows][kMaxPd]
-  float* spk = spq + rows * kMaxPd;  // [nm][pd4]
-  float* sc = spk + (S + rows - 1) * pd4;  // [rows][S] scores, then exp
+  float* spk = spq + rows * kMaxPd;  // [kTile + rows - 1][pd4]: the tile's pos_k rows
+  float* sc = spk + (kTile + rows - 1) * pd4;  // [rows][kTile] the tile's scores
 
   for (int i = threadIdx.x; i < rows * kMaxQd; i += blockDim.x) {
     const int r = i / kMaxQd, d = i % kMaxQd;
@@ -296,93 +294,106 @@ relpos_attn_probs_kernel(const float* __restrict__ q, const float* __restrict__ 
     spq[i] = (r < nrows && j < pd)
                  ? pq[(((size_t)b * T + t0 + r) * H + h) * pd + j] : 0.f;
   }
-  for (int i = threadIdx.x; i < nm * pd4; i += blockDim.x) {
-    const int m = i / pd4, j = i % pd4;
-    spk[i] = j < pd ? pk[((size_t)(m_lo + m) * H + h) * pd + j] : 0.f;
-  }
-  __syncthreads();
 
   const int limit = relpos::lane_limit(lens, b, S);
   const int start = relpos::lane_start(kv_start, b);
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float kr[QD];
-    const float* kp = k + (((size_t)b * S + s) * H + h) * qd;
-#pragma unroll
-    for (int d = 0; d < QD; ++d) kr[d] = d < qd ? kp[d] : 0.f;
-    const bool key_ok = s < limit && s >= start;
-    for (int r = 0; r < nrows; ++r) {
-      const float4* q4 = reinterpret_cast<const float4*>(sq + r * kMaxQd);
-      float acc = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < QD / 4; ++d4) {
-        const float4 v = q4[d4];
-        acc = fmaf(v.x, kr[4 * d4 + 0], acc);
-        acc = fmaf(v.y, kr[4 * d4 + 1], acc);
-        acc = fmaf(v.z, kr[4 * d4 + 2], acc);
-        acc = fmaf(v.w, kr[4 * d4 + 3], acc);
-      }
-      // skew: query t0+r, key s -> pos_k row (T-1) - (t0+r) + s
-      const float4* pk4 = reinterpret_cast<const float4*>(spk + (nrows - 1 - r + s) * pd4);
-      const float4* pq4 = reinterpret_cast<const float4*>(spq + r * kMaxPd);
-      float m = 0.f;
-      for (int j4 = 0; j4 < pd4 / 4; ++j4) {
-        const float4 a = pq4[j4], c = pk4[j4];
-        m = fmaf(a.x, c.x, m);
-        m = fmaf(a.y, c.y, m);
-        m = fmaf(a.z, c.z, m);
-        m = fmaf(a.w, c.w, m);
-      }
-      bool valid = key_ok;
-      if (chunk > 0) {
-        const int cs = ((t0 + r) / chunk) * chunk;
-        valid = valid && s <= cs + chunk - 1 && s >= cs - left;
-      }
-      sc[r * S + s] = valid ? acc + m : kNegInf;
-    }
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < nrows; r += blockDim.x / 32) {
-    float* row = sc + r * S;
-    float mx = -INFINITY;
-    for (int s = lane; s < S; s += 32) mx = fmaxf(mx, row[s]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float e = expf(row[s] - mx);
-      row[s] = e;
-      sum += e;
+  float* o = out + (((size_t)b * H + h) * T + t0 + warp) * S;  // warp r's row r
+  float m_run = -INFINITY, l_run = 0.f;  // its running max and sum
+  // pass 1, tile by tile: score, write the raw scores to the row, fold them
+  // into its running max and sum
+  for (int s0 = 0; s0 < S; s0 += kTile) {
+    __syncthreads();  // the last tile's pos rows and scores are free
+    for (int x = threadIdx.x; x < (kTile + nrows - 1) * pd4; x += blockDim.x) {
+      const int m = x / pd4, j = x % pd4, row = m_lo + s0 + m;
+      spk[x] = (j < pd && row < n_pos) ? pk[((size_t)row * H + h) * pd + j] : 0.f;
     }
-    sum = warp_sum(sum);
-    Tout* o = out + (((size_t)b * H + h) * T + t0 + r) * S;
-    for (int s = lane; s < S; s += 32) o[s] = from_f32<Tout>(row[s] / sum);
+    __syncthreads();
+
+    const int s = s0 + threadIdx.x;
+    if (s < S) {
+      float kr[QD];
+      const float* kp = k + (((size_t)b * S + s) * H + h) * qd;
+#pragma unroll
+      for (int d = 0; d < QD; ++d) kr[d] = d < qd ? kp[d] : 0.f;
+      const bool key_ok = s < limit && s >= start;
+      for (int r = 0; r < nrows; ++r) {
+        const float4* q4 = reinterpret_cast<const float4*>(sq + r * kMaxQd);
+        float acc = 0.f;
+#pragma unroll
+        for (int d4 = 0; d4 < QD / 4; ++d4) {
+          const float4 v = q4[d4];
+          acc = fmaf(v.x, kr[4 * d4 + 0], acc);
+          acc = fmaf(v.y, kr[4 * d4 + 1], acc);
+          acc = fmaf(v.z, kr[4 * d4 + 2], acc);
+          acc = fmaf(v.w, kr[4 * d4 + 3], acc);
+        }
+        // skew: query t0+r, key s -> pos_k row (T-1) - (t0+r) + s
+        const float4* pk4 =
+            reinterpret_cast<const float4*>(spk + (nrows - 1 - r + threadIdx.x) * pd4);
+        const float4* pq4 = reinterpret_cast<const float4*>(spq + r * kMaxPd);
+        float m = 0.f;
+        for (int j4 = 0; j4 < pd4 / 4; ++j4) {
+          const float4 a = pq4[j4], c = pk4[j4];
+          m = fmaf(a.x, c.x, m);
+          m = fmaf(a.y, c.y, m);
+          m = fmaf(a.z, c.z, m);
+          m = fmaf(a.w, c.w, m);
+        }
+        bool valid = key_ok;
+        if (chunk > 0) {
+          const int cs = ((t0 + r) / chunk) * chunk;
+          valid = valid && s <= cs + chunk - 1 && s >= cs - left;
+        }
+        sc[r * kTile + threadIdx.x] = valid ? acc + m : kNegInf;
+      }
+    } else {
+      for (int r = 0; r < nrows; ++r) sc[r * kTile + threadIdx.x] = -INFINITY;  // no key
+    }
+    __syncthreads();
+
+    if (warp < nrows) {
+      const float* row = sc + warp * kTile;
+      float mx = -INFINITY;
+      for (int c = lane; c < kTile; c += 32) {
+        mx = fmaxf(mx, row[c]);
+        if (s0 + c < S) o[s0 + c] = row[c];
+      }
+      const float m_new = fmaxf(m_run, warp_max(mx));  // finite: key s0 < S is in the tile
+      float sum = 0.f;
+      for (int c = lane; c < kTile; c += 32) sum += expf(row[c] - m_new);
+      l_run = l_run * expf(m_run - m_new) + warp_sum(sum);  // 0 on the first tile
+      m_run = m_new;
+    }
   }
+  // pass 2: exp(score - max) / sum in place; each lane reads back only the
+  // columns it wrote (s = lane mod 32, as kTile is a multiple of 32)
+  if (warp < nrows)
+    for (int s = lane; s < S; s += 32) o[s] = expf(o[s] - m_run) / l_run;
 }
 
-template <typename Tout, int QD>
+template <int QD>
 cudaError_t launch(const float* q, const float* k, const float* pq, const float* pk,
-                   const int* lens, const int* kv_start, void* out, int B, int T, int S,
+                   const int* lens, const int* kv_start, float* out, int B, int T, int S,
                    int H, int qd, int pd, int chunk, int left, int rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes(rows, S, pd);
-  const cudaError_t err = relpos::allow_smem<relpos_attn_probs_kernel<Tout, QD>>(smem, false);
+  const size_t smem = smem_bytes(rows, pd);
+  const cudaError_t err = relpos::allow_smem<relpos_attn_probs_kernel<QD>>(smem, false);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + rows - 1) / rows, H, B);
-  relpos_attn_probs_kernel<Tout, QD><<<grid, kThreads, smem, stream>>>(
-      q, k, pq, pk, lens, kv_start, static_cast<Tout*>(out), T, S, H, qd, pd, chunk, left, rows);
+  relpos_attn_probs_kernel<QD><<<grid, kThreads, smem, stream>>>(
+      q, k, pq, pk, lens, kv_start, out, T, S, H, qd, pd, chunk, left, rows);
   return cudaGetLastError();
 }
 
-template <typename Tout>
 cudaError_t dispatch_qd(const float* q, const float* k, const float* pq, const float* pk,
-                        const int* lens, const int* kv_start, void* out, int B, int T,
-                        int S, int H, int qd, int pd, int chunk, int left, int rows,
+                        const int* lens, const int* kv_start, float* out, int B, int T, int S,
+                        int H, int qd, int pd, int chunk, int left, int rows,
                         cudaStream_t stream) {
   if (qd <= 32)
-    return launch<Tout, 32>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left,
-                            rows, stream);
-  return launch<Tout, kMaxQd>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk,
-                              left, rows, stream);
+    return launch<32>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left, rows,
+                      stream);
+  return launch<kMaxQd>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left,
+                        rows, stream);
 }
 
 }  // namespace cuda_core
@@ -390,11 +401,12 @@ cudaError_t dispatch_qd(const float* q, const float* k, const float* pq, const f
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 inputs run the
-// tensor-core body (qd, pd <= 64, any S; `rows` unused), float32 inputs the
-// CUDA-core body (qd <= 64, pd <= 8, `rows` query rows per block).  A null
-// `lens` means every key is valid, a null `kv_start` means 0.  Returns
-// the launch's cudaError_t (0 on success); the wrapper validates shapes,
-// dtypes and these limits.
+// tensor-core body (qd, pd <= 64, any S, either output dtype; `rows`
+// unused), float32 inputs the CUDA-core body (qd, pd <= 64, any S, `rows`
+// <= 8 query rows per block, float32 output only).  A null `lens` means
+// every key is valid, a null `kv_start` means 0.  Returns the launch's
+// cudaError_t (0 on success); the wrapper validates shapes, dtypes and
+// these limits.
 extern "C" int k2t_relpos_attn_probs(const void* q, const void* k, const void* pq,
                                      const void* pk, const void* lens, const void* kv_start,
                                      void* out, int B, int T, int S, int H, int qd, int pd,
@@ -412,13 +424,11 @@ extern "C" int k2t_relpos_attn_probs(const void* q, const void* k, const void* p
                      out_dtype == 0, T, S, H, qd, pd, chunk, left};
     return (int)tc::run(a, B, st);
   }
-  if (in_dtype != 0 || qd > cuda_core::kMaxQd || pd > cuda_core::kMaxPd || rows <= 0)
+  if (in_dtype != 0 || out_dtype != 0 || qd > cuda_core::kMaxQd || pd > cuda_core::kMaxPd ||
+      rows <= 0 || rows > cuda_core::kMaxRows)
     return (int)cudaErrorInvalidValue;
-  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
-              *fpq = static_cast<const float*>(pq), *fpk = static_cast<const float*>(pk);
-  if (out_dtype == 0)
-    return cuda_core::dispatch_qd<float>(fq, fk, fpq, fpk, ln, ks, out, B, T, S, H, qd, pd, chunk,
-                                         left, rows, st);
-  return cuda_core::dispatch_qd<__nv_bfloat16>(fq, fk, fpq, fpk, ln, ks, out, B, T, S, H, qd, pd,
-                                               chunk, left, rows, st);
+  return (int)cuda_core::dispatch_qd(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(pq),
+      static_cast<const float*>(pk), ln, ks, static_cast<float*>(out), B, T, S, H, qd, pd, chunk,
+      left, rows, st);
 }

@@ -11,8 +11,9 @@ each new beam's parent state and a masked token append.
 over a window of frames for every beam, skips the frames where the top K
 are provably all blank in closed form, and takes the exact per-frame step
 at the first frame that may emit.  The reference runs it as a
-``lax.while_loop``; here it is a Python loop with one host sync per trip,
-as ``rnnt_greedy.greedy_frames_skip`` is.  ``beam_frames`` (one step per
+``lax.while_loop``; here it is a Python loop with one host sync per trip
+(``rnnt_greedy.greedy_frames_skip`` runs its loop as one CUDA kernel on the
+card; this search has no kernel yet).  ``beam_frames`` (one step per
 frame) is the oracle it is tested against.
 
 Ordering: ``jax.lax.top_k`` puts equal values lower index first, and

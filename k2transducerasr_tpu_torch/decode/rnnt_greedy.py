@@ -1,31 +1,52 @@
 """Batched RNN-T greedy search — PyTorch port of
 ``k2transducerasr_tpu/decode/rnnt_greedy.py``.
 
-``greedy_frames_skip`` is the production path: each trip evaluates the
-joiner over a window of frames for every lane, emits at each lane's first
-non-blank argmax, refreshes the decoder, and moves that lane's frame pointer
-past the emission.  The reference runs it as a ``lax.while_loop`` on the
-device; here it is a Python loop with one host sync per trip (the loop
-condition).  ``greedy_frames`` (one step per frame) is the oracle it is
-tested against.
+``greedy_frames_skip`` is the production path.  The reference runs it as
+one ``lax.while_loop`` on the device; here, for CUDA tensors, it is one
+launch of a hand-written kernel (``csrc/rnnt_greedy.cu``) that runs each
+lane's whole search on the card, so a caller that queues it does not wait.
+For CPU tensors it runs ``greedy_frames_skip_reference``, the plain
+version: each trip evaluates the joiner over a window of frames for every
+lane, emits at each lane's first non-blank argmax, refreshes the decoder,
+and moves that lane's frame pointer past the emission, with one host sync
+per trip (the loop condition).  ``greedy_frames`` (one step per frame) is
+the oracle both are tested against; the result does not depend on the
+window.
 
 Semantics (as the reference): blank=0, sos/eos=1, unk=2; emission skips
 {blank, unk} (and 1 with ``extra_skip_sos``); max one symbol per frame;
 timestamps are emission frame indices (+ ``frame_offset``); lanes past their
 ``enc_lens`` or with a full token buffer do not emit.  The token buffers are
-updated in place (the reference's functional ``.at[].set``).
+updated in place (the reference's functional ``.at[].set``) on copies of
+the state's.
+
+``greedy_operands`` builds the kernel's operands from the decoder and
+joiner (the folded context tables, the weights in the kernel's layouts);
+a recognizer builds them once and passes them to every call.
+``k2transducerasr_tpu_torch.testing.tie_aware_replay`` holds a bf16 search
+to the plain ops frame by frame.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.ops import cuda_build
 
 _UNK = 2
+# what the kernel takes (csrc/rnnt_greedy.cu): joiner and decoder widths,
+# context tokens
+MAX_JOINER_DIM = 1024
+MAX_DECODER_DIM = 1024
+MAX_CONTEXT = 8
+_DTYPE_CODE = {None: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -99,11 +120,14 @@ def greedy_frames(dec_params, dec_cfg, join_params, state: GreedyState, enc_proj
     return st
 
 
-def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc_proj,
-                       enc_lens, frame_offset, extra_skip_sos: bool = False,
-                       compute_dtype=None, window: int = 64) -> GreedyState:
-    """Blank-skipping greedy decode — identical results to ``greedy_frames``
-    in max-over-lanes(#tokens + ceil(T/window)) trips instead of T.
+def greedy_frames_skip_reference(dec_params, dec_cfg, join_params, state: GreedyState,
+                                 enc_proj, enc_lens, frame_offset,
+                                 extra_skip_sos: bool = False, compute_dtype=None,
+                                 window: int = 64) -> GreedyState:
+    """The plain version of ``greedy_frames_skip``: blank-skipping greedy
+    decode, identical results to ``greedy_frames`` in
+    max-over-lanes(#tokens + ceil(T/window)) trips instead of T, as a Python
+    loop with one host sync per trip (the loop condition).
 
     Per trip: each lane's window starts at ``clip(t_ptr, 0, T - w)``; the
     first non-blank argmax at or after ``t_ptr`` (and before ``enc_lens``)
@@ -149,6 +173,158 @@ def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc
         st = GreedyState(hyp, dec_proj, st.tokens, st.timestamps, count, trailing)
         t_ptr = t_new
     return st
+
+
+def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc_proj,
+                       enc_lens, frame_offset, extra_skip_sos: bool = False,
+                       compute_dtype=None, window: int = 64,
+                       operands: "GreedyOperands | None" = None) -> GreedyState:
+    """Blank-skipping greedy decode over ``T`` encoder frames — identical
+    results to ``greedy_frames``.  enc_proj: [B, T, J] joiner-projected
+    encoder frames.
+
+    CPU tensors run the plain version (``greedy_frames_skip_reference``,
+    ``window`` frames per trip).  CUDA tensors launch the kernel once, with
+    no host sync, or raise ``ValueError`` for what it does not take; there is
+    no fallback.  ``window`` does not change the result and the kernel does
+    not read it.  ``operands``: ``greedy_operands(dec_params, dec_cfg,
+    join_params, compute_dtype)``, built here when not given.
+    ``greedy_frames_skip.launches`` counts the kernel's launches."""
+    if enc_proj.device.type == "cpu":
+        return greedy_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
+                                            enc_lens, frame_offset, extra_skip_sos,
+                                            compute_dtype, window)
+    if enc_proj.device.type != "cuda":
+        raise ValueError(f"greedy_frames_skip: unsupported device {enc_proj.device}")
+    if operands is None:
+        operands = greedy_operands(dec_params, dec_cfg, join_params, compute_dtype)
+    return _launch_kernel(operands, dec_cfg, state, enc_proj, enc_lens, frame_offset,
+                          extra_skip_sos, compute_dtype)
+
+
+greedy_frames_skip.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GreedyOperands:
+    """The kernel's operands (``greedy_operands``), on the decoder's device.
+    Jp and Vp are J and V rounded up to 16 and 8 (zero padding)."""
+
+    tables: torch.Tensor  # [C, V, D] float32 — the folded context tables
+    dec_w: torch.Tensor  # [D, Jp] — decoder_proj.w in the compute dtype
+    dec_b: torch.Tensor  # [Jp] float32 — decoder_proj.b
+    out_w: torch.Tensor  # bf16: [Vp/8, Jp/16, 32, 4] mma fragments; f32: [Jp, Vp]
+    out_b: torch.Tensor  # [Vp] float32 — output.b
+    vocab: int
+    joiner_dim: int
+    compute_dtype: torch.dtype | None
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _bias(p, n: int, like: torch.Tensor) -> torch.Tensor:
+    return p["b"].float() if "b" in p else torch.zeros((n,), device=like.device)
+
+
+def greedy_operands(dec_params, dec_cfg, join_params, compute_dtype=None) -> GreedyOperands:
+    """The kernel's operands from the decoder and the joiner, built with
+    device ops only (no host sync): the folded context tables
+    (``decoder.context_tables``), ``decoder_proj`` with its weight in the
+    compute dtype (``apply_linear`` casts it the same way), and ``output``,
+    whose weight under bf16 is packed into the B fragments of
+    ``mma.sync.m16n8k16`` (``pack_mma_b``) and under float32 kept [Jp, Vp]."""
+    if compute_dtype not in _DTYPE_CODE:
+        raise ValueError(f"greedy kernel: compute_dtype must be None or bfloat16, "
+                         f"got {compute_dtype}")
+    tables = torch.stack([t.float() for t in decoder_mod.context_tables(dec_params, dec_cfg)])
+    dp, out = join_params["decoder_proj"], join_params["output"]
+    w_dp, w_out = dp["w"], out["w"]
+    d, j = w_dp.shape
+    v = w_out.shape[1]
+    if w_out.shape[0] != j or tables.shape[1:] != (v, d):
+        raise ValueError(f"greedy kernel: decoder tables {tuple(tables.shape)}, decoder_proj "
+                         f"{tuple(w_dp.shape)} and output {tuple(w_out.shape)} do not chain")
+    jp, vp = _round_up(j, 16), _round_up(v, 8)
+    wdt = torch.float32 if compute_dtype is None else compute_dtype
+    w_pad = F.pad(w_out.float(), (0, vp - v, 0, jp - j))
+    return GreedyOperands(
+        tables=tables.contiguous(),
+        dec_w=F.pad(w_dp.to(wdt), (0, jp - j)).contiguous(),
+        dec_b=F.pad(_bias(dp, j, w_dp), (0, jp - j)).contiguous(),
+        out_w=w_pad.contiguous() if compute_dtype is None else pack_mma_b(w_pad.to(wdt)),
+        out_b=F.pad(_bias(out, v, w_out), (0, vp - v)).contiguous(),
+        vocab=v, joiner_dim=j, compute_dtype=compute_dtype,
+    )
+
+
+def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
+    """w [Kp, Np] (Kp % 16 == 0, Np % 8 == 0) -> [Np/8, Kp/16, 32, 4]: for
+    each 8-column tile and 16-deep k-step, each lane's four values of the B
+    operand of ``mma.sync.m16n8k16.row.col`` in register order — lane
+    4g + q holds w[k0 + 2q + {0, 1, 8, 9}, n0 + g] — so a warp loads one
+    fragment as 256 contiguous bytes."""
+    kp, np_ = w.shape
+    x = w.reshape(kp // 16, 2, 4, 2, np_ // 8, 8)  # k = 16ks + 8h + 2q + e, n = 8nt + g
+    return x.permute(4, 0, 5, 2, 1, 3).contiguous().reshape(np_ // 8, kp // 16, 32, 4)
+
+
+def _launch_kernel(ops: GreedyOperands, dec_cfg, state: GreedyState, enc_proj, enc_lens,
+                   frame_offset, extra_skip_sos, compute_dtype) -> GreedyState:
+    b, t_max, j = enc_proj.shape
+    dev = enc_proj.device
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    c, v, d = ops.tables.shape
+    k = state.tokens.shape[1]
+    if ops.compute_dtype != compute_dtype:
+        raise ValueError(f"greedy kernel: operands built for {ops.compute_dtype}, "
+                         f"called with {compute_dtype}")
+    if enc_proj.dtype != dtype or state.dec_proj.dtype != dtype:
+        raise ValueError(f"greedy kernel: enc_proj {enc_proj.dtype} and dec_proj "
+                         f"{state.dec_proj.dtype} must be {dtype}")
+    if j != ops.joiner_dim or tuple(state.dec_proj.shape) != (b, j):
+        raise ValueError(f"greedy kernel: enc_proj {tuple(enc_proj.shape)}, dec_proj "
+                         f"{tuple(state.dec_proj.shape)}, operands J={ops.joiner_dim}")
+    if tuple(state.hyp.shape) != (b, c) or state.tokens.shape[0] != b or k < 1:
+        raise ValueError(f"greedy kernel: hyp {tuple(state.hyp.shape)}, tokens "
+                         f"{tuple(state.tokens.shape)} for B={b}, context {c}")
+    if j > MAX_JOINER_DIM or d > MAX_DECODER_DIM or not 1 <= c <= MAX_CONTEXT:
+        raise ValueError(f"greedy kernel takes J, D <= {MAX_JOINER_DIM}, {MAX_DECODER_DIM} and "
+                         f"context 1..{MAX_CONTEXT}; got J={j} D={d} context={c}")
+    tensors = (enc_proj, ops.tables, ops.dec_w, ops.dec_b, ops.out_w, ops.out_b, state.hyp,
+               state.dec_proj, state.tokens, state.timestamps, state.count,
+               state.trailing_blanks)
+    if any(x.device != dev for x in tensors):
+        raise ValueError("greedy kernel: operands and state must be on enc_proj's device")
+
+    def lane_ints(x):
+        return torch.as_tensor(x, device=dev).to(torch.int64).expand(b).contiguous()
+
+    enc, lens, offset = enc_proj.contiguous(), lane_ints(enc_lens), lane_ints(frame_offset)
+    # the search reads the small state and writes it anew; the new token
+    # buffers start as copies of the old and take the emissions in place
+    src = [x.to(want).contiguous() for x, want in (
+        (state.hyp, torch.int64), (state.dec_proj, dtype), (state.count, torch.int64),
+        (state.trailing_blanks, torch.int64))]
+    hyp, dec_proj, count, trailing = (torch.empty_like(x) for x in src)
+    tokens, timestamps = (x.to(torch.int64).contiguous().clone()
+                          for x in (state.tokens, state.timestamps))
+    out = GreedyState(hyp, dec_proj, tokens, timestamps, count, trailing)
+    if b == 0:
+        return out
+    fn = cuda_build.function("rnnt_greedy", "k2t_rnnt_greedy", _ARGTYPES)
+    cuda_build.launch("rnnt_greedy", fn, dev,
+                      enc.data_ptr(), lens.data_ptr(), offset.data_ptr(),
+                      ops.tables.data_ptr(), ops.dec_w.data_ptr(), ops.dec_b.data_ptr(),
+                      ops.out_w.data_ptr(), ops.out_b.data_ptr(),
+                      *(x.data_ptr() for x in src),
+                      *(x.data_ptr() for x in (hyp, dec_proj, count, trailing, tokens,
+                                               timestamps)),
+                      b, t_max, j, d, v, c, k, dec_cfg.blank_id, int(extra_skip_sos),
+                      _DTYPE_CODE[compute_dtype])
+    greedy_frames_skip.launches += 1
+    return out
 
 
 def rnnt_greedy_search(dec_params, dec_cfg: decoder_mod.DecoderConfig, join_params,

@@ -26,13 +26,11 @@ went through the kernels.
 Two bodies per kernel, chosen by the operands' dtype inside one C entry
 point: bf16 inputs run on the tensor cores around one shared score tile
 (``csrc/relpos_scores.cuh``), float32 inputs on the CUDA cores (tensor
-cores would round them to TF32).
+cores would round them to TF32; its output is float32, cast by the wrapper
+when a bf16 output is asked for).
 
-Limits: for bf16 inputs both kernels tile the key axis and take any S, with
-qd and pd (and K2's vd) up to 64.  K1's float32 body keeps whole score rows
-in shared memory, so there S is at most 11,249 keys (pd = 4) and pd at most
-8; longer inputs raise ValueError.  K2's float32 body takes any S and qd,
-pd and vd up to 64.
+Limits: both kernels, in both bodies, tile the key axis and take any S,
+with qd and pd (and K2's vd) up to 64; wider heads raise ValueError.
 """
 
 from __future__ import annotations
@@ -47,10 +45,10 @@ from k2transducerasr_tpu_torch.ops.layers import NEG_INF, length_mask
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_QD = 64  # K1: widest q head (both bodies)
-_MAX_PD = 8  # K1's float32 body: its pos rows sit in shared memory 8 wide
+_MAX_PD = 64  # K1's float32 body: its pos rows sit in shared memory 64 wide
 _TC_MAX_D = 64  # the bf16 bodies: q and pos rows zero-padded to 16, 32 or 64
-_ROWS = 8  # K1's float32 body: query rows per block
-_SMEM_BUDGET = 220 * 1024  # dynamic shared memory a K1 float32 block may use (bytes)
+_ROWS = 8  # K1's float32 body: query rows per block (one warp each)
+_KEY_TILE = 256  # K1's float32 body: keys per tile (one per thread)
 _CTX_MAX_D = 64  # K2: widest q, pos and value head
 
 _PROBS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -62,27 +60,19 @@ def _probs_max_widths(dtype) -> tuple[int, int]:
     return (_MAX_QD, _TC_MAX_D) if dtype == torch.bfloat16 else (_MAX_QD, _MAX_PD)
 
 
-def _probs_rows(dtype, s: int, t: int, pd: int) -> int:
-    """K1's ``rows`` argument: 0 for bf16 (the tensor-core body tiles the key
-    axis and takes any S), else the float32 body's rows per block."""
-    return 0 if dtype == torch.bfloat16 else _rows_for(s, t, pd)
+def _probs_rows(dtype, t: int) -> int:
+    """K1's ``rows`` argument: 0 for bf16 (the tensor-core body's rows are
+    fixed), else the float32 body's query rows per block, ``_ROWS`` or T
+    when shorter.  Its shared memory holds one tile of keys
+    (``_smem_bytes``), so neither S nor pd (up to 64) changes the rows."""
+    return 0 if dtype == torch.bfloat16 else min(_ROWS, t)
 
 
-def _rows_for(s: int, t: int, pd: int) -> int:
-    """K1's float32 query rows per block: up to ``_ROWS``, fewer when a long
-    key axis would not fit the block's score rows in shared memory."""
-    rows = min(_ROWS, t)
-    while rows > 0 and _smem_bytes(rows, s, pd) > _SMEM_BUDGET:
-        rows -= 1
-    if rows == 0:
-        raise ValueError(f"S={s} too long for relpos_attn_probs' shared-memory score rows")
-    return rows
-
-
-def _smem_bytes(rows: int, s: int, pd: int) -> int:
+def _smem_bytes(rows: int, pd: int) -> int:
     # must match smem_bytes() in csrc/relpos_attn_probs.cu
     pd4 = -(-pd // 4) * 4
-    return 4 * (rows * _MAX_QD + rows * _MAX_PD + (s + rows - 1) * pd4 + rows * s)
+    return 4 * (rows * _MAX_QD + rows * _MAX_PD + (_KEY_TILE + rows - 1) * pd4
+                + rows * _KEY_TILE)
 
 
 def _check_contract(q, k, pos_q, pos_k, chunk, v=None):
@@ -126,22 +116,6 @@ def _check_shapes(q, k, pos_q, pos_k, v=None):
         raise ValueError(f"empty attention (B={b} T={t} S={s} H={h})")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream, with ``device`` as the current device.  The raw stream handle
-    and the device check are the cheap forms of ``current_stream()`` and
-    ``torch.cuda.device``: the host's time here is time the card idles when
-    the queue is empty."""
-    idx = device.index
-    if idx == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
                       left: int = 0, kv_start=None):
     """K1: fused softmax(q@k^T + rel_shift(pos_q@pos_k^T)) with key-side masks.
@@ -177,17 +151,19 @@ def relpos_attn_probs(q, k, pos_q, pos_k, lens, out_dtype=None, chunk: int = 0,
                          f"got {qd}, {pd}")
     lens = _lane_ints(lens, b, q.device)
     kv_start = _lane_ints(kv_start, b, q.device)
-    rows = _probs_rows(q.dtype, s, t, pd)
+    rows = _probs_rows(q.dtype, t)
 
-    out = torch.empty((b, h, t, s), dtype=out_dtype, device=q.device)
+    # the float32 body writes float32 (its first pass stores the raw scores)
+    kernel_dtype = out_dtype if q.dtype == torch.bfloat16 else torch.float32
+    out = torch.empty((b, h, t, s), dtype=kernel_dtype, device=q.device)
     fn = cuda_build.function("relpos_attn_probs", "k2t_relpos_attn_probs", _PROBS_ARGTYPES)
-    _launch("relpos_attn_probs", fn, q.device,
+    cuda_build.launch("relpos_attn_probs", fn, q.device,
             q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
             _ptr(lens), _ptr(kv_start), out.data_ptr(),
             b, t, s, h, qd, pd, int(chunk), int(left), rows,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype])
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[kernel_dtype])
     relpos_attn_probs.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 relpos_attn_probs.launches = 0
@@ -230,7 +206,7 @@ def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
 
     out = torch.empty((b, t, h, vd), dtype=out_dtype, device=q.device)
     fn = cuda_build.function("relpos_attn_ctx", "k2t_relpos_attn_ctx", _CTX_ARGTYPES)
-    _launch("relpos_attn_ctx", fn, q.device,
+    cuda_build.launch("relpos_attn_ctx", fn, q.device,
             q.data_ptr(), k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
             _ptr(lens), _ptr(kv_start), out.data_ptr(),
             b, t, s, h, qd, pd, vd, int(chunk), int(left),

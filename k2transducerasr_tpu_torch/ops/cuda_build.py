@@ -8,6 +8,7 @@ or header never loads a stale build.
 Importing this module needs neither ``nvcc`` nor a card.
 
     fn = cuda_build.function("relpos_attn_ctx", "k2t_relpos_attn_ctx", argtypes)
+    cuda_build.launch("relpos_attn_ctx", fn, device, *args)
 
 ``build(*names)`` starts one ``nvcc`` per source that is not built yet, all
 at once, and waits for them together.
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -106,3 +109,19 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
             fn.restype = ctypes.c_int
             _functions[(name, symbol)] = fn
     return fn
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream, with ``device`` as the current device, and raise if it returns
+    a cudaError.  The raw stream handle and the device check are the cheap
+    forms of ``current_stream()`` and ``torch.cuda.device``: the host's time
+    here is time the card idles when the queue is empty."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

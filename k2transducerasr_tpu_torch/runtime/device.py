@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -38,3 +39,22 @@ def exact_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
+
+
+def host_zeros(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A zeroed host buffer to fill and then ``upload`` to ``device``:
+    pinned when ``device`` is the card, so the upload does not wait."""
+    return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def upload(x: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``.  To the card the copy goes from
+    pinned memory (``x`` itself when it is pinned, else a pinned copy) and
+    does not block the host: PyTorch's caching host allocator keeps the
+    pinned block until the copy is done."""
+    t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    if device.type != "cuda":
+        return t.to(device)
+    if not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

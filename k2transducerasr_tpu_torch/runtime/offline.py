@@ -41,7 +41,7 @@ from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, all_reduce_max, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, host_zeros, resolve_device, upload
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
 
@@ -99,11 +99,12 @@ def apply_reference_pad(feats, feat_lens, tail_len: int = 19, longest=None):
     only some of its rows."""
     t_pad = feats.shape[1]
     longest = feat_lens.max() if longest is None else longest
-    claim = torch.clamp(longest + tail_len, max=t_pad)
+    claim = torch.clamp(torch.as_tensor(longest, device=feat_lens.device) + tail_len, max=t_pad)
     feats = torch.where(feats == 0.0, REFERENCE_PAD_FILL, feats)
     valid = torch.arange(t_pad, device=feats.device)[None, :] < feat_lens[:, None]
     feats = torch.where(valid[:, :, None], feats, REFERENCE_PAD_FILL)
-    return feats, torch.full_like(feat_lens, int(claim))
+    # the claim stays on the device: no host sync
+    return feats, torch.zeros_like(feat_lens) + claim
 
 
 class OfflineRecognizer:
@@ -161,6 +162,11 @@ class OfflineRecognizer:
         self._fbank_tables = tuple(
             torch.from_numpy(m).to(dev) for m in fbank_matrices(bundle.frontend_cfg)
         )
+        # the greedy kernel's operands, built once (decode/rnnt_greedy.py)
+        self._greedy_ops = None
+        if dev.type == "cuda" and decoding_method == "greedy_search":
+            self._greedy_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+                                                           bundle.joiner, compute_dtype)
 
     # -- public API ---------------------------------------------------------
 
@@ -184,7 +190,9 @@ class OfflineRecognizer:
         device, N covering the frame bucket.  PCM becomes int16 by truncation
         toward zero, exactly as the reference ships it.  Under a mesh the
         batch is padded with empty rows to a multiple of the data groups and
-        only this rank's group's rows are uploaded."""
+        only this rank's group's rows are uploaded.  The rows are written
+        into pinned host memory and uploaded without blocking (``upload``),
+        so the host does not wait for the card."""
         cfg = self.bundle.frontend_cfg
         n_samples = [len(s.samples) for s in streams]
         n_frames = np.array([num_frames_for(n, cfg) for n in n_samples], np.int32)
@@ -196,21 +204,26 @@ class OfflineRecognizer:
         need = (t_pad - 1) * cfg.frame_shift + cfg.frame_length
         rows = -(-len(streams) // self._n_data)  # per data group
         mine = range(self._data_rank * rows, (self._data_rank + 1) * rows)
-        batch = np.zeros((rows, need), np.int16)
-        counts = np.zeros((rows,), np.int64)
+        batch_t = host_zeros((rows, need), torch.int16, self.device)
+        counts_t = host_zeros((rows,), torch.int64, self.device)
+        batch, counts = batch_t.numpy(), counts_t.numpy()
         for i, lane in enumerate(mine):
             if lane < len(streams):
                 x = streams[lane].samples[:need]
                 batch[i, : len(x)] = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
                 counts[i] = min(n_samples[lane], need)
-        return torch.from_numpy(batch).to(self.device), torch.from_numpy(counts).to(self.device)
+        return upload(batch_t, self.device), upload(counts_t, self.device)
 
     def begin_decode(self, streams: list[OfflineStream]):
-        """Run the device work for a batch and return a pending handle: the
+        """Queue the device work for a batch and return a pending handle: the
         best hypothesis's token buffers and, under beam search, the ordered
-        n-best buffers (``rnnt_beam.nbest_beams``).  Everything stays on the
-        device until ``end_decode``, which reads the n-best back only when
-        hotwords need it."""
+        n-best buffers (``rnnt_beam.nbest_beams``).  Under greedy and CTC
+        search on the card it returns without waiting for the device (the
+        upload is pinned and non-blocking, the greedy search one kernel
+        launch), so a serving loop can prepare batch k+1 while batch k runs;
+        beam search still syncs once per trip.  Everything stays on the
+        device until ``end_decode``, the one place that waits, which reads
+        the n-best back only when hotwords need it."""
         samples, sample_counts = self.pcm_batch(streams)
         with torch.inference_mode(), self._precision():
             tokens, timestamps, count, nbest = self._decode(samples, sample_counts)
@@ -310,5 +323,6 @@ class OfflineRecognizer:
         state = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                        self.max_tokens, cd)
         final = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
-                                               enc_proj, enc_lens, zero, False, cd)
+                                               enc_proj, enc_lens, zero, False, cd,
+                                               operands=self._greedy_ops)
         return final.tokens, final.timestamps, final.count, None

@@ -57,7 +57,7 @@ from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device, upload
 from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
 from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
@@ -218,6 +218,11 @@ class OnlineRecognizer:
         self.window_samples = (self._feat_window - 1) * fcfg.frame_shift + fcfg.frame_length
         self.hop_samples = enc_cfg.decode_chunk_len * fcfg.frame_shift
         self._fbank_tables = tuple(torch.from_numpy(m).to(dev) for m in fbank_matrices(fcfg))
+        # the greedy kernel's operands, built once (decode/rnnt_greedy.py)
+        self._greedy_ops = None
+        if dev.type == "cuda" and decoding_method == "greedy_search":
+            self._greedy_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+                                                           bundle.joiner, compute_dtype)
 
         self._free_lanes = list(range(max_lanes))
         self._streams: dict[int, OnlineStream] = {}
@@ -278,7 +283,11 @@ class OnlineRecognizer:
 
     def begin_step(self, streams: list[OnlineStream]):
         """Run one step for every ready stream and start the readback of the
-        results without waiting for it; ``end_step`` takes the handle."""
+        results without waiting for it; ``end_step`` takes the handle.  Under
+        greedy and CTC search on the card nothing here waits for the device:
+        the windows and lane indices go up pinned and non-blocking, the
+        greedy search is one kernel launch (beam search still syncs once per
+        trip)."""
         active = [s for s in streams if s.lane >= 0 and s._ready()]
         if active:
             # windows travel as int16, made by truncation toward zero
@@ -477,12 +486,12 @@ class OnlineRecognizer:
         pass then runs over each lane's concatenated encoder output."""
         b = self.bundle
         dev, cd, chunk = self.device, self.compute_dtype, self.chunk_frames
-        lanes_t = torch.from_numpy(lanes).to(dev)
-        samples = torch.from_numpy(windows).to(dev)
+        lanes_t = upload(lanes, dev)
+        samples = upload(windows, dev)
         wps = windows.shape[1]
         enc_out = None
         for k in range(wps):
-            rows = torch.from_numpy(np.nonzero(wcount > k)[0]).to(dev)
+            rows = upload(np.nonzero(wcount > k)[0], dev)
             idx = lanes_t[rows]
             state = tree_map(lambda a: a.index_select(0, idx), self._enc_state)
             feats = fbank_compute(samples[rows, k].float() * (1.0 / 32768.0), b.frontend_cfg,
@@ -494,19 +503,19 @@ class OnlineRecognizer:
                 enc_out = out.new_zeros((len(lanes), wps * chunk, out.shape[-1]))
             enc_out[rows, k * chunk:(k + 1) * chunk] = out
         dec = tree_map(lambda a: a.index_select(0, lanes_t), self._dec_state)
-        lens = torch.from_numpy(wcount * chunk).to(dev)
+        lens = upload(wcount * chunk, dev)
         offset = self._frame_count.index_select(0, lanes_t)
         if self.decoding_method == "greedy_search_ctc":
             lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
             new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
         else:
             # online search also skips <sos/eos> = 1 (extra_skip_sos)
-            search = (rnnt_beam.beam_frames_skip
-                      if self.decoding_method == "modified_beam_search"
-                      else rnnt_greedy.greedy_frames_skip)
             enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
-            new_dec = search(b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset,
-                             True, cd)
+            args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
+            if self.decoding_method == "modified_beam_search":
+                new_dec = rnnt_beam.beam_frames_skip(*args)
+            else:
+                new_dec = rnnt_greedy.greedy_frames_skip(*args, operands=self._greedy_ops)
         tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
         self._frame_count.index_add_(0, lanes_t, lens)
 

@@ -232,15 +232,14 @@ def test_library_name_follows_source_and_flags(name, monkeypatch):
 
 
 def test_kernel_rows_fit_shared_memory():
-    """The kernel keeps `rows` score rows of S floats in shared memory: 8 rows
-    at the flagship's stack-0 length, fewer for long S, and a ValueError
-    past S = 11,249 (pd = 4)."""
-    assert TC._rows_for(1532, 1532, 4) == 8
-    assert TC._rows_for(5000, 5000, 4) == 7
-    assert TC._rows_for(11249, 11249, 4) == 1
-    assert TC._rows_for(40, 3, 4) == 3
-    with pytest.raises(ValueError, match="too long"):
-        TC._rows_for(11250, 11250, 4)
+    """The float32 body keeps one tile of 256 keys in shared memory, not
+    whole score rows (which stopped S at 11,249): its bytes depend on the
+    rows and pd only, and at 8 rows and the widest pos head (pd = 64) stay
+    inside the 227 KB an H100 block may use."""
+    assert TC._probs_rows(torch.float32, 11250) == 8
+    assert TC._probs_rows(torch.float32, 3) == 3
+    assert TC._smem_bytes(8, 4) == 4 * (8 * 64 + 8 * 64 + 263 * 4 + 8 * 256)
+    assert TC._smem_bytes(8, 64) <= 227 * 1024
 
 
 @pytest.mark.parametrize("t,s", [(6, 6), (4, 11)])

@@ -82,20 +82,19 @@ def test_kernels_share_the_score_tile_header(name):
 
 
 @pytest.mark.parametrize(
-    "dtype,want", [(torch.bfloat16, (64, 64)), (torch.float32, (64, 8))], ids=["bf16", "f32"]
+    "dtype,want", [(torch.bfloat16, (64, 64)), (torch.float32, (64, 64))], ids=["bf16", "f32"]
 )
 def test_probs_max_widths(dtype, want):
     assert TC._probs_max_widths(dtype) == want
 
 
 def test_probs_rows_only_for_float32():
-    """bf16 inputs pass rows = 0 and take any S; float32 keeps its
-    shared-memory rows and its cap."""
-    assert TC._probs_rows(torch.bfloat16, 12000, 32, 4) == 0
-    assert TC._probs_rows(torch.bfloat16, 100000, 1532, 64) == 0
-    assert TC._probs_rows(torch.float32, 1532, 1532, 4) == 8
-    with pytest.raises(ValueError, match="too long"):
-        TC._probs_rows(torch.float32, 12000, 32, 4)
+    """bf16 inputs pass rows = 0; float32 passes its query rows per block,
+    8 or T when shorter, whatever S and pd: both bodies take any S."""
+    assert TC._probs_rows(torch.bfloat16, 32) == 0
+    assert TC._probs_rows(torch.bfloat16, 1532) == 0
+    assert TC._probs_rows(torch.float32, 1532) == 8
+    assert TC._probs_rows(torch.float32, 5) == 5
 
 
 def test_lane_ints_passes_none_as_null():

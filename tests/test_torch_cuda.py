@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 the searches (beam and CTC) on CUDA tensors against their CPU runs, the
+greedy kernel against its plain version (bit for bit on dyadic inputs, the
+tie-aware replay on random bf16 ones) and the recognizers' begin_decode and
+begin_step without a host sync, the
 zipformer v1 and LSTM pin dirs on the card, the LSTM's cuDNN recurrence
 against its CPU run, and int8 (``torch._int_mm`` through its padding, the
 recognizers under ``accuracy="int8"``), the native wav route and a
@@ -27,6 +30,7 @@ linears that may round one ulp apart, over LayerNorm outputs).  int8: the
 int32 product exactly; tokens and timestamps exactly.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -36,12 +40,14 @@ import torch
 from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineRecognizer
 from k2transducerasr_tpu_torch.decode import ctc_greedy as TCtcG
 from k2transducerasr_tpu_torch.decode import rnnt_beam as TBeam
+from k2transducerasr_tpu_torch.decode import rnnt_greedy as TGreedy
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import lstm as TL
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
+from k2transducerasr_tpu_torch.testing import tie_aware_replay
 
 PIN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_data")
 
@@ -108,6 +114,11 @@ def test_kernel_out_dtype(cuda):
     ref = AC.relpos_attn_probs_reference(q, k, pq, pk, None, out_dtype=torch.float32)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    # float32 inputs, bf16 probs: the float32 body's output, rounded once
+    f32 = [x.float() for x in (q, k, pq, pk)]
+    out = AC.relpos_attn_probs(*f32, None, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    _assert_close(out, AC.relpos_attn_probs_reference(*f32, None, out_dtype=torch.bfloat16))
 
 
 def _assert_ctx_close(out, ref, v):
@@ -293,16 +304,31 @@ def test_k2_at_the_streaming_shapes(cuda, dtype, t, s, h, d):
 
 
 def test_tc_probs_past_the_f32_key_cap(cuda):
-    """S = 12,000 keys: the float32 body's shared-memory rows stop at 11,249;
-    the bf16 body tiles the key axis and takes it."""
+    """S = 12,000 keys, past the 11,249 that the float32 body once held in
+    shared memory: both bodies tile the key axis and take it."""
     q, k, pq, pk = _inputs(12, 1, 32, 12000, 2, 32, 4, torch.bfloat16)
     lens = torch.tensor([11000], device=cuda, dtype=torch.int32)
     out = AC.relpos_attn_probs(q, k, pq, pk, lens)
     torch.cuda.synchronize()
     assert out.shape == (1, 2, 32, 12000)
     _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, lens))
-    with pytest.raises(ValueError, match="too long"):
-        AC.relpos_attn_probs(*(x.float() for x in (q, k, pq, pk)), lens)
+    f32 = [x.float() for x in (q, k, pq, pk)]
+    out = AC.relpos_attn_probs(*f32, lens)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (1, 2, 32, 12000)
+    _assert_close(out, AC.relpos_attn_probs_reference(*f32, lens))
+
+
+@pytest.mark.parametrize("pd", [16, 64])
+def test_f32_probs_at_wide_pos_heads(cuda, pd):
+    """The float32 body takes pd up to 64 (it once stopped at 8), over key
+    tiles with a partial last tile, ragged lens and the chunk window."""
+    q, k, pq, pk = _inputs(pd, 2, 300, 300, 2, 32, pd, torch.float32)
+    lens = torch.tensor([300, 161], device=cuda, dtype=torch.int32)
+    for kw in ({}, {"chunk": 32, "left": 64}):
+        out = AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
+        torch.cuda.synchronize()
+        _assert_close(out, AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw))
 
 
 # -- the searches on CUDA tensors: no out-of-range scatter (a device-side
@@ -402,6 +428,188 @@ def test_ctc_frames_does_not_sync(cuda):
     lens = torch.tensor([16, 5, 0, 16], device=cuda)
     off = torch.zeros(4, dtype=torch.int64, device=cuda)
     assert _host_syncs(lambda: TCtcG.ctc_frames(st, lp, lens, off)) == []
+
+
+# -- the greedy kernel (csrc/rnnt_greedy.cu) against its plain version
+
+
+def _dyadic_greedy(device, dtype, v=70, d=40, j=36, ctx=2, seed=0):
+    """A decoder and joiner whose values are small multiples of powers of
+    two, and encoder frames, such that every float32 sum the search takes
+    is exact, in any order: the kernel then equals the plain version bit for
+    bit, ties included.  Output columns 4 .. V-1 come in equal pairs (exact
+    ties, where the first index must win); blank and sos get large biases, so
+    blank runs and sos frames occur.  For float32 the frames are +-16 .. 28,
+    where tanh is exactly +-1; for bf16 +-1 .. 1.75, where it is not and the
+    decoder state moves the logits."""
+    rng = np.random.default_rng(seed)
+    q = lambda lo, hi, scale, shape: (rng.integers(lo, hi + 1, shape) * scale).astype(  # noqa: E731
+        np.float32)
+    cfg = TD.DecoderConfig(vocab_size=v, decoder_dim=d, context_size=ctx)
+    dp = {"embedding": {"table": q(-2, 2, 0.25, (v, d))}}
+    if ctx > 1:
+        dp["conv"] = {"w": q(-1, 1, 0.25, (ctx, 4, d))}
+    w_out = q(-2, 2, 0.125, (j, v))
+    w_out[:, 5::2] = w_out[:, 4:v - 1:2][:, :w_out[:, 5::2].shape[1]]
+    b_out = q(-2, 2, 0.125, (v,))
+    b_out[5::2] = b_out[4:v - 1:2][:b_out[5::2].shape[0]]
+    b_out[0] += 2.5
+    b_out[1] += 2.0
+    jp = {"encoder_proj": {"w": q(-1, 1, 0.25, (8, j)), "b": np.zeros(j, np.float32)},
+          "decoder_proj": {"w": q(-1, 1, 2.0**-7, (d, j)), "b": q(-1, 1, 2.0**-6, (j,))},
+          "output": {"w": w_out, "b": b_out}}
+    big = 16.0 if dtype is None else 1.0
+    return params_from_numpy(dp, device), params_from_numpy(jp, device), cfg, big
+
+
+def _dyadic_frames(rng, b, t, j, big):
+    mag = big * (1.0 + rng.integers(0, 4, (b, t, j)) * 0.25)
+    return (mag * rng.choice([-1.0, 1.0], (b, t, j))).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ctx,skip_sos,max_tokens", [(1, False, 64), (2, True, 64),
+                                                     (2, False, 9)],
+                         ids=["ctx1", "ctx2-skip-sos", "ctx2-full-buffer"])
+def test_greedy_kernel_bit_for_bit_on_dyadic_inputs(cuda, dtype, ctx, skip_sos, max_tokens):
+    """Kernel against plain on the card, every state field exactly: a ragged
+    batch (a lane of 0 frames, one shorter than a tile), per-lane
+    frame_offset, J, V and D off the kernel's 16/8 grids, then a second,
+    chained call from the first's state.  The state it starts from is left
+    as it was."""
+    dp, jp, cfg, big = _dyadic_greedy(cuda, dtype, ctx=ctx)
+    rng = np.random.default_rng(ctx + max_tokens)
+    lens = torch.tensor([47, 0, 5, 30], device=cuda)
+    offset = torch.tensor([0, 3, 100, 7], device=cuda)
+    st = TGreedy.init_state(dp, cfg, jp, 4, max_tokens, dtype)
+    ops = TGreedy.greedy_operands(dp, cfg, jp, dtype)
+    for call in range(2):
+        enc = torch.from_numpy(_dyadic_frames(rng, 4, 47, 36, big)).to(cuda)
+        enc = enc if dtype is None else enc.to(dtype)
+        before = TGreedy.greedy_frames_skip.launches
+        fields = [f.name for f in dataclasses.fields(st)]
+        kept = [getattr(st, f).clone() for f in fields]
+        got = TGreedy.greedy_frames_skip(dp, cfg, jp, st, enc, lens, offset, skip_sos, dtype,
+                                         operands=ops)
+        torch.cuda.synchronize()
+        assert TGreedy.greedy_frames_skip.launches == before + 1
+        assert all(torch.equal(x, getattr(st, f)) for x, f in zip(kept, fields))
+        want = TGreedy.greedy_frames_skip_reference(dp, cfg, jp, st, enc, lens, offset,
+                                                    skip_sos, dtype)
+        for f in ("hyp", "dec_proj", "tokens", "timestamps", "count", "trailing_blanks"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (call, f)
+        st, offset = got, offset + lens
+    assert int(got.count.max()) > 4 and int(got.count[1]) == 0
+    if max_tokens == 9:
+        assert int(got.count.max()) == 9
+
+
+def test_greedy_kernel_emits_sos_only_offline_and_breaks_ties_low(cuda):
+    """On the dyadic inputs: offline, sos (1) is emitted; online it never is;
+    and no token from an equal pair's higher index (5, 7, ...) appears."""
+    dp, jp, cfg, big = _dyadic_greedy(cuda, None)
+    enc = torch.from_numpy(_dyadic_frames(np.random.default_rng(1), 4, 60, 36, big)).to(cuda)
+    lens, zero = torch.full((4,), 60, device=cuda), torch.zeros(4, dtype=torch.long, device=cuda)
+    out = {}
+    for sos in (False, True):
+        st = TGreedy.init_state(dp, cfg, jp, 4, 128)
+        out[sos] = TGreedy.greedy_frames_skip(dp, cfg, jp, st, enc, lens, zero, sos)
+    toks = {sos: [t for i, n in enumerate(o.count.tolist()) for t in o.tokens[i, :n].tolist()]
+            for sos, o in out.items()}
+    assert 1 in toks[False] and 1 not in toks[True]
+    assert not any(t >= 5 and t % 2 == 1 for t in toks[False] + toks[True])
+    assert any(t >= 4 and t % 2 == 0 for t in toks[False])
+
+
+def test_greedy_kernel_random_bf16_passes_the_replay(cuda):
+    """Random weights at bf16, where summation order may flip near-ties:
+    the kernel's run passes the tie-aware replay at 2 ulps."""
+    rng = np.random.default_rng(3)
+    cfg = TD.DecoderConfig(vocab_size=500, decoder_dim=64, context_size=2)
+    dp = params_from_numpy(TD.init_params(rng, cfg), cuda)
+    jp = params_from_numpy(TJ.init_params(rng, TJ.JoinerConfig(48, 64, 96, 500)), cuda)
+    enc = torch.from_numpy(rng.standard_normal((5, 90, 96)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    lens, off = torch.tensor([90, 64, 1, 0, 17], device=cuda), torch.arange(5, device=cuda)
+    st = TGreedy.init_state(dp, cfg, jp, 5, 256, torch.bfloat16)
+    got = TGreedy.greedy_frames_skip(dp, cfg, jp, st, enc, lens, off, True, torch.bfloat16)
+    res = tie_aware_replay(dp, cfg, jp, st, enc, lens, off, got, True, torch.bfloat16)
+    assert res.ok, res.reason
+    assert res.frames == 90 + 64 + 1 + 17
+
+
+def test_greedy_frames_skip_does_not_sync(cuda):
+    dp, jp, cfg, big = _dyadic_greedy(cuda, torch.bfloat16)
+    enc = torch.from_numpy(_dyadic_frames(np.random.default_rng(2), 3, 20, 36, big)).to(
+        cuda, torch.bfloat16)
+    lens, off = torch.tensor([20, 3, 0], device=cuda), torch.zeros(3, dtype=torch.long,
+                                                                     device=cuda)
+    st = TGreedy.init_state(dp, cfg, jp, 3, 32, torch.bfloat16)
+    ops = TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16)
+    call = lambda: TGreedy.greedy_frames_skip(dp, cfg, jp, st, enc, lens, off, False,  # noqa: E731
+                                              torch.bfloat16, operands=ops)
+    call()  # the build, and the library's first load
+    assert _host_syncs(call) == []
+    assert _host_syncs(lambda: TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16)) == []
+
+
+@pytest.mark.parametrize("family,compat", [("zipformer2", False), ("zipformer2", True),
+                                           ("zipformer2ctc", False), ("zipformer2ctc", True)],
+                         ids=["greedy", "greedy-compat", "ctc", "ctc-compat"])
+def test_begin_decode_and_begin_step_do_not_sync(cuda, family, compat):
+    """On the pin dirs at bf16: OfflineRecognizer.begin_decode (greedy or
+    CTC, with and without reference_pad_compat) and OnlineRecognizer.
+    begin_step return without a host sync; end_decode still gives the pin."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, reference_pad_compat=compat, device="cuda")
+    streams = [rec.create_offline_stream() for _ in range(3)]
+    for i, s in enumerate(streams):
+        s.add_samples(_pcm(6400 - 1000 * i))
+    rec.get_results(streams)  # warm: the build, the libraries' handles
+    pending = []
+    assert _host_syncs(lambda: pending.append(rec.begin_decode(streams))) == []
+    assert [r.text for r in rec.end_decode(pending[0])] == [
+        r.text for r in rec.get_results(streams)]
+    if compat:
+        return
+    online = OnlineRecognizer(bundle, max_lanes=2, device="cuda")
+    stream = online.create_online_stream()
+    stream.add_samples(_pcm(32000))
+    online.get_results([stream])
+    assert stream._ready()  # the step below runs the encoder and the search
+    pending = []
+    assert _host_syncs(lambda: pending.append(online.begin_step([stream]))) == []
+    online.end_step(pending[0])
+
+
+def test_greedy_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    dp, jp, cfg, big = _dyadic_greedy(cuda, None)
+    enc = torch.zeros((2, 5, 36), device=cuda)
+    lens, off = torch.tensor([5, 5], device=cuda), torch.zeros(2, dtype=torch.long, device=cuda)
+    st = TGreedy.init_state(dp, cfg, jp, 2, 8)
+    run = TGreedy.greedy_frames_skip
+    with pytest.raises(ValueError, match="must be"):
+        run(dp, cfg, jp, st, enc.to(torch.bfloat16), lens, off)  # bf16 frames, float32 search
+    with pytest.raises(ValueError, match="operands built for"):
+        run(dp, cfg, jp, st, enc, lens, off,
+            operands=TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        run(dp, cfg, jp, st, enc.half(), lens, off, compute_dtype=torch.float16)
+    wide = TJ.init_params(np.random.default_rng(0), TJ.JoinerConfig(8, 40, 1040, 70))
+    wide = params_from_numpy(wide, cuda)
+    st_wide = TGreedy.init_state(dp, cfg, wide, 2, 8)
+    with pytest.raises(ValueError, match="J, D <= 1024"):
+        run(dp, cfg, wide, st_wide, torch.zeros((2, 5, 1040), device=cuda), lens, off)
+    deep = TD.DecoderConfig(vocab_size=70, decoder_dim=40, context_size=9)
+    deep_p = params_from_numpy(TD.init_params(np.random.default_rng(0), deep), cuda)
+    st_deep = TGreedy.init_state(deep_p, deep, jp, 2, 8)
+    with pytest.raises(ValueError, match="context 1..8"):
+        run(deep_p, deep, jp, st_deep, enc, lens, off)
+    ops = TGreedy.greedy_operands(dp, cfg, jp)
+    for field in ("tables", "dec_w", "dec_b", "out_w", "out_b"):
+        moved = dataclasses.replace(ops, **{field: getattr(ops, field).cpu()})
+        with pytest.raises(ValueError, match="enc_proj's device"):
+            run(dp, cfg, jp, st, enc, lens, off, operands=moved)
 
 
 # K1 at zipformer v1's shapes (ZipformerConfig(): 8 heads, q head 24 = 192/8,
