@@ -19,14 +19,21 @@ Phases (any failure exits non-zero; none is caught):
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
      streaming), plus the time of scaled_dot_product_attention on the same
      function (yardstick);
-  3c. the greedy search kernel (rnnt_greedy) against its plain version at
-     the main paths' shapes (offline: 16 lanes x 766 frames; streaming: 16
-     lanes x one window's frames, frame_offset per lane, extra_skip_sos,
-     steps chained), float32 identical (dec_proj within 1e-5), bf16 through
-     the tie-aware replay at 2 ulps with the frames decided otherwise than
-     the plain argmax counted, and on dyadic inputs (every float32 sum
-     exact, ties everywhere) bit for bit in both dtypes; its time, the plain
-     loop's and the bound from these inputs' frames and emissions;
+  3c. the greedy search kernel (rnnt_greedy: one cluster of 8 blocks per
+     lane, the joiner's weights in the cluster's shared memory where they
+     fit) against its plain version at the main paths' shapes (offline: 16
+     lanes x 766 frames; streaming: 16 lanes x one window's frames,
+     frame_offset per lane, extra_skip_sos, steps chained), float32
+     identical (dec_proj within 1e-5), bf16 through the tie-aware replay at
+     2 ulps with the frames decided otherwise than the plain argmax counted,
+     and on dyadic inputs (every float32 sum exact, ties everywhere) bit for
+     bit in both dtypes; offline bf16 also with the blank bias raised until
+     about one frame in six emits, and at a vocabulary of 5,500 (the weights
+     streamed); first a line with the cluster, each case's shared memory and
+     residency, cudaOccupancyMaxActiveClusters and -Xptxas -v's registers
+     and spills; its time, the plain loop's and the bound from these
+     inputs' frames and emissions, and the replaced one-block-per-lane
+     kernel's times from PERF.md beside them;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -91,7 +98,9 @@ must fail (exit 0 when every mutation was caught).
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import os
 import statistics
@@ -255,6 +264,10 @@ MUTATIONS = [
      "(a.skip_sos && y == 1)", "(false && y == 1)", "phase_greedy"),
     ("greedy timestamps without frame_offset", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
      "= offset + t + f;", "= t + f;", "phase_greedy"),
+    ("greedy argmax without the last rank's vocabulary share",
+     "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+     "for (int src = 0; src < kCL; ++src)", "for (int src = 0; src < kCL - 1; ++src)",
+     "phase_greedy"),
 ]
 
 
@@ -425,10 +438,14 @@ def phase_card():
     return smi
 
 
+BUILD_LOG: list[str] = []  # what nvcc printed in [2] (-Xptxas -v)
+
+
 def phase_build():
     t0 = time.time()
-    paths = cuda_build.build(*KERNELS, verbose=True)
+    paths, BUILD_LOG[:] = _captured(lambda: cuda_build.build(*KERNELS, verbose=True))
     secs = time.time() - t0
+    log("\n".join(BUILD_LOG))
     log(f"[2] built {', '.join(os.path.relpath(p, REPO) for p in paths.values())} "
         f"in {secs:.1f} s (loaded at first launch)")
     return secs
@@ -684,6 +701,14 @@ GREEDY_STEPS = 8
 GREEDY_ULPS = 2.0  # bf16: the tie-aware replay's margin (decode/rnnt_greedy.py)
 GREEDY_MAX_TOKENS = 1024  # OfflineRecognizer's default buffer
 GREEDY_FIELDS = ("hyp", "tokens", "timestamps", "count", "trailing_blanks")
+GREEDY_RATE = 1 / 6  # emissions per frame of the blank-bias case (a trained model's order)
+GREEDY_BIG_VOCAB = 5500  # a real BPE vocabulary: the joiner's weights streamed
+# the one-block-per-lane kernel this design replaced, at the same cases
+# (PERF.md §6, on an NVIDIA H100 80GB HBM3 at 700.00 W; that kernel is gone,
+# so not re-timed)
+GREEDY_ONE_BLOCK = ("the one-block-per-lane kernel, PERF.md §6 (NVIDIA H100 80GB HBM3, "
+                    "700.00 W): offline bf16 20.80 ms (device 19.88), float32 50.30 (49.67), "
+                    "streaming step 0.559 (0.411)")
 
 
 def _greedy_lens(b, t):
@@ -798,6 +823,70 @@ def _greedy_row(case, dtype, ops, st, got, enc, lens, bw, kernel, plain, err, di
     return row
 
 
+def _greedy_ptxas() -> str:
+    """What -Xptxas -v printed in [2] for rnnt_greedy's two kernels
+    (registers, stack, spills)."""
+    out, mine = [], False
+    for line in BUILD_LOG:
+        if "Compiling entry function" in line:
+            mine = "rnnt_greedy_kernel" in line
+            if mine:
+                out.append("bf16:" if "ILb1E" in line else "float32:")
+        elif mine and ("registers" in line or "spill" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return " ".join(out) or "not rebuilt in [2]"
+
+
+def _greedy_plans(cases) -> dict:
+    """[3c]'s first line: the cluster, each case's shared memory per block
+    and where its weights live (rnnt_greedy.kernel_plan), the clusters that
+    run at once, and the registers and spills.  Returns the plans by case."""
+    plans, parts = {}, []
+    for name, dtype, j, d, v in cases:
+        p = rnnt_greedy.kernel_plan(j, d, v, dtype)
+        dt = "float32" if dtype is None else "bf16"
+        plans[f"{name} {dt}"] = p
+        parts.append(
+            f"{name} {dt} (J={j} D={d} V={v}): {p['smem_bytes']} B/block, W_out "
+            f"{p['resident_ntiles']}/{p['ntiles_per_rank']} n-tiles resident"
+            + (f" + stages of {p['stage_ntiles']}" if p["stage_ntiles"] else "")
+            + f", decoder_proj {p['resident_chunks']}/{p['chunks_per_rank']} chunks"
+            + (f" + stages of {p['stage_chunks']}" if p["stage_chunks"] else "")
+            + f", {p['max_active_clusters']} clusters at once, {p['registers']} registers, "
+            f"{p['local_bytes']} B local")
+    log(f"[3c] rnnt_greedy: one cluster of {rnnt_greedy.CLUSTER} blocks x 512 threads per lane "
+        f"| " + " | ".join(parts) + f" | ptxas -v: {_greedy_ptxas()}")
+    return plans
+
+
+def _joiner_at_rate(dec, cfg, join, enc, lens, dtype, rate):
+    """A copy of the joiner whose blank bias is raised, by bisection on the
+    kernel's own search over ``enc``, until about ``rate`` of the valid
+    frames emit.  Returns (joiner, the bias added, the rate reached)."""
+    zero = torch.zeros(len(lens), dtype=torch.int64, device="cuda")
+    frames = float(lens.sum())
+    out = join["output"]
+    b0 = out["b"] if "b" in out else torch.zeros(out["w"].shape[1], device="cuda")
+
+    def with_bias(delta):
+        j2 = join.tree()
+        j2["output"]["b"] = b0.clone()
+        j2["output"]["b"][cfg.blank_id] += delta
+        return j2
+
+    def emitted(j2):
+        st = rnnt_greedy.init_state(dec, cfg, j2, len(lens), GREEDY_MAX_TOKENS, dtype)
+        got = rnnt_greedy.greedy_frames_skip(dec, cfg, j2, st, enc, lens, zero, False, dtype)
+        return float(got.count.sum()) / frames
+
+    lo, hi = 0.0, 8.0
+    for _ in range(12):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if emitted(with_bias(mid)) > rate else (lo, mid)
+    j2 = with_bias(hi)
+    return j2, hi, emitted(j2)
+
+
 def phase_greedy(bw):
     """[3c] rnnt_greedy against its plain version at the main paths' shapes,
     on the decoder and joiner of Zipformer2Config(causal=True) from seed 0
@@ -807,20 +896,28 @@ def phase_greedy(bw):
     lane full (the main path's batch, the headline) and ragged
     (``_greedy_lens``).  Streaming: 16 lanes x one window's encoder frames, frame_offset per lane,
     extra_skip_sos True, GREEDY_STEPS steps chained through the kernel's
-    state, each held against the plain version from the same state."""
+    state, each held against the plain version from the same state.  Offline
+    bf16 also with the blank bias raised until about GREEDY_RATE of the
+    frames emit (``_joiner_at_rate``: long blank runs, the staged rows
+    follow), and with the decoder and joiner of a GREEDY_BIG_VOCAB
+    vocabulary (seed 0), whose weights do not fit the cluster and stream.
+    Returns (the rows, the kernel's plans)."""
     bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
                                 seed=0, device="cuda")
     dec, join, cfg = bundle.decoder, bundle.joiner, bundle.decoder_cfg
     chunk = get_encoder("zipformer2").output_chunk_len(bundle.encoder_cfg)
     enc_dim = join["encoder_proj"]["w"].shape[0]
+    j_dim, d_dim = join["decoder_proj"]["w"].shape[1], join["decoder_proj"]["w"].shape[0]
     b = FLAGSHIP_B
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
+    plans = _greedy_plans([("flagship", dt, j_dim, d_dim, 500) for dt in (None, torch.bfloat16)]
+                          + [("vocab-5500", torch.bfloat16, j_dim, d_dim, GREEDY_BIG_VOCAB)])
 
-    def frames(t, dtype):
+    def frames(t, dtype, joiner=join):
         x = torch.randn((b, t, enc_dim), generator=g, device="cuda")
         with torch.inference_mode():
-            return joiner_mod.project_encoder(join, x, dtype)
+            return joiner_mod.project_encoder(joiner, x, dtype)
 
     def run(case, dtype, dec, cfg, join, make, t, sos, steps, exact, ragged=True):
         ops = rnnt_greedy.greedy_operands(dec, cfg, join, dtype)
@@ -864,9 +961,36 @@ def phase_greedy(bw):
             False, 1, True)
         run("dyadic-streaming", dtype, ddec, dcfg, djoin, lambda t, _: make(b, t), chunk, True,
             GREEDY_STEPS, True)
+    bf16 = torch.bfloat16
+    full = torch.full((b,), GREEDY_T, device="cuda")
+    with torch.inference_mode():
+        rate_join, bias, rate = _joiner_at_rate(dec, cfg, join, frames(GREEDY_T, bf16), full, bf16,
+                                                GREEDY_RATE)
+    log(f"[3c] rnnt_greedy offline-1in6: blank bias +{bias:.4f} gives {rate:.4f} emissions "
+        f"per frame")
+    run("offline-1in6", bf16, dec, cfg, rate_join, frames, GREEDY_T, False, 1, False,
+        ragged=False)
     del bundle
+    big = ModelBundle.random("zipformer2", Zipformer2Config(causal=True),
+                             vocab_size=GREEDY_BIG_VOCAB, seed=0, device="cuda")
+    run("offline-v5500", bf16, big.decoder, big.decoder_cfg, big.joiner,
+        lambda t, dtype: frames(t, dtype, big.joiner), GREEDY_T, False, 1, False, ragged=False)
+    del big
     torch.cuda.empty_cache()
-    return rows
+
+    def pick(case, dtype):
+        return next(r for r in rows if r["case"] == case and r["dtype"] == dtype)
+
+    log("[3c] rnnt_greedy, this run: " + "; ".join(
+        f"{what} {r['ms']:.4f} ms (device {r['device_ms']:.4f}), {r['bound_ms'] / r['ms']:.2%} "
+        f"of its bound {r['bound_ms']:.5f} ({r['bound_by']})"
+        for what, r in (("offline bf16", pick("offline", "bfloat16")),
+                        ("float32", pick("offline", "float32")),
+                        ("streaming step", pick("streaming", "bfloat16")),
+                        ("offline 1 in 6", pick("offline-1in6", "bfloat16")),
+                        ("offline V=5500", pick("offline-v5500", "bfloat16"))))
+        + f" | {GREEDY_ONE_BLOCK}")
+    return rows, plans
 
 
 def greedy_replay(name, rec, enc, lens):
@@ -1648,9 +1772,6 @@ def _pin_wav(path):
 
 def _captured(fn, *args):
     """fn(*args) with its stdout captured: (its return value, the lines)."""
-    import contextlib
-    import io
-
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = fn(*args)
@@ -1995,12 +2116,13 @@ def kernel_line(name, source, replaces, launches, rows, worst, per):
     }
 
 
-def greedy_kernel_line(rows) -> dict:
+def greedy_kernel_line(rows, plans) -> dict:
     """rnnt_greedy's entry: the headline numbers are the offline bf16 case
     (one launch per 16 x 30 s batch of the main path), ``streaming`` the bf16
     streaming step's; ``max_abs_err`` the worst float32 dec_proj error
     against the plain version (every other field exact; bf16 is held by the
-    replay, its frames decided otherwise counted in ``cases``)."""
+    replay, its frames decided otherwise counted in ``cases``); ``plans``
+    each case's shared memory and residency."""
     def pick(case):
         return next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
 
@@ -2017,8 +2139,10 @@ def greedy_kernel_line(rows) -> dict:
         **{k: head[k] for k in keys},
         "library_ms": None,
         "streaming": {f"{k}_per_step": step[k] for k in keys},
+        "plans": plans,
         "per": "one greedy search of a 16 x 30 s batch (B=16, T=766, J=512, V=500, bf16, "
-               "random weights: an emission on most frames); streaming: one step of 16 lanes "
+               "random weights: an emission on most frames; one cluster of 8 blocks per "
+               "lane); streaming: one step of 16 lanes "
                "(T = one window's encoder frames); launches: one per offline batch and per "
                "streaming step of every transducer greedy path, per rank in [12] "
                "(launches_by_path); library_ms null: no PyTorch call runs a greedy search",
@@ -2072,7 +2196,7 @@ def main() -> int:
     phase_build()
     k1_rows, k1_worst = phase_k1(bw)
     k2_rows, k2_worst = phase_k2(bw)
-    greedy_rows = phase_greedy(bw)
+    greedy_rows, greedy_plans = phase_greedy(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
@@ -2146,7 +2270,7 @@ def main() -> int:
                     "per batch, summed over the 2 ranks; library_ms: "
                     "scaled_dot_product_attention with the skewed position bias precomputed "
                     "(not timed)"),
-        greedy_kernel_line(greedy_rows),
+        greedy_kernel_line(greedy_rows, greedy_plans),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 // Batched RNN-T greedy search for Hopper (sm_90a): one launch runs every
-// lane's whole search on the card.
+// lane's whole search on the card, each lane on one thread-block cluster.
 //
 // Replaces the device loop of k2transducerasr_tpu/decode/rnnt_greedy.py::
 // greedy_frames_skip, the lax.while_loop at :138-233 (no Pallas kernel is
@@ -25,43 +25,67 @@
 // to bf16 before its product, and the product and the sum with the bias the
 // same way.  float32 (dtype 0) is float32 throughout.
 //
-// Design.  Lanes are independent, so one block of 512 threads per lane
-// loops over its frames with all state in shared memory and registers.  Per
-// tile of 16 frames it stages tanh(enc + dec) in shared memory and multiplies
-// it by W_out in n-tiles of 8 columns: on the tensor cores for bf16
-// (mma.sync m16n8k16, A by ldmatrix, B pre-packed in fragment order by
-// greedy_operands so that a warp reads 256 contiguous bytes per fragment) and
-// on the CUDA cores for float32 (tensor cores would round to TF32).  Each
-// thread keeps a running (max, first index) per row, reduced across the
-// block, so no [16, V] logits reach memory.  At the first frame of the tile
-// whose argmax is not blankish the lane emits, refreshes dec_proj (a gather
-// of the folded context tables and a GEMV over decoder_proj split 8 columns
-// by D/parts rows per thread), and starts the next tile at the frame after
-// it; a tile with no candidate is consumed as blanks.  The loops that read
-// device memory are unrolled so that several loads are in flight per thread
-// (a step is a chain of L2 round trips); the order of each thread's sums
-// does not change.
+// What bounds it on an H100.  The least work is one joiner row per valid
+// frame (2 J V flops) and one refresh per emission (2 D J flops), ~13 us of
+// tensor-core time for a bf16 16 x 30 s batch.  The search cannot get near
+// it: each emission is a dependent step (the next frame's logits need the
+// refreshed decoder), so a lane is a chain of ~one step per emitted token,
+// and the batch takes its longest chain's time.  What bounds the design is
+// the latency of one step, a chain of block-wide phases rather than any
+// unit's throughput: the staging of the joiner's input, the tensor-core
+// product and its reductions, two cluster barriers, one gather of the
+// context tables from L2 and the decoder projection.  The design keeps the
+// weights out of that chain (resident), lets the staging follow the
+// emission rate, gives each decoder_proj chunk to one warp (no barrier in
+// the refresh).
+// Where fewer clusters fit the card at once than there are lanes
+// (cudaOccupancyMaxActiveClusters), the lanes run in waves: on an H100 SXM
+// (132 SMs) it reports 15 clusters of 8 at one block per SM, not the 16 that
+// 128 SMs would hold, since a cluster must lie in one GPC; so a batch of 16
+// lanes takes two waves, about twice the time of 15.
 //
-// What bounds it on an H100.  The minimum work is one joiner row per valid
-// frame (2 J V flops) and one refresh per emission (2 D J flops); the
-// minimum bytes are the valid frames, the weights once, the table rows the
-// emissions gather and 16 bytes per emission: ~13 MB for a bf16 16 x 30 s
-// batch, ~4 us at 3.35 TB/s, against ~13 us of tensor-core time.  The
-// kernel is far from that: each emission is a dependent step (the next
-// frame's logits need the refreshed decoder), so a lane is a chain of ~one
-// tile and one refresh per emitted token, each re-reading W_out and
-// decoder_proj (1 MB in bf16 at J = D = 512, V = 500) from L2 on one SM.
-// With random weights, which emit on almost every frame, 15 of a tile's 16
-// rows are recomputed after the emission.  Only B of the 132 SMs work.
-// Splitting V over a cluster of blocks, keeping the weights in the
-// cluster's shared memory, and sizing the tile by the emission rate are
-// later work.
+// Design.  Lane b runs on cluster b of kCL = 8 blocks (B x 8 blocks, one
+// block per SM: 512 threads and up to ~225 KB of shared memory each).  Rank r
+// owns a contiguous share of W_out's 8-column n-tiles and of decoder_proj's
+// 8-column chunks (greedy_operands lays each weight out so that every share
+// is one contiguous range), and copies it into its shared memory once per
+// launch with bulk copies (cp.async.bulk, completion on an mbarrier): no
+// step reads a weight from L2 where it fits.  Where a share does not fit
+// (float32 at the flagship, J or D = 1024, a vocabulary of thousands), the
+// rest streams from L2 every step through a ring of two stages of ~32 KB
+// filled by bulk copies, which runs ahead across steps (the weights do not
+// change).  enc_proj's frames are read from global memory as the tile is
+// staged (bulk-copying them ahead through a ring gained under 2% on an
+// H100).  One step of a lane, every rank in lockstep:
+//   1. stage tanh(enc + dec_proj) for the next `rows` frames (up to the
+//      mma's 16; after an emission at offset f of the tile, 2 (f + 1)
+//      rounded up to 4, doubling after a blank tile: the staging follows
+//      the emission rate);
+//   2. the rank's logits: bf16 by mma.sync m16n8k16 (A by ldmatrix, B from
+//      shared memory in fragment order), the J sum split over warps where
+//      the share has few n-tiles; float32 on the CUDA cores (tensor cores
+//      would round to TF32); a running first maximum per row;
+//   3. each row's (value, index) pushed into this rank's slot in every
+//      rank's shared memory (st.shared::cluster), double-buffered by step,
+//      then a cluster barrier (release/acquire);
+//   4. every warp of every rank reduces the kCL partials in rank order with
+//      better(): all derive the same y and first candidate f and take the
+//      same branch (blank tile, full buffer, emission or end);
+//   5. on an emission rank 0 writes the token and timestamp; each rank
+//      gathers the C folded-table rows, computes its decoder_proj columns
+//      (a warp per 8-column chunk) and pushes them into every rank's
+//      dec_proj, then a cluster barrier.
+// Each logit's J sum and each decoder_proj output's D sum stays inside one
+// rank, in a fixed order.  Every path ends at a cluster barrier after the
+// rank's bulk copies have landed, so no block leaves while another can
+// still write its shared memory.
 
 #include "relpos_scores.cuh"  // relpos::allow_smem
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
@@ -71,22 +95,41 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kCL = 8;  // blocks per cluster (the portable maximum)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // frames per tile: the mma's M
-constexpr int kNT = 4;     // n-tiles a warp multiplies per A fragment
 constexpr int kMaxCtx = 8;
 constexpr int kMaxJ = 1024;
 constexpr int kMaxD = 1024;
+constexpr int kStage = 32768;  // a streamed stage's target bytes
+constexpr int kG = 2;  // bf16: n-tiles of a logits work item
+// mbarriers: two per weight ring, one for the resident load
+constexpr int kBarW = 0, kBarD = 2, kBarRes = 4;
+constexpr int kBars = 5;
+
+struct Cand {
+  float v;
+  int i;
+};
+
+// Where each part of a block's shared memory lies (bytes) and how much of
+// each weight share is resident; the same for every rank (make_plan).
+struct Plan {
+  int res_w, res_d;  // n-tiles / chunks of a share held resident
+  int sw, sd;        // units per streamed stage
+  int uw, ud;        // bytes of one n-tile of W_out / one chunk of decoder_proj.w
+  int dproj, dout, slots, red, scratch, bias_w, bias_d, tile, wres, wring, dres, dring, bytes;
+};
 
 struct Args {
   const void* enc;            // [B, T, J] enc_proj
   const long long* lens;      // [B]
   const long long* offset;    // [B] frame_offset
   const float* tables;        // [C, V, D] folded context tables
-  const void* dec_w;          // [D, Jp] decoder_proj.w (bf16 or float32)
+  const void* dec_w;          // [Jp/8, D, 8] decoder_proj.w by 8-column chunk
   const float* dec_b;         // [Jp]
-  const void* out_w;          // bf16: [Vp/8][Jp/16][32][4] fragments; f32: [Jp][Vp]
+  const void* out_w;          // bf16: [Vp/8, Jp/16, 32, 4] fragments; f32: [Vp/8, Jp, 8]
   const float* out_b;         // [Vp]
   const long long* hyp_in;    // [B, C]  the state the search starts from
   const void* dec_proj_in;    // [B, J]  (bf16 or float32)
@@ -99,9 +142,22 @@ struct Args {
   long long* tokens;          // [B, K]  updated in place: the new slots only
   long long* timestamps;      // [B, K]
   int T, J, Jp, D, V, Vp, C, K, blank, skip_sos;
+  Plan p;
 };
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__host__ __device__ inline int floor_pow2(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+// rank r's share of n units: [share_lo(n, r), share_lo(n, r + 1)), the
+// first n % kCL ranks one unit more (decode/rnnt_greedy.py::rank_ranges)
+__host__ __device__ inline int share_lo(int n, int r) {
+  return r * (n / kCL) + (r < n % kCL ? r : n % kCL);
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -123,12 +179,90 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(c));
+  return (int)c;
+}
+
+// every thread of every block of the cluster; the release/acquire pair
+// makes the remote shared-memory writes before it visible after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// p (in this block's shared memory) as the same offset in block `rank`'s
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, Cand c) {
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(__float_as_uint(c.v)), "r"(c.i)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global memory into this block's shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one thread: the bar's one arrival, expecting `bytes` of bulk copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// the shared memory about to be refilled by a bulk copy was last read by
+// ordinary loads (ordered before by a __syncthreads)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
                : "memory");
 }
+
 
 // c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -140,91 +274,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// shared memory: floats dproj[Jp], dout[round4(D)], part[kThreads * 8],
-// red_v[kWarps * kRows]; ints red_i[kWarps * kRows], ys[kRows]; then, 16-byte
-// aligned, the tile: bf16 [kRows][Jp + 8] (8 elements of pad put ldmatrix's
-// rows on distinct banks) or float32 [Jp][kRows] (a frame's 16 rows of one
-// column side by side, read as float4s)
-__host__ __device__ inline size_t head_bytes(int Jp, int D) {
-  const size_t words = (size_t)Jp + round_up(D, 4) + kThreads * 8 + 2 * kWarps * kRows + kRows;
-  return round_up((int)(words * 4), 16);
-}
-
-template <bool BF>
-__host__ __device__ inline size_t smem_bytes(int Jp, int D) {
-  return head_bytes(Jp, D) + (BF ? (size_t)kRows * (Jp + 8) * 2 : (size_t)Jp * kRows * 4);
-}
-
-// One tile's joiner on the tensor cores: this thread's best (logit, index)
-// for rows lane / 4 and lane / 4 + 8 over its columns.
-__device__ __forceinline__ void tile_logits_bf16(const Args& a, const bf16* sA, float (&bv)[2],
-                                                 int (&bi)[2]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane & 3;
-  const int KS = a.Jp / 16, NT = a.Vp / 8, AS = a.Jp + 8;
-  const uint2* W = static_cast<const uint2*>(a.out_w);
-  for (int nt0 = warp * kNT; nt0 < NT; nt0 += kWarps * kNT) {
-    float acc[kNT][4] = {};
-#pragma unroll 4
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t af[4];
-      ldsm_x4(af, sA + (lane & 15) * AS + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int q = 0; q < kNT; ++q) {
-        if (nt0 + q < NT) {
-          const uint2 w = __ldg(W + ((size_t)(nt0 + q) * KS + ks) * 32 + lane);
-          mma_bf16(acc[q], af, w.x, w.y);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kNT; ++q) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = (nt0 + q) * 8 + 2 * tig + (e & 1);
-        if (nt0 + q < NT && col < a.V) {
-          const float logit = bf16_round(bf16_round(acc[q][e]) + a.out_b[col]);
-          if (better(logit, col, bv[e >> 1], bi[e >> 1])) {
-            bv[e >> 1] = logit;
-            bi[e >> 1] = col;
-          }
-        }
-      }
-    }
-  }
-}
-
-// One tile's joiner on the CUDA cores: this thread's best per row over its
-// columns v = threadIdx.x + k * kThreads, each an in-order sum over J.
-__device__ __forceinline__ void tile_logits_f32(const Args& a, const float* sAt,
-                                                float (&bv)[kRows], int (&bi)[kRows]) {
-  const float* W = static_cast<const float*>(a.out_w);
-  for (int v = threadIdx.x; v < a.V; v += kThreads) {
-    float acc[kRows] = {};
-#pragma unroll 4
-    for (int j = 0; j < a.J; ++j) {
-      const float w = __ldg(W + (size_t)j * a.Vp + v);
-      const float4* x = reinterpret_cast<const float4*>(sAt + j * kRows);
-#pragma unroll
-      for (int r4 = 0; r4 < kRows / 4; ++r4) {
-        const float4 xv = x[r4];
-        acc[4 * r4 + 0] = fmaf(xv.x, w, acc[4 * r4 + 0]);
-        acc[4 * r4 + 1] = fmaf(xv.y, w, acc[4 * r4 + 1]);
-        acc[4 * r4 + 2] = fmaf(xv.z, w, acc[4 * r4 + 2]);
-        acc[4 * r4 + 3] = fmaf(xv.w, w, acc[4 * r4 + 3]);
-      }
-    }
-    const float bias = a.out_b[v];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float logit = acc[r] + bias;
-      if (better(logit, v, bv[r], bi[r])) {
-        bv[r] = logit;
-        bi[r] = v;
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void shfl_best(float& v, int& i, int offset) {
   const float ov = __shfl_xor_sync(0xffffffffu, v, offset);
   const int oi = __shfl_xor_sync(0xffffffffu, i, offset);
@@ -234,21 +283,333 @@ __device__ __forceinline__ void shfl_best(float& v, int& i, int offset) {
   }
 }
 
+__device__ __forceinline__ void take(float logit, int col, float& bv, int& bi) {
+  if (better(logit, col, bv, bi)) {
+    bv = logit;
+    bi = col;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The joiner on the tensor cores (bf16).  sA is the tile [kRows][Jp + 8]
+// (8 elements of pad put ldmatrix's rows on distinct banks); W holds `count`
+// n-tiles in fragment order, [count][Jp/16][32] uint2, the first at column
+// col0.  Each thread keeps its best (logit, index) for rows lane / 4 and
+// lane / 4 + 8.
+
+__device__ __forceinline__ void finish_bf16(const Args& a, int c0, const float (&acc)[4],
+                                            const float* bias, float (&bv)[2], int (&bi)[2]) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = c0 + 2 * tig + (e & 1);
+    if (col < a.V) take(bf16_round(bf16_round(acc[e]) + bias[col]), col, bv[e >> 1], bi[e >> 1]);
+  }
+}
+
+// Work items are (kG n-tiles, k-slice): where the share has few n-tiles, the
+// J sum of each is split into k-slices until there is about one item a warp
+// (partials through `scratch`, added in k-slice order).  Each n-tile keeps
+// two accumulator chains, the even and the odd k-steps, added at the end.
+// bias[col] is output.b at the global column; `sync_after`: another pass
+// reuses scratch.
+__device__ __forceinline__ void logits_bf16(const Args& a, const uint2* W, int count, int col0,
+                                            const bf16* sA, float4* scratch, const float* bias,
+                                            bool sync_after, float (&bv)[2], int (&bi)[2]) {
+  if (count <= 0) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int KS = a.Jp / 16, AS = a.Jp + 8;
+  const int groups = (count + kG - 1) / kG;
+  const int ksl = max(1, min(kWarps / groups, KS));
+  const bf16* pa = sA + (lane & 15) * AS + (lane >> 4) * 8;
+  for (int it = warp; it < groups * ksl; it += kWarps) {
+    const int g = it / ksl, s = it - g * ksl;
+    const int q0 = kG * g, k0 = s * KS / ksl, k1 = (s + 1) * KS / ksl;
+    const uint2* w = W + (size_t)q0 * KS * 32 + lane;
+    float acc[kG][2][4] = {};
+    for (int ks = k0; ks < k1; ks += 2) {
+      uint32_t af[4];
+      ldsm_x4(af, pa + ks * 16);
+#pragma unroll
+      for (int q = 0; q < kG; ++q) {
+        if (q0 + q < count) {
+          const uint2 b = w[((size_t)q * KS + ks) * 32];
+          mma_bf16(acc[q][0], af, b.x, b.y);
+        }
+      }
+      if (ks + 1 < k1) {
+        ldsm_x4(af, pa + (ks + 1) * 16);
+#pragma unroll
+        for (int q = 0; q < kG; ++q) {
+          if (q0 + q < count) {
+            const uint2 b = w[((size_t)q * KS + ks + 1) * 32];
+            mma_bf16(acc[q][1], af, b.x, b.y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kG; ++q) {
+      float c[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] = acc[q][0][e] + acc[q][1][e];
+      if (ksl == 1) {
+        if (q0 + q < count) finish_bf16(a, col0 + (q0 + q) * 8, c, bias, bv, bi);
+      } else {
+        scratch[((size_t)it * kG + q) * 32 + lane] = make_float4(c[0], c[1], c[2], c[3]);
+      }
+    }
+  }
+  if (ksl > 1) {
+    __syncthreads();
+    for (int q = warp; q < count; q += kWarps) {  // [item][kG][32]
+      const float4* part = scratch + ((size_t)(q / kG) * ksl * kG + q % kG) * 32 + lane;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < ksl; ++s) {
+        const float4 x = part[(size_t)s * kG * 32];
+        c[0] += x.x;
+        c[1] += x.y;
+        c[2] += x.z;
+        c[3] += x.w;
+      }
+      finish_bf16(a, col0 + q * 8, c, bias, bv, bi);
+    }
+    if (sync_after) __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The joiner on the CUDA cores (float32).  sAt is the tile [Jp][kRows], the
+// 4-row group g of column j stored at group g ^ ((j >> 1) & 3), so that the
+// four columns a warp reads at once fall on distinct banks; W holds `count`
+// n-tiles [count][Jp][8].  A warp multiplies one n-tile over one k-slice (a
+// multiple of 16 of J): lane (s, c) = (lane / 8, lane % 8) sums column c
+// over j = s mod 4, where the swizzle of j alternates between s / 2 and
+// s / 2 ^ 2.  NR4 row groups of 4 are computed (the staged rows).  Lanes
+// 0-7 keep their column's best per row in bv[16] (slices of whole J); for
+// split slices each thread keeps one row (threadIdx.x / 8 % 16) in bv1.
+
+__device__ __forceinline__ const float* swz(const float* sAt, int j, int g) {
+  return sAt + j * kRows + ((g ^ ((j >> 1) & 3)) << 2);
+}
+
+template <int NR4>
+__device__ __forceinline__ void logits_f32(const Args& a, const float* W, int count, int col0,
+                                           const float* sAt, float* scratch, const float* bias,
+                                           bool sync_after, float (&bv)[kRows], int (&bi)[kRows],
+                                           float& bv1, int& bi1) {
+  if (count <= 0) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = lane & 7, s = lane >> 3;
+  const int Jp = a.Jp, KS = Jp / 16;
+  int ksl = floor_pow2(max(1, kWarps / count));  // k-slices: a power of two dividing KS
+  while (KS % ksl) ksl /= 2;
+  const int span = Jp / ksl;
+  const int m = s >> 1;
+  for (int it = warp; it < count * ksl; it += kWarps) {
+    const int q = it / ksl, j0 = (it - q * ksl) * span;
+    float acc[NR4 * 4];
+#pragma unroll
+    for (int r = 0; r < NR4 * 4; ++r) acc[r] = 0.f;
+    const float* w = W + ((size_t)q * Jp + j0 + s) * 8 + c;
+    const float* x = sAt + (j0 + s) * kRows;
+#pragma unroll 2
+    for (int i = 0; i < span / 8; ++i, w += 64, x += 8 * kRows) {
+      const float w0 = w[0], w1 = w[32];
+#pragma unroll
+      for (int g = 0; g < NR4; ++g) {
+        const float4 x0 = *reinterpret_cast<const float4*>(x + ((g ^ m) << 2));
+        const float4 x1 = *reinterpret_cast<const float4*>(x + 4 * kRows + ((g ^ m ^ 2) << 2));
+        acc[4 * g + 0] = fmaf(x1.x, w1, fmaf(x0.x, w0, acc[4 * g + 0]));
+        acc[4 * g + 1] = fmaf(x1.y, w1, fmaf(x0.y, w0, acc[4 * g + 1]));
+        acc[4 * g + 2] = fmaf(x1.z, w1, fmaf(x0.z, w0, acc[4 * g + 2]));
+        acc[4 * g + 3] = fmaf(x1.w, w1, fmaf(x0.w, w0, acc[4 * g + 3]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR4 * 4; ++r) {
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 8);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+    }
+    if (s == 0) {
+      const int col = col0 + q * 8 + c;
+      if (ksl == 1) {
+        if (col < a.V) {
+          const float b = bias[col];
+#pragma unroll
+          for (int r = 0; r < NR4 * 4; ++r) take(acc[r] + b, col, bv[r], bi[r]);
+        }
+      } else {
+        float* out = scratch + (size_t)it * kRows * 8 + c;  // [item][kRows][8]
+#pragma unroll
+        for (int r = 0; r < NR4 * 4; ++r) out[r * 8] = acc[r];
+      }
+    }
+  }
+  if (ksl > 1) {
+    __syncthreads();
+    const int r = (threadIdx.x >> 3) & (kRows - 1), cc = threadIdx.x & 7;
+    if (r < NR4 * 4) {
+      for (int q = threadIdx.x >> 7; q < count; q += kThreads / 128) {
+        const int col = col0 + q * 8 + cc;
+        if (col < a.V) {
+          float sum = 0.f;
+          for (int sl = 0; sl < ksl; ++sl) sum += scratch[((size_t)(q * ksl + sl) * kRows + r) * 8 + cc];
+          take(sum + bias[col], col, bv1, bi1);
+        }
+      }
+    }
+    if (sync_after) __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void logits_f32_rows(int rows, const Args& a, const float* W,
+                                                int count, int col0, const float* sAt,
+                                                float* scratch, const float* bias,
+                                                bool sync_after, float (&bv)[kRows],
+                                                int (&bi)[kRows], float& bv1, int& bi1) {
+  switch ((rows + 3) / 4) {
+    case 1: logits_f32<1>(a, W, count, col0, sAt, scratch, bias, sync_after, bv, bi, bv1, bi1); break;
+    case 2: logits_f32<2>(a, W, count, col0, sAt, scratch, bias, sync_after, bv, bi, bv1, bi1); break;
+    case 3: logits_f32<3>(a, W, count, col0, sAt, scratch, bias, sync_after, bv, bi, bv1, bi1); break;
+    default: logits_f32<4>(a, W, count, col0, sAt, scratch, bias, sync_after, bv, bi, bv1, bi1); break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The refresh's decoder_proj columns: `count` (<= kWarps) chunks of 8
+// columns (the first chunk0), each [D][8] in the compute dtype at W, times
+// dout.  Warp `ch` takes chunk ch: lane l sums rows l, l + 32, ...; then a
+// transposing shuffle tree (9 shuffles for the 8 columns) leaves column
+// 4 (l >> 4 & 1) + 2 (l >> 3 & 1) + (l >> 2 & 1) summed over the warp in
+// lanes l % 4 == 0, which add the bias (bias[j], decoder_proj.b at the
+// global column) and push it into every rank's dproj.  No barrier.
+
+template <bool BF>
+__device__ __forceinline__ void refresh_cols(const Args& a, const unsigned char* W, int count,
+                                             int chunk0, const float* dout, const float* bias,
+                                             float* dproj) {
+  const int ch = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (ch >= count) return;
+  float acc[8] = {};
+#pragma unroll 4
+  for (int d = lane; d < a.D; d += 32) {
+    const float x = dout[d];
+    float w[8];
+    if (BF) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(W + ((size_t)ch * a.D + d) * 16);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f2 = __bfloat1622float2(h2[e]);
+        w[2 * e] = f2.x;
+        w[2 * e + 1] = f2.y;
+      }
+    } else {
+      const float4* src = reinterpret_cast<const float4*>(W + ((size_t)ch * a.D + d) * 32);
+      const float4 w0 = src[0], w1 = src[1];
+      w[0] = w0.x, w[1] = w0.y, w[2] = w0.z, w[3] = w0.w;
+      w[4] = w1.x, w[5] = w1.y, w[6] = w1.z, w[7] = w1.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = fmaf(x, w[e], acc[e]);
+  }
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float v4[4], v2[2];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v4[e] = (h16 ? acc[e + 4] : acc[e]) +
+            __shfl_xor_sync(0xffffffffu, h16 ? acc[e] : acc[e + 4], 16);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    v2[e] = (h8 ? v4[e + 2] : v4[e]) + __shfl_xor_sync(0xffffffffu, h8 ? v4[e] : v4[e + 2], 8);
+  float v1 = (h4 ? v2[1] : v2[0]) + __shfl_xor_sync(0xffffffffu, h4 ? v2[0] : v2[1], 4);
+  v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
+  v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
+  const int j = (chunk0 + ch) * 8 + (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
+  if ((lane & 3) == 0 && j < a.J) {
+    const float v = BF ? bf16_round(bf16_round(v1) + bias[j]) : v1 + bias[j];
+#pragma unroll
+    for (int dst = 0; dst < kCL; ++dst) st_cluster(map_rank(dproj + j, dst), v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+
 template <bool BF>
 __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dproj = reinterpret_cast<float*>(smem);
-  float* dout = dproj + a.Jp;
-  float* part = dout + round_up(a.D, 4);
-  float* red_v = part + kThreads * 8;
-  int* red_i = reinterpret_cast<int*>(red_v + kWarps * kRows);
-  int* ys = red_i + kWarps * kRows;
-  unsigned char* tile = smem + head_bytes(a.Jp, a.D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan& P = a.p;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* dproj = reinterpret_cast<float*>(smem + P.dproj);
+  float* dout = reinterpret_cast<float*>(smem + P.dout);
+  Cand* slots = reinterpret_cast<Cand*>(smem + P.slots);  // [2][kCL][kRows]
+  Cand* red = reinterpret_cast<Cand*>(smem + P.red);      // [kRows][kWarps]
+  float* scratch = reinterpret_cast<float*>(smem + P.scratch);
+  float* bias_w = reinterpret_cast<float*>(smem + P.bias_w);  // output.b, this rank's columns
+  float* bias_d = reinterpret_cast<float*>(smem + P.bias_d);  // decoder_proj.b, likewise
+  unsigned char* tile = smem + P.tile;
+  unsigned char* wres = smem + P.wres;
+  unsigned char* wring = smem + P.wring;
+  unsigned char* dres = smem + P.dres;
+  unsigned char* dring = smem + P.dring;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = cluster_rank(), b = cluster_index();
   const int len = (int)min(max(a.lens[b], 0LL), (long long)a.T);
   const long long offset = a.offset[b];
+
+  // this rank's shares: resident first, the rest streamed in stages
+  const int NT = a.Vp / 8, NCH = a.Jp / 8;
+  const int w0 = share_lo(NT, rank), nw = share_lo(NT, rank + 1) - w0;
+  const int c0 = share_lo(NCH, rank), nd = share_lo(NCH, rank + 1) - c0;
+  const int w_res = min(P.res_w, nw), w_str = nw - w_res;
+  const int d_res = min(P.res_d, nd), d_str = nd - d_res;
+  const int w_st = w_str > 0 ? (w_str + P.sw - 1) / P.sw : 0;  // stages per step
+  const int d_st = d_str > 0 ? (d_str + P.sd - 1) / P.sd : 0;  // stages per refresh
+  const unsigned char* out_w = static_cast<const unsigned char*>(a.out_w);
+  const unsigned char* dec_w = static_cast<const unsigned char*>(a.dec_w);
+
+  // stage k of a ring (one thread): stage k % st of the streamed units
+  auto issue_w = [&](int k) {
+    const int u = (k % w_st) * P.sw, n = min(P.sw, w_str - u);
+    uint64_t* bar = bars + kBarW + (k & 1);
+    fence_async();
+    mbar_expect(bar, (uint32_t)n * P.uw);
+    bulk_load(wring + (size_t)(k & 1) * P.sw * P.uw, out_w + (size_t)(w0 + w_res + u) * P.uw,
+              (uint32_t)n * P.uw, bar);
+  };
+  auto issue_d = [&](int k) {
+    const int u = (k % d_st) * P.sd, n = min(P.sd, d_str - u);
+    uint64_t* bar = bars + kBarD + (k & 1);
+    fence_async();
+    mbar_expect(bar, (uint32_t)n * P.ud);
+    bulk_load(dring + (size_t)(k & 1) * P.sd * P.ud, dec_w + (size_t)(c0 + d_res + u) * P.ud,
+              (uint32_t)n * P.ud, bar);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kBars; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t res_bytes = (uint32_t)(w_res * P.uw + d_res * P.ud);
+  if (tid == 0) {
+    if (res_bytes) {
+      mbar_expect(bars + kBarRes, res_bytes);
+      if (w_res) bulk_load(wres, out_w + (size_t)w0 * P.uw, (uint32_t)w_res * P.uw, bars + kBarRes);
+      if (d_res) bulk_load(dres, dec_w + (size_t)c0 * P.ud, (uint32_t)d_res * P.ud, bars + kBarRes);
+    }
+    if (w_st) {
+      issue_w(0);
+      issue_w(1);
+    }
+    if (d_st) {
+      issue_d(0);
+      issue_d(1);
+    }
+  }
+  for (int i = tid; i < nw * 8; i += kThreads) bias_w[i] = a.out_b[w0 * 8 + i];
+  for (int i = tid; i < nd * 8; i += kThreads) bias_d[i] = a.dec_b[c0 * 8 + i];
   for (int j = tid; j < a.Jp; j += kThreads) {
     float x = 0.f;
     if (j < a.J) {
@@ -258,103 +619,172 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
     }
     dproj[j] = x;
   }
+  {
+    const int words = BF ? kRows * (a.Jp + 8) / 2 : a.Jp * kRows;
+    for (int i = tid; i < words; i += kThreads) reinterpret_cast<float*>(tile)[i] = 0.f;
+  }
   int hyp[kMaxCtx];
 #pragma unroll
   for (int c = 0; c < kMaxCtx; ++c) hyp[c] = c < a.C ? (int)a.hyp_in[(size_t)b * a.C + c] : 0;
   long long count = a.count_in[b], trailing = a.trailing_in[b];
-  __syncthreads();
+  if (res_bytes) mbar_wait(bars + kBarRes, 0);
+  cluster_sync();  // every block of the cluster has started and holds its state
 
-  int t = 0;
+  int t = 0, rows_cap = kRows, step = 0;
+  int kw = 0, kd = 0;  // ring stages consumed
+  // bf16 staging: `per_row` column pairs of a tile row, rows r0, r0 + rstep, ...
+  const int per_row = a.Jp / 2, rstep = kThreads / per_row;
+  const int r0 = tid / per_row, jpair = tid % per_row;
   while (t < len) {
     if (count >= a.K) {  // a full buffer: every frame left counts as a blank
       trailing += len - t;
       break;
     }
-    const int rows = min(kRows, len - t);
-    // stage the joiner's input for frames t .. t + rows - 1 (zeros past them)
+    const int rows = min(rows_cap, len - t);
+
+    // 1. stage the joiner's input for frames t .. t + rows - 1
     if (BF) {
       bf16* sA = reinterpret_cast<bf16*>(tile);
-      const bf16* enc = static_cast<const bf16*>(a.enc) + ((size_t)b * a.T + t) * a.J;
-#pragma unroll 4
-      for (int i = tid; i < kRows * a.Jp; i += kThreads) {
-        const int r = i / a.Jp, j = i - r * a.Jp;
-        float x = 0.f;
-        if (r < rows && j < a.J)
-          x = tanhf(bf16_round(__bfloat162float(enc[(size_t)r * a.J + j]) + dproj[j]));
-        sA[r * (a.Jp + 8) + j] = __float2bfloat16_rn(x);
+      if (r0 < rstep) {
+        const int j = 2 * jpair;
+        const float d0 = dproj[j], d1 = dproj[j + 1];
+        const bf16* enc = static_cast<const bf16*>(a.enc) + ((size_t)b * a.T + t) * a.J;
+        // two rows at a time, so that their tanh chains overlap
+        for (int r = r0; r < rows; r += 2 * rstep) {
+          const int r2 = r + rstep;
+          const bool two = r2 < rows;
+          const bf16* p = enc + (size_t)r * a.J;
+          const bf16* q = enc + (size_t)(two ? r2 : r) * a.J;
+          float x[4] = {0.f, 0.f, 0.f, 0.f};
+          if (j < a.J) {
+            x[0] = __bfloat162float(p[j]);
+            x[2] = __bfloat162float(q[j]);
+          }
+          if (j + 1 < a.J) {
+            x[1] = __bfloat162float(p[j + 1]);
+            x[3] = __bfloat162float(q[j + 1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e] = (j + (e & 1) < a.J) ? tanhf(bf16_round(x[e] + ((e & 1) ? d1 : d0))) : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(sA + r * (a.Jp + 8) + j) = __floats2bfloat162_rn(x[0], x[1]);
+          if (two)
+            *reinterpret_cast<__nv_bfloat162*>(sA + r2 * (a.Jp + 8) + j) =
+                __floats2bfloat162_rn(x[2], x[3]);
+        }
       }
     } else {
       float* sAt = reinterpret_cast<float*>(tile);
-      const float* enc = static_cast<const float*>(a.enc) + ((size_t)b * a.T + t) * a.J;
-#pragma unroll 4
-      for (int i = tid; i < kRows * a.Jp; i += kThreads) {
-        const int r = i % kRows, j = i / kRows;
-        sAt[i] = (r < rows && j < a.J) ? tanhf(enc[(size_t)r * a.J + j] + dproj[j]) : 0.f;
+      const int rr = tid & 3;
+      for (int g = 0; 4 * g < rows; ++g) {
+        const int r = 4 * g + rr;
+        if (r >= rows) continue;
+        const float* src = static_cast<const float*>(a.enc) + ((size_t)b * a.T + t + r) * a.J;
+        for (int j = tid >> 2; j < a.Jp; j += kThreads / 4)
+          const_cast<float*>(swz(sAt, j, g))[rr] = j < a.J ? tanhf(src[j] + dproj[j]) : 0.f;
       }
     }
     __syncthreads();
 
-    // each row's first maximum: per thread, per warp, then over the warps
+    // 2. this rank's best (logit, index) per row over its columns
     if (BF) {
       float bv[2] = {-INFINITY, -INFINITY};
       int bi[2] = {INT_MAX, INT_MAX};
-      tile_logits_bf16(a, reinterpret_cast<const bf16*>(tile), bv, bi);
+      const bf16* sA = reinterpret_cast<const bf16*>(tile);
+      float4* sc = reinterpret_cast<float4*>(scratch);
+      const float* ob = bias_w - w0 * 8;  // indexed by global column
+      logits_bf16(a, reinterpret_cast<const uint2*>(wres), w_res, w0 * 8, sA, sc, ob, w_st > 0,
+                  bv, bi);
+      for (int g = 0; g < w_st; ++g, ++kw) {
+        mbar_wait(bars + kBarW + (kw & 1), (kw >> 1) & 1);
+        const int u = g * P.sw;
+        logits_bf16(a, reinterpret_cast<const uint2*>(wring + (size_t)(kw & 1) * P.sw * P.uw),
+                    min(P.sw, w_str - u), (w0 + w_res + u) * 8, sA, sc, ob, false, bv, bi);
+        __syncthreads();
+        if (tid == 0) issue_w(kw + 2);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         shfl_best(bv[r], bi[r], 1);
         shfl_best(bv[r], bi[r], 2);
       }
       if ((lane & 3) == 0) {
-        const int gid = lane >> 2;
-        red_v[warp * kRows + gid] = bv[0];
-        red_i[warp * kRows + gid] = bi[0];
-        red_v[warp * kRows + gid + 8] = bv[1];
-        red_i[warp * kRows + gid + 8] = bi[1];
+        red[(lane / 4) * kWarps + warp] = Cand{bv[0], bi[0]};
+        red[(lane / 4 + 8) * kWarps + warp] = Cand{bv[1], bi[1]};
       }
     } else {
-      float bv[kRows];
-      int bi[kRows];
+      float bv[kRows], bv1 = -INFINITY;
+      int bi[kRows], bi1 = INT_MAX;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         bv[r] = -INFINITY;
         bi[r] = INT_MAX;
       }
-      tile_logits_f32(a, reinterpret_cast<const float*>(tile), bv, bi);
+      const float* sAt = reinterpret_cast<const float*>(tile);
+      const float* ob = bias_w - w0 * 8;
+      logits_f32_rows(rows, a, reinterpret_cast<const float*>(wres), w_res, w0 * 8, sAt, scratch,
+                      ob, w_st > 0, bv, bi, bv1, bi1);
+      for (int g = 0; g < w_st; ++g, ++kw) {
+        mbar_wait(bars + kBarW + (kw & 1), (kw >> 1) & 1);
+        const int u = g * P.sw;
+        logits_f32_rows(rows, a,
+                        reinterpret_cast<const float*>(wring + (size_t)(kw & 1) * P.sw * P.uw),
+                        min(P.sw, w_str - u), (w0 + w_res + u) * 8, sAt, scratch, ob, false, bv,
+                        bi, bv1, bi1);
+        __syncthreads();
+        if (tid == 0) issue_w(kw + 2);
+      }
+      // each staged row's best over lanes 0-7 (bv), then each 8-lane
+      // group's row (bv1) merged in
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        for (int o = 16; o > 0; o >>= 1) shfl_best(bv[r], bi[r], o);
-        if (lane == 0) {
-          red_v[warp * kRows + r] = bv[r];
-          red_i[warp * kRows + r] = bi[r];
+        if (r < rows) {
+          for (int o = 1; o < 8; o <<= 1) shfl_best(bv[r], bi[r], o);
+          if (lane == 0) red[r * kWarps + warp] = Cand{bv[r], bi[r]};
         }
       }
-    }
-    __syncthreads();
-    if (tid < kRows) {
-      float v = red_v[tid];
-      int i = red_i[tid];
-      for (int w = 1; w < kWarps; ++w)
-        if (better(red_v[w * kRows + tid], red_i[w * kRows + tid], v, i)) {
-          v = red_v[w * kRows + tid];
-          i = red_i[w * kRows + tid];
-        }
-      ys[tid] = i;
+      for (int o = 1; o < 8; o <<= 1) shfl_best(bv1, bi1, o);
+      __syncwarp();
+      const int myrow = (tid >> 3) & (kRows - 1);
+      if ((lane & 7) == 0 && myrow < rows) {
+        Cand& c = red[myrow * kWarps + warp];
+        if (better(bv1, bi1, c.v, c.i)) c = Cand{bv1, bi1};
+      }
     }
     __syncthreads();
 
-    int f = -1;  // the tile's first candidate
-    for (int r = 0; r < rows; ++r)
-      if (!blankish(ys[r], a)) {
-        f = r;
-        break;
+    // 3. push each row's best into this rank's slot in every rank
+    const int par = step & 1;
+    ++step;
+    if (tid < kRows * kWarps) {  // row tid / 16 over the warps (lanes of a half-warp)
+      const int r = tid / kWarps, w = tid % kWarps;
+      Cand c = red[r * kWarps + w];
+#pragma unroll
+      for (int o = kWarps / 2; o > 0; o >>= 1) shfl_best(c.v, c.i, o);
+      if (w < kCL) st_cluster(map_rank(slots + (par * kCL + rank) * kRows + r, w), c);
+    }
+    cluster_sync();
+
+    // 4. every warp: each row's first maximum over the ranks, the first
+    // candidate row f and its token y (the same in every warp and rank)
+    Cand best{-INFINITY, INT_MAX};
+    if (lane < kRows)
+      for (int src = 0; src < kCL; ++src) {
+        const Cand o = slots[(par * kCL + src) * kRows + lane];
+        if (better(o.v, o.i, best.v, best.i)) best = o;
       }
+    const unsigned cand = __ballot_sync(0xffffffffu, lane < rows && !blankish(best.i, a));
+    const int f = cand ? __ffs(cand) - 1 : -1;
     if (f < 0) {  // the whole tile is blank
       trailing += rows;
       t += rows;
+      rows_cap = min(kRows, 2 * rows_cap);
       continue;
     }
-    const int y = ys[f];
-    if (tid == 0) {
+    const int y = __shfl_sync(0xffffffffu, best.i, f);
+
+    // 5. emit, then refresh dec_proj
+    if (rank == 0 && tid == 0) {
       a.tokens[(size_t)b * a.K + count] = y;
       a.timestamps[(size_t)b * a.K + count] = offset + t + f;
     }
@@ -366,15 +796,14 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
 #pragma unroll
     for (int c = 0; c < kMaxCtx; ++c)
       if (c == a.C - 1) hyp[c] = y;
-
-    // refresh: dout = relu(sum_c tables[c][hyp[c]]), then decoder_proj
+    // dout = relu(sum_c tables[c][hyp[c]])
     for (int d = tid; d < a.D; d += kThreads) {
       float s = 0.f;
 #pragma unroll
       for (int c = 0; c < kMaxCtx; ++c) {
         if (c < a.C) {
           const int h = hyp[c] < 0 ? a.blank : hyp[c];
-          const float x = a.tables[((size_t)c * a.V + h) * a.D + d];
+          const float x = __ldg(a.tables + ((size_t)c * a.V + h) * a.D + d);
           s = c == 0 ? x : s + x;
         }
       }
@@ -382,81 +811,173 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
       dout[d] = BF ? bf16_round(s) : s;
     }
     __syncthreads();
-    {
-      const int nch = a.Jp / 8, parts = kThreads / nch;
-      const int chunk = tid % nch, p = tid / nch;
-      if (p < parts) {
-        float acc[8] = {};
-#pragma unroll 4
-        for (int d = p; d < a.D; d += parts) {
-          const float x = dout[d];
-          float w[8];
-          if (BF) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(
-                static_cast<const bf16*>(a.dec_w) + (size_t)d * a.Jp + chunk * 8);
-            const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 f2 = __bfloat1622float2(h2[e]);
-              w[2 * e] = f2.x;
-              w[2 * e + 1] = f2.y;
-            }
-          } else {
-            const float4* src = reinterpret_cast<const float4*>(
-                static_cast<const float*>(a.dec_w) + (size_t)d * a.Jp + chunk * 8);
-            const float4 w0 = src[0], w1 = src[1];
-            w[0] = w0.x, w[1] = w0.y, w[2] = w0.z, w[3] = w0.w;
-            w[4] = w1.x, w[5] = w1.y, w[6] = w1.z, w[7] = w1.w;
-          }
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = fmaf(x, w[e], acc[e]);
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) part[p * a.Jp + chunk * 8 + e] = acc[e];
-      }
-      __syncthreads();
-      for (int j = tid; j < a.J; j += kThreads) {
-        float s = 0.f;
-        for (int q = 0; q < parts; ++q) s += part[q * a.Jp + j];
-        dproj[j] = BF ? bf16_round(bf16_round(s) + a.dec_b[j]) : s + a.dec_b[j];
-      }
-      __syncthreads();
+    const float* db = bias_d - c0 * 8;  // indexed by global column
+    refresh_cols<BF>(a, dres, d_res, c0, dout, db, dproj);
+    for (int g = 0; g < d_st; ++g, ++kd) {
+      mbar_wait(bars + kBarD + (kd & 1), (kd >> 1) & 1);
+      const int u = g * P.sd;
+      refresh_cols<BF>(a, dring + (size_t)(kd & 1) * P.sd * P.ud, min(P.sd, d_str - u),
+                       c0 + d_res + u, dout, db, dproj);
+      __syncthreads();  // the stage's ring slot is read: refill it
+      if (tid == 0) issue_d(kd + 2);
     }
+    cluster_sync();
     t += f + 1;
+    rows_cap = min(kRows, max(4, round_up(2 * (f + 1), 4)));
   }
 
-  for (int j = tid; j < a.J; j += kThreads) {
-    const size_t at = (size_t)b * a.J + j;
-    if (BF)
-      static_cast<bf16*>(a.dec_proj)[at] = __float2bfloat16_rn(dproj[j]);
-    else
-      static_cast<float*>(a.dec_proj)[at] = dproj[j];
-  }
+  // every bulk copy still in flight lands before the block may exit
   if (tid == 0) {
-    for (int c = 0; c < a.C; ++c) a.hyp[(size_t)b * a.C + c] = hyp[c];
-    a.count[b] = count;
-    a.trailing[b] = trailing;
+    for (int k = kw; k < kw + 2 && w_st; ++k) mbar_wait(bars + kBarW + (k & 1), (k >> 1) & 1);
+    for (int k = kd; k < kd + 2 && d_st; ++k) mbar_wait(bars + kBarD + (k & 1), (k >> 1) & 1);
   }
+  if (rank == 0) {
+    for (int j = tid; j < a.J; j += kThreads) {
+      const size_t at = (size_t)b * a.J + j;
+      if (BF)
+        static_cast<bf16*>(a.dec_proj)[at] = __float2bfloat16_rn(dproj[j]);
+      else
+        static_cast<float*>(a.dec_proj)[at] = dproj[j];
+    }
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < kMaxCtx; ++c)
+        if (c < a.C) a.hyp[(size_t)b * a.C + c] = hyp[c];
+      a.count[b] = count;
+      a.trailing[b] = trailing;
+    }
+  }
+  __syncthreads();
+  cluster_sync();  // no block leaves while another may still write its shared memory
+}
+
+// ---------------------------------------------------------------------------
+// The plan: shared-memory layout and residency, from the shapes and the
+// device's per-block limit.  Each rank holds ceil(units / kCL) units at most.
+// Fixed parts first (barriers, dec_proj, the decoder output, the partial
+// slots, the reduction, the scratch, the tile); then every weight resident if
+// it fits.  Else decoder_proj streams, in stages of ~kStage bytes through a
+// two-stage ring, and so does W_out unless its whole share fits beside that
+// ring; the memory left holds W_out's first n-tiles and then decoder_proj's
+// first chunks.
+
+template <bool BF>
+bool make_plan(int J, int D, int V, int limit, Plan& p) {
+  const int Jp = round_up(J, 16), Vp = round_up(V, 8), esz = BF ? 2 : 4;
+  const int ntw = (Vp / 8 + kCL - 1) / kCL, ntd = (Jp / 8 + kCL - 1) / kCL;
+  p = Plan{};
+  p.uw = BF ? Jp / 16 * 256 : Jp * 32;
+  p.ud = D * 8 * esz;
+  int at = round_up(kBars * 8, 16);
+  auto place = [&](int bytes) {
+    const int here = at;
+    at = round_up(at + bytes, 128);
+    return here;
+  };
+  p.dproj = place(Jp * 4);
+  p.dout = place(round_up(D, 4) * 4);
+  p.slots = place(2 * kCL * kRows * (int)sizeof(Cand));
+  p.red = place(kWarps * kRows * (int)sizeof(Cand));
+  p.scratch = place(BF ? kWarps * kG * 32 * 16 : kWarps * kRows * 8 * 4);
+  p.bias_w = place(ntw * 8 * 4);
+  p.bias_d = place(ntd * 8 * 4);
+  p.tile = place(BF ? kRows * (Jp + 8) * 2 : Jp * kRows * 4);
+  const int fixed = at;
+  auto fits = [&](long long bytes) { return fixed + bytes + 128 * 6 <= limit; };
+  const long long all = (long long)ntw * p.uw + (long long)ntd * p.ud;
+  int sw = 0, sd = 0;
+  if (fits(all)) {
+    p.res_w = ntw, p.res_d = ntd;
+  } else {
+    // W_out keeps its whole share where that fits beside decoder_proj's
+    // smallest ring, else it streams too; then each weight's resident part
+    // fills the memory left beside the rings, W_out's first
+    sw = fits((long long)ntw * p.uw + 2LL * p.ud) ? 0 : std::max(1, std::min(ntw, kStage / p.uw));
+    sd = std::max(1, std::min(ntd, kStage / p.ud));
+    const long long keep = sw ? 0 : (long long)ntw * p.uw;
+    while (sw > 1 && !fits(keep + 2LL * sw * p.uw + 2LL * sd * p.ud)) --sw;
+    while (sd > 1 && !fits(keep + 2LL * sw * p.uw + 2LL * sd * p.ud)) --sd;
+    const long long rings = 2LL * sw * p.uw + 2LL * sd * p.ud;
+    if (!fits(keep + rings)) return false;
+    const int max_w = sw ? ntw - 1 : ntw;
+    while (p.res_w < max_w && fits(rings + (p.res_w + 1LL) * p.uw)) ++p.res_w;
+    while (p.res_d + 1 < ntd && fits(rings + (long long)p.res_w * p.uw + (p.res_d + 1LL) * p.ud))
+      ++p.res_d;
+  }
+  p.sw = sw, p.sd = sd;
+  p.wres = place(p.res_w * p.uw);
+  p.wring = place(2 * sw * p.uw);
+  p.dres = place(p.res_d * p.ud);
+  p.dring = place(2 * sd * p.ud);
+  p.bytes = at;
+  return p.bytes <= limit;
+}
+
+int smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return limit;
 }
 
 template <bool BF>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<BF>(a.Jp, a.D);
   // set once per kernel and device, not per launch
-  const cudaError_t err = relpos::allow_smem<rnnt_greedy_kernel<BF>>(smem, false);
+  cudaError_t err = relpos::allow_smem<rnnt_greedy_kernel<BF>>(a.p.bytes, true);
   if (err != cudaSuccess) return err;
-  rnnt_greedy_kernel<BF><<<B, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * kCL);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = a.p.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rnnt_greedy_kernel<BF>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool BF>
+cudaError_t describe(const Plan& p, long long* out) {
+  cudaError_t err = relpos::allow_smem<rnnt_greedy_kernel<BF>>(p.bytes, true);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCL);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, rnnt_greedy_kernel<BF>, &cfg);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, rnnt_greedy_kernel<BF>);
+  if (err != cudaSuccess) return err;
+  out[7] = clusters;
+  out[8] = fa.numRegs;
+  out[9] = (long long)fa.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (enc_proj, dec_proj and dec_w; the
-// tables and biases are float32 either way).  out_w is [Jp][Vp] float32 or
-// [Vp/8][Jp/16][32][4] bf16 (decode/rnnt_greedy.py::pack_mma_b), with
-// Jp = J rounded up to 16 and Vp = V rounded up to 8, zero padded.  The
-// search reads hyp, dec_proj, count and trailing from the *_in buffers and
-// writes them to the others; it writes its emissions into tokens and
+// tables and biases are float32 either way).  out_w is [Vp/8, Jp/16, 32, 4]
+// bf16 mma fragments (decode/rnnt_greedy.py::pack_mma_b) or [Vp/8, Jp, 8]
+// float32, dec_w [Jp/8, D, 8], with Jp = J rounded up to 16 and Vp = V
+// rounded up to 8, zero padded (decode/rnnt_greedy.py::greedy_operands).
+// The search reads hyp, dec_proj, count and trailing from the *_in buffers
+// and writes them to the others; it writes its emissions into tokens and
 // timestamps in place.  Takes B, V, K >= 1, J, D <= 1024 and 1 <= C <= 8;
 // returns the launch's cudaError_t (0 on success).
 extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* offset,
@@ -470,6 +991,10 @@ extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* of
   if (B < 1 || T < 0 || J < 1 || J > kMaxJ || D < 1 || D > kMaxD || V < 1 || C < 1 ||
       C > kMaxCtx || K < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  Plan p;
+  const int limit = smem_limit();
+  if (!(dtype ? make_plan<true>(J, D, V, limit, p) : make_plan<false>(J, D, V, limit, p)))
+    return (int)cudaErrorInvalidValue;
   const Args a{enc, static_cast<const long long*>(lens), static_cast<const long long*>(offset),
                static_cast<const float*>(tables), dec_w, static_cast<const float*>(dec_b),
                out_w, static_cast<const float*>(out_b), static_cast<const long long*>(hyp_in),
@@ -477,7 +1002,25 @@ extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* of
                static_cast<const long long*>(trailing_in), static_cast<long long*>(hyp),
                dec_proj, static_cast<long long*>(count), static_cast<long long*>(trailing),
                static_cast<long long*>(tokens), static_cast<long long*>(timestamps), T, J,
-               round_up(J, 16), D, V, round_up(V, 8), C, K, blank, skip_sos};
+               round_up(J, 16), D, V, round_up(V, 8), C, K, blank, skip_sos, p};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch<true>(a, B, st) : launch<false>(a, B, st));
+}
+
+// What a launch at these shapes would use, for logs: out[0..9] = shared
+// memory bytes per block, resident n-tiles of W_out and chunks of
+// decoder_proj per rank, units per streamed stage of each, the most n-tiles
+// and chunks a rank owns, cudaOccupancyMaxActiveClusters, and the kernel's
+// registers per thread and local (spill) bytes.
+extern "C" int k2t_rnnt_greedy_plan(int J, int D, int V, int dtype, long long* out) {
+  if (J < 1 || J > kMaxJ || D < 1 || D > kMaxD || V < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  const int limit = smem_limit();
+  if (!(dtype ? make_plan<true>(J, D, V, limit, p) : make_plan<false>(J, D, V, limit, p)))
+    return (int)cudaErrorInvalidValue;
+  const int Jp = round_up(J, 16), Vp = round_up(V, 8);
+  out[0] = p.bytes, out[1] = p.res_w, out[2] = p.res_d, out[3] = p.sw, out[4] = p.sd;
+  out[5] = (Vp / 8 + kCL - 1) / kCL, out[6] = (Jp / 8 + kCL - 1) / kCL;
+  return (int)(dtype ? describe<true>(p, out) : describe<false>(p, out));
 }

@@ -22,7 +22,12 @@ the state's.
 
 ``greedy_operands`` builds the kernel's operands from the decoder and
 joiner (the folded context tables, the weights in the kernel's layouts);
-a recognizer builds them once and passes them to every call.
+a recognizer builds them once and passes them to every call.  The kernel
+runs each lane on a cluster of ``CLUSTER`` blocks; block r owns the
+``rank_ranges`` share r of W_out's 8-column n-tiles and of decoder_proj's
+8-column chunks, and both weights are laid out unit-major so that every
+share is one contiguous range of the packed operand (rows lo .. hi of
+``out_w`` and ``dec_w``).
 ``k2transducerasr_tpu_torch.testing.tie_aware_replay`` holds a bf16 search
 to the plain ops frame by frame.
 """
@@ -45,8 +50,10 @@ _UNK = 2
 MAX_JOINER_DIM = 1024
 MAX_DECODER_DIM = 1024
 MAX_CONTEXT = 8
+CLUSTER = 8  # blocks per lane (kCL)
 _DTYPE_CODE = {None: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -189,7 +196,8 @@ def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc
     no fallback.  ``window`` does not change the result and the kernel does
     not read it.  ``operands``: ``greedy_operands(dec_params, dec_cfg,
     join_params, compute_dtype)``, built here when not given.
-    ``greedy_frames_skip.launches`` counts the kernel's launches."""
+    ``greedy_frames_skip.launches`` counts the kernel's launches: one per
+    call, a grid of B clusters of ``CLUSTER`` blocks."""
     if enc_proj.device.type == "cpu":
         return greedy_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
                                             enc_lens, frame_offset, extra_skip_sos,
@@ -208,12 +216,14 @@ greedy_frames_skip.launches = 0
 @dataclasses.dataclass(frozen=True)
 class GreedyOperands:
     """The kernel's operands (``greedy_operands``), on the decoder's device.
-    Jp and Vp are J and V rounded up to 16 and 8 (zero padding)."""
+    Jp and Vp are J and V rounded up to 16 and 8 (zero padding); both
+    weights are unit-major (an n-tile of W_out, a chunk of decoder_proj.w:
+    8 columns each), so each block's share is a contiguous range."""
 
     tables: torch.Tensor  # [C, V, D] float32 — the folded context tables
-    dec_w: torch.Tensor  # [D, Jp] — decoder_proj.w in the compute dtype
+    dec_w: torch.Tensor  # [Jp/8, D, 8] — decoder_proj.w in the compute dtype, by chunk
     dec_b: torch.Tensor  # [Jp] float32 — decoder_proj.b
-    out_w: torch.Tensor  # bf16: [Vp/8, Jp/16, 32, 4] mma fragments; f32: [Jp, Vp]
+    out_w: torch.Tensor  # bf16: [Vp/8, Jp/16, 32, 4] mma fragments; f32: [Vp/8, Jp, 8]
     out_b: torch.Tensor  # [Vp] float32 — output.b
     vocab: int
     joiner_dim: int
@@ -232,9 +242,10 @@ def greedy_operands(dec_params, dec_cfg, join_params, compute_dtype=None) -> Gre
     """The kernel's operands from the decoder and the joiner, built with
     device ops only (no host sync): the folded context tables
     (``decoder.context_tables``), ``decoder_proj`` with its weight in the
-    compute dtype (``apply_linear`` casts it the same way), and ``output``,
-    whose weight under bf16 is packed into the B fragments of
-    ``mma.sync.m16n8k16`` (``pack_mma_b``) and under float32 kept [Jp, Vp]."""
+    compute dtype (``apply_linear`` casts it the same way) in 8-column
+    chunks (``pack_chunks``), and ``output``, whose weight under bf16 is
+    packed into the B fragments of ``mma.sync.m16n8k16`` (``pack_mma_b``)
+    and under float32 into 8-column n-tiles (``pack_chunks``)."""
     if compute_dtype not in _DTYPE_CODE:
         raise ValueError(f"greedy kernel: compute_dtype must be None or bfloat16, "
                          f"got {compute_dtype}")
@@ -251,9 +262,9 @@ def greedy_operands(dec_params, dec_cfg, join_params, compute_dtype=None) -> Gre
     w_pad = F.pad(w_out.float(), (0, vp - v, 0, jp - j))
     return GreedyOperands(
         tables=tables.contiguous(),
-        dec_w=F.pad(w_dp.to(wdt), (0, jp - j)).contiguous(),
+        dec_w=pack_chunks(F.pad(w_dp.to(wdt), (0, jp - j))),
         dec_b=F.pad(_bias(dp, j, w_dp), (0, jp - j)).contiguous(),
-        out_w=w_pad.contiguous() if compute_dtype is None else pack_mma_b(w_pad.to(wdt)),
+        out_w=pack_chunks(w_pad) if compute_dtype is None else pack_mma_b(w_pad.to(wdt)),
         out_b=F.pad(_bias(out, v, w_out), (0, vp - v)).contiguous(),
         vocab=v, joiner_dim=j, compute_dtype=compute_dtype,
     )
@@ -268,6 +279,39 @@ def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
     kp, np_ = w.shape
     x = w.reshape(kp // 16, 2, 4, 2, np_ // 8, 8)  # k = 16ks + 8h + 2q + e, n = 8nt + g
     return x.permute(4, 0, 5, 2, 1, 3).contiguous().reshape(np_ // 8, kp // 16, 32, 4)
+
+
+def pack_chunks(w: torch.Tensor) -> torch.Tensor:
+    """w [K, Np] (Np % 8 == 0) -> [Np/8, K, 8]: each 8-column chunk's K rows
+    contiguous, the float32 n-tiles of W_out and the chunks of
+    decoder_proj.w."""
+    k, np_ = w.shape
+    return w.reshape(k, np_ // 8, 8).permute(1, 0, 2).contiguous()
+
+
+def rank_ranges(units: int) -> list[tuple[int, int]]:
+    """Each block's share [lo, hi) of ``units`` 8-column units, in rank
+    order: contiguous, each unit owned once, the first ``units % CLUSTER``
+    ranks one unit more than the rest (the kernel's ``share_lo``)."""
+    base, extra = divmod(units, CLUSTER)
+    lo = [r * base + min(r, extra) for r in range(CLUSTER + 1)]
+    return [(lo[r], lo[r + 1]) for r in range(CLUSTER)]
+
+
+def kernel_plan(joiner_dim: int, decoder_dim: int, vocab: int, compute_dtype=None) -> dict:
+    """What the kernel would use on the current card at these shapes (its C
+    entry ``k2t_rnnt_greedy_plan``): shared memory per block, the resident
+    and streamed units per block, ``cudaOccupancyMaxActiveClusters`` and its
+    registers and local (spill) bytes per thread.  Needs the card."""
+    out = (ctypes.c_longlong * 10)()
+    fn = cuda_build.function("rnnt_greedy", "k2t_rnnt_greedy_plan", _PLAN_ARGTYPES)
+    err = fn(joiner_dim, decoder_dim, vocab, _DTYPE_CODE[compute_dtype], ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rnnt_greedy plan failed: cudaError {err}")
+    keys = ("smem_bytes", "resident_ntiles", "resident_chunks", "stage_ntiles",
+            "stage_chunks", "ntiles_per_rank", "chunks_per_rank", "max_active_clusters",
+            "registers", "local_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def _launch_kernel(ops: GreedyOperands, dec_cfg, state: GreedyState, enc_proj, enc_lens,
@@ -297,6 +341,9 @@ def _launch_kernel(ops: GreedyOperands, dec_cfg, state: GreedyState, enc_proj, e
                state.trailing_blanks)
     if any(x.device != dev for x in tensors):
         raise ValueError("greedy kernel: operands and state must be on enc_proj's device")
+    if any(not w.is_contiguous() or w.data_ptr() % 16 for w in (ops.out_w, ops.dec_w)):
+        raise ValueError("greedy kernel: out_w and dec_w must be contiguous and 16-byte aligned "
+                         "(the blocks copy their shares in bulk)")
 
     def lane_ints(x):
         return torch.as_tensor(x, device=dev).to(torch.int64).expand(b).contiguous()

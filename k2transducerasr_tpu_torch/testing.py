@@ -17,7 +17,7 @@ import torch
 
 from k2transducerasr_tpu_torch.decode.rnnt_greedy import GreedyState, _blankish, _UNK
 from k2transducerasr_tpu_torch.models import decoder as decoder_mod
-from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.ops.layers import apply_linear
 
 
 @dataclasses.dataclass
@@ -45,7 +45,10 @@ def tie_aware_replay(dec_params, dec_cfg, join_params, state: GreedyState, enc_p
     logit.  It also requires emissions at increasing frames inside the
     lane's length, no blankish token emitted, the buffers outside the new
     slots unchanged, and the final count, context, trailing blanks and
-    (within ``ulps``) decoder output that those emissions give."""
+    (within ``ulps``) decoder output that those emissions give.  The plain
+    ops round where ``apply_linear`` rounds, each product in the compute
+    dtype summed exactly and rounded once (``_linear``): the value that every
+    float32 summation order, the kernel's or a library's, approximates."""
     b, t_max, j = enc_proj.shape
     dev = enc_proj.device
     k_max = state.tokens.shape[1]
@@ -86,13 +89,13 @@ def tie_aware_replay(dec_params, dec_cfg, join_params, state: GreedyState, enc_p
     hyps = seq.unfold(1, c, 1)  # [B, E + 1, C]
     tables = decoder_mod.context_tables(dec_params, dec_cfg)
     dec_out = decoder_mod.forward_from_tables(tables, dec_cfg, hyps.reshape(-1, c))
-    dps = joiner_mod.project_decoder(join_params, dec_out, compute_dtype).reshape(b, e + 1, j)
+    dps = _linear(join_params["decoder_proj"], dec_out, compute_dtype).reshape(b, e + 1, j)
     dps = torch.cat([state.dec_proj[:, None].to(dps.dtype), dps[:, 1:]], dim=1)
     # frame t decides with the state after the emissions at frames < t
     ts = torch.arange(t_max, device=dev)
     k_at = torch.searchsorted(frame.contiguous(), ts.expand(b, t_max).contiguous())  # [B, T]
     dec_t = dps.gather(1, k_at[..., None].expand(b, t_max, j))
-    logits = joiner_mod.joint_logits(join_params, enc_proj, dec_t, compute_dtype).float()
+    logits = _linear(join_params["output"], torch.tanh(enc_proj + dec_t), compute_dtype).float()
 
     top = logits.max(dim=-1).values
     mag = top.abs().clamp_min(torch.finfo(dtype).tiny)
@@ -135,3 +138,26 @@ def tie_aware_replay(dec_params, dec_cfg, join_params, state: GreedyState, enc_p
         if not ok:
             return ReplayResult(False, frames, n_differ, worst, f"final {name} differs")
     return ReplayResult(True, frames, n_differ, worst, "")
+
+
+def _linear(p, x, compute_dtype):
+    """``apply_linear(p, x, compute_dtype)`` with its rounding points, but in
+    a reduced compute dtype the product summed exactly (float64) and
+    rounded once (``_round_once``) before the bias is added."""
+    if compute_dtype is None:
+        return apply_linear(p, x)
+    prod = x.to(compute_dtype).double() @ p["w"].to(compute_dtype).double()
+    y = _round_once(prod, compute_dtype).float()
+    if "b" in p:
+        y = y + p["b"]
+    return y.to(compute_dtype)
+
+
+def _round_once(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float64 ``x`` rounded to nearest (even) in ``dtype``, once: x is first
+    rounded to odd in float32 (truncated, its last bit set where that was
+    inexact), which keeps the second rounding from compounding the first."""
+    f = x.float()
+    f = torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    f = torch.where(f.double() != x, (f.view(torch.int32) | 1).view(torch.float32), f)
+    return f.to(dtype)

@@ -8,6 +8,10 @@ against its CPU run, and int8 (``torch._int_mm`` through its padding, the
 recognizers under ``accuracy="int8"``), the native wav route and a
 converted model dir on the card.
 
+The greedy kernel is also held bit for bit in each of its regimes (weights
+resident in the cluster's shared memory or streamed, ragged widths, context
+1 and 8, more lanes than clusters run at once).
+
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed:
@@ -502,6 +506,68 @@ def test_greedy_kernel_bit_for_bit_on_dyadic_inputs(cuda, dtype, ctx, skip_sos, 
     assert int(got.count.max()) > 4 and int(got.count[1]) == 0
     if max_tokens == 9:
         assert int(got.count.max()) == 9
+
+
+# Each regime of the cluster kernel (csrc/rnnt_greedy.cu), in both dtypes:
+# (J, D, V, context, lanes, frames, where the weights live).  "resident":
+# every block's share of W_out and decoder_proj in its shared memory (bf16 at
+# the flagship's 512/512/500); "streamed": some of it through the rings every
+# step (J = D = 1024; V = 5,500; float32 at the flagship); "ragged": V not a
+# multiple of 64 nor of 8, J and D not multiples of 16 (bf16 frames of 200
+# bytes); context 1 and 8; 32 lanes, more clusters than run at
+# once.  Every case has a lane of 0 frames and one whose buffer is full on
+# entry.
+GREEDY_REGIMES = [
+    ("flagship", 512, 512, 500, 2, 6, 40),
+    ("wide-1024", 1024, 1024, 500, 2, 6, 40),
+    ("vocab-5500", 512, 512, 5500, 2, 6, 40),
+    ("ragged", 100, 92, 203, 2, 6, 40),
+    ("ctx1", 512, 512, 500, 1, 6, 40),
+    ("ctx8", 512, 512, 500, 8, 6, 40),
+    ("lanes-32", 512, 512, 500, 2, 32, 24),
+]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("j,d,v,ctx,b,t", [c[1:] for c in GREEDY_REGIMES],
+                         ids=[c[0] for c in GREEDY_REGIMES])
+def test_greedy_kernel_regimes_bit_for_bit(cuda, dtype, j, d, v, ctx, b, t):
+    """Kernel against plain on dyadic inputs, every state field exactly, with
+    the regime the case stands for checked on the kernel's plan."""
+    dp, jp, cfg, big = _dyadic_greedy(cuda, dtype, v=v, d=d, j=j, ctx=ctx, seed=ctx + b)
+    rng = np.random.default_rng(j + v)
+    max_tokens = 48
+    lens = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
+    lens[0], lens[1], lens[2] = t, 0, t  # a full lane, an empty lane, a lane full on entry
+    offset = torch.from_numpy(rng.integers(0, 1000, b)).to(cuda)
+    st = TGreedy.init_state(dp, cfg, jp, b, max_tokens, dtype)
+    st.count[2] = max_tokens
+    enc = torch.from_numpy(_dyadic_frames(rng, b, t, j, big)).to(cuda)
+    enc = enc if dtype is None else enc.to(dtype)
+    ops = TGreedy.greedy_operands(dp, cfg, jp, dtype)
+    got = TGreedy.greedy_frames_skip(dp, cfg, jp, st, enc, lens, offset, False, dtype,
+                                     operands=ops)
+    torch.cuda.synchronize()
+    # the plain version's bf16 products summed in float32, as the kernel's
+    # (cuBLAS may otherwise reduce split sums in bf16)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = TGreedy.greedy_frames_skip_reference(dp, cfg, jp, st, enc, lens, offset, False,
+                                                    dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    for f in ("hyp", "dec_proj", "tokens", "timestamps", "count", "trailing_blanks"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.count[0]) > 4 and int(got.count[1]) == 0
+    assert int(got.count[2]) == max_tokens and int(got.trailing_blanks[2]) == t
+    plan = TGreedy.kernel_plan(j, d, v, dtype)
+    resident = (plan["resident_ntiles"] == plan["ntiles_per_rank"]
+                and plan["resident_chunks"] == plan["chunks_per_rank"])
+    streamed = (j == 1024 or v == 5500 or (dtype is None and j == 512))
+    assert resident != streamed, plan
+    if b > plan["max_active_clusters"]:
+        assert b == 32  # the lanes ran in waves
 
 
 def test_greedy_kernel_emits_sos_only_offline_and_breaks_ties_low(cuda):

@@ -1,7 +1,8 @@
 """The greedy search's kernel module (``decode/rnnt_greedy.py``) on the CPU:
 the wrapper's plain version against the JAX package's
 ``greedy_frames_skip``, its window invariance, chained streaming calls, the
-kernel's operands (``greedy_operands``) against the plain ops, and the
+kernel's operands (``greedy_operands``) against the plain ops, each cluster
+rank's share of the packed weights (``rank_ranges``), and the
 tie-aware replay (``k2transducerasr_tpu_torch/testing.py``).  Inputs come from numpy seeds; nothing draws from torch's
 global RNG.  The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -14,6 +15,7 @@ the port's own ops exactly.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from k2transducerasr_tpu.models import joiner as JJ
 from k2transducerasr_tpu_torch.decode import rnnt_greedy as TG
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
-from k2transducerasr_tpu_torch.testing import tie_aware_replay
+from k2transducerasr_tpu_torch.testing import _linear, _round_once, tie_aware_replay
 
 FIELDS = ("hyp", "tokens", "timestamps", "count", "trailing_blanks")
 
@@ -135,10 +137,22 @@ def test_two_chained_calls_equal_one_call(split):
     torch.testing.assert_close(second.dec_proj, whole.dec_proj, rtol=0, atol=0)
 
 
-def _unpack_mma_b(packed, kp, np_):
+def _unpack_mma_b(packed):
     """The inverse of ``pack_mma_b``: [Np/8, Kp/16, 32, 4] -> [Kp, Np]."""
+    np_, kp = packed.shape[0] * 8, packed.shape[1] * 16
     x = packed.reshape(np_ // 8, kp // 16, 8, 4, 2, 2)  # nt, ks, g, q, h, e
     return x.permute(1, 4, 3, 5, 0, 2).reshape(kp, np_)
+
+
+def _unpack_chunks(packed):
+    """The inverse of ``pack_chunks``: [Np/8, K, 8] -> [K, Np]."""
+    n8, k, _ = packed.shape
+    return packed.permute(1, 0, 2).reshape(k, n8 * 8)
+
+
+def _unpack_out_w(w, compute_dtype):
+    """W_out's packed n-tiles [n, ...] back to [Jp, 8 n] (either dtype)."""
+    return _unpack_chunks(w) if compute_dtype is None else _unpack_mma_b(w)
 
 
 def test_pack_mma_b_places_each_lanes_fragment():
@@ -151,7 +165,8 @@ def test_pack_mma_b_places_each_lanes_fragment():
         g, q = lane // 4, lane % 4
         want = [w[16 * ks + 2 * q + e, 8 * nt + g] for e in (0, 1, 8, 9)]
         assert p[nt, ks, lane].tolist() == [float(x) for x in want]
-    assert torch.equal(_unpack_mma_b(p, 48, 24), w)
+    assert torch.equal(_unpack_mma_b(p), w)
+    assert torch.equal(_unpack_chunks(TG.pack_chunks(w)), w)
 
 
 def _kernel_math(ops, dcfg, hyp, enc_proj, compute_dtype):
@@ -164,14 +179,14 @@ def _kernel_math(ops, dcfg, hyp, enc_proj, compute_dtype):
     for i in range(1, c):
         dout = dout + ops.tables[i][y[:, i]]
     dout = torch.relu(dout)
+    dec_w = _unpack_chunks(ops.dec_w)[:, :j]
+    w = _unpack_out_w(ops.out_w, ops.compute_dtype)[:j, :v]
     if compute_dtype is None:
-        dec_proj = dout @ ops.dec_w[:, :j] + ops.dec_b[:j]
-        w = ops.out_w[:j, :v]
+        dec_proj = dout @ dec_w + ops.dec_b[:j]
         logits = torch.tanh(enc_proj + dec_proj) @ w + ops.out_b[:v]
         return dec_proj, logits
     cd = compute_dtype
-    dec_proj = ((dout.to(cd) @ ops.dec_w[:, :j]).float() + ops.dec_b[:j]).to(cd)
-    w = _unpack_mma_b(ops.out_w, ops.out_w.shape[1] * 16, ops.out_w.shape[0] * 8)[:j, :v]
+    dec_proj = ((dout.to(cd) @ dec_w).float() + ops.dec_b[:j]).to(cd)
     x = torch.tanh(enc_proj.to(cd) + dec_proj)
     logits = ((x @ w).float() + ops.out_b[:v]).to(cd)
     return dec_proj, logits
@@ -185,7 +200,7 @@ def test_operands_reproduce_the_plain_ops(ctx, compute_dtype):
     port's own ops exactly, the JAX package's in float32 to atol 1e-5."""
     (dcfg_j, dp, jp), (dcfg, dec, join) = _models(vocab=21, ctx=ctx, d=24, j=19)
     ops = TG.greedy_operands(dec, dcfg, join, compute_dtype)
-    assert ops.tables.shape == (ctx, 21, 24) and ops.dec_w.shape == (24, 32)
+    assert ops.tables.shape == (ctx, 21, 24) and ops.dec_w.shape == (4, 24, 8)
     assert ops.out_b.shape == (24,) and ops.vocab == 21 and ops.joiner_dim == 19
     tables = TD.context_tables(dec, dcfg)
     for i, t in enumerate(tables):
@@ -205,6 +220,58 @@ def test_operands_reproduce_the_plain_ops(ctx, compute_dtype):
         np.testing.assert_allclose(logits.numpy(),
                                    np.asarray(JJ.joint_logits(jp, jnp.asarray(enc.numpy()), j_dp)),
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("units", [1, 6, 7, 8, 9, 63, 64, 65, 688])
+def test_rank_ranges_own_every_unit_once(units):
+    """The CLUSTER ranks' shares tile [0, units) in rank order: contiguous,
+    each unit owned by exactly one rank."""
+    ranges = TG.rank_ranges(units)
+    assert len(ranges) == TG.CLUSTER
+    owner = [r for r, (lo, hi) in enumerate(ranges) for _ in range(lo, hi)]
+    assert owner == sorted(owner) and len(owner) == units
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("units", [1, 6, 7, 8, 9, 63, 64, 65, 688])
+def test_rank_ranges_are_as_even_as_stated(units):
+    """Every share holds units // CLUSTER or one more, the larger first
+    (V = 500: 63 n-tiles, 8 on ranks 0-6 and 7 on rank 7)."""
+    sizes = [hi - lo for lo, hi in TG.rank_ranges(units)]
+    base, extra = divmod(units, TG.CLUSTER)
+    assert sizes == [base + 1] * extra + [base] * (TG.CLUSTER - extra)
+    if units == 63:
+        assert sizes == [8] * 7 + [7]
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("vocab,d,j", [(21, 24, 19), (500, 16, 40), (7, 12, 150)],
+                         ids=["v21", "v500", "v7-j150"])
+def test_rank_shares_reassemble_the_padded_weights(compute_dtype, vocab, d, j):
+    """Each rank's W_out n-tiles and decoder_proj chunks (rows lo .. hi of
+    rank_ranges of the packed operands, as the kernel's blocks copy them),
+    unpacked and put side by side in rank order, are the zero-padded
+    weights in the compute dtype; rank r's share covers columns 8 lo ..
+    8 hi, each a contiguous block."""
+    _, (dcfg, dec, join) = _models(vocab=vocab, d=d, j=j)
+    ops = TG.greedy_operands(dec, dcfg, join, compute_dtype)
+    jp, vp = -(-j // 16) * 16, -(-vocab // 8) * 8
+    wdt = torch.float32 if compute_dtype is None else compute_dtype
+    want_w = torch.zeros((jp, vp), dtype=wdt)
+    want_w[:j, :vocab] = join["output"]["w"].to(wdt)
+    want_d = torch.zeros((d, jp), dtype=wdt)
+    want_d[:, :j] = join["decoder_proj"]["w"].to(wdt)
+    assert ops.out_w.shape[0] == vp // 8 and ops.dec_w.shape[0] == jp // 8
+    shares = [(ops.out_w[wl:wh], ops.dec_w[dl:dh])
+              for (wl, wh), (dl, dh) in zip(TG.rank_ranges(vp // 8), TG.rank_ranges(jp // 8))]
+    got_w = torch.cat([_unpack_out_w(w, compute_dtype) for w, _ in shares if w.shape[0]], dim=1)
+    got_d = torch.cat([_unpack_chunks(c) for _, c in shares if c.shape[0]], dim=1)
+    assert torch.equal(got_w, want_w) and torch.equal(got_d, want_d)
+    for (w, c), (wl, wh) in zip(shares, TG.rank_ranges(vp // 8)):
+        if wh > wl:
+            assert torch.equal(_unpack_out_w(w, compute_dtype), want_w[:, 8 * wl:8 * wh])
+        assert w.is_contiguous() and c.is_contiguous()
 
 
 def test_operands_refuse_what_the_kernel_does_not_take():
@@ -293,3 +360,65 @@ def test_tie_aware_replay_allows_a_near_tie():
     assert loose.ok, loose.reason
     assert loose.frames == 1 and loose.differing == 1 and 0 < loose.worst_ulps <= 2.0
     assert not strict.ok
+
+
+@pytest.mark.parametrize("steps,ok", [(0, True), (1, False), (2, False)],
+                         ids=["exact", "neighbour", "two-away"])
+def test_tie_aware_replay_rounds_the_product_then_the_bias(steps, ok):
+    """bf16 rounds decoder_proj's product before it adds the bias.  Where
+    the bias all but cancels the product, one step of the rounded product
+    is many ulps of the output: the replay accepts the final decoder output
+    built from the plain product, and refuses one built from the product's
+    neighbour, or from two neighbours out, beyond its ulps band.  Lane 2
+    has no frames, so its final output is the initial one's."""
+    _, (dcfg, dec, join) = _models(vocab=11, seed=4)
+    bf16 = torch.bfloat16
+    jp = {k: {n: join[k][n].clone() for n in ("w", "b")}
+          for k in ("encoder_proj", "decoder_proj", "output")}
+    hyp0 = torch.full((1, dcfg.context_size), dcfg.blank_id, dtype=torch.int64)
+    w_only = {"decoder_proj": {"w": jp["decoder_proj"]["w"]}}
+    prod = TJ.project_decoder(w_only, TD.forward_from_tables(TD.context_tables(dec, dcfg), dcfg,
+                                                             hyp0), bf16)[0]
+    by_conv = TJ.project_decoder(w_only, TD.forward(dec, dcfg, hyp0), bf16)[0]
+    col = next(i for i in prod.float().abs().argsort(descending=True).tolist()
+               if prod[i] == by_conv[i])  # both decoder paths round it alike
+    p0 = float(prod[col])
+    jp["decoder_proj"]["b"][col] = -p0 + 2.0 ** (math.floor(math.log2(abs(p0))) - 11)
+    enc = torch.from_numpy(_enc_proj(3, 29, 20, seed=4)).to(bf16)
+    lens, offset = torch.tensor([29, 13, 0]), torch.tensor([0, 64, 3])
+    st = TG.init_state(dec, dcfg, jp, 3, 40, bf16)
+    final = TG.greedy_frames_skip(dec, dcfg, jp, st, enc, lens, offset, False, bf16)
+    assert int(final.count[0]) > 0 and int(final.count[2]) == 0
+    moved = (prod[col:col + 1].view(torch.int16) + steps).view(bf16)
+    final.dec_proj[2, col] = (moved.float() + jp["decoder_proj"]["b"][col]).to(bf16)[0]
+    want = float(st.dec_proj[2, col])
+    off = abs(float(final.dec_proj[2, col]) - want)
+    assert off == 0.0 if ok else off > 2 * 2.0 ** -7 * abs(want) + 1e-5
+    got = tie_aware_replay(dec, dcfg, jp, st, enc, lens, offset, final, False, bf16)
+    assert got.ok == ok, got.reason
+    if not ok:
+        assert got.reason == "final dec_proj differs"
+
+
+def test_tie_aware_replay_rounds_each_product_once():
+    """The replay's plain bf16 product is the exact sum rounded once to the
+    nearest bf16 (ties to even), also just off a midpoint, where rounding
+    through float32 first would land on the tie; e.g. 1 + 2^-8 + 2^-30,
+    which float32 sums to 1 + 2^-8 and bf16 then rounds down to 1."""
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(4000) * 2.0 ** rng.integers(-30, 30, 4000))
+    lo = x.to(bf16).double()
+    hi = (x.to(bf16).view(torch.int16) + 1).view(bf16).double()
+    mid = (lo + hi) / 2
+    x = torch.cat([x, mid, mid * (1 + 2.0 ** -40), mid * (1 - 2.0 ** -40)])
+    got = _round_once(x, bf16)
+    for step in (-1, 1):
+        other = (got.view(torch.int16) + step).view(bf16).double()
+        nearer = (x - got.double()).abs() < (x - other).abs()
+        tie = (x - got.double()).abs() == (x - other).abs()
+        assert bool((nearer | (tie & (got.view(torch.int16) % 2 == 0))).all())
+    assert bool((_round_once(mid * (1 + 2.0 ** -40), bf16).double().abs() > mid.abs()).all())
+    xs = torch.tensor([[1.0, 2.0 ** -8, 2.0 ** -15]])
+    w = {"w": torch.tensor([[1.0], [1.0], [2.0 ** -15]])}
+    assert float(_linear(w, xs, bf16)[0, 0]) == 1 + 2.0 ** -7
