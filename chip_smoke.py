@@ -10,15 +10,16 @@ Phases (any failure exits non-zero; none is caught):
   3. K1 (relpos_attn_probs) against its plain PyTorch version on the card,
      at the shapes the zipformer2 and zipformer v1 main paths give it (the
      offline stacks, and the streaming stacks, T != S with kv_start per
-     lane; v1's q head is 24 wide), with its time, the plain version's time
-     and the bound.  A kernel's ``ms`` is CUDA events around one call from
+     lane; v1's q head is 24 wide; and q and pos heads of 128, the chunked
+     bodies), with its time, the plain version's time and the bound.  A
+     kernel's ``ms`` is CUDA events around one call from
      an empty queue (the host's time to prepare and
      launch it included); ``device_ms`` beside it is the device time per
      call with the queue kept full (CUDA events around calls queued behind
      a spin kernel), and ``host_us`` the wrapper's host time per call;
   3b. K2 (relpos_attn_ctx) the same at the conformer's shapes (offline and
-     streaming), plus the time of scaled_dot_product_attention on the same
-     function (yardstick);
+     streaming; and 4 heads of 128, the chunked bodies), plus the time of
+     scaled_dot_product_attention on the same function (yardstick);
   3c. the greedy search kernel (rnnt_greedy: one cluster of 8 blocks per
      lane, the joiner's weights in the cluster's shared memory where they
      fit) against its plain version at the main paths' shapes (offline: 16
@@ -29,17 +30,31 @@ Phases (any failure exits non-zero; none is caught):
      and on dyadic inputs (every float32 sum exact, ties everywhere) bit for
      bit in both dtypes; offline bf16 also with the blank bias raised until
      about one frame in six emits, and at a vocabulary of 5,500 (the weights
-     streamed); first a line with the cluster, each case's shared memory and
-     residency, cudaOccupancyMaxActiveClusters and -Xptxas -v's registers
-     and spills; its time, the plain loop's and the bound from these
-     inputs' frames and emissions, and the replaced one-block-per-lane
-     kernel's times from PERF.md beside them;
+     streamed), and at J = D = 1536 with 10 tokens of context (past the
+     caps the kernel once had); first a line with the cluster, each case's
+     shared memory and residency, cudaOccupancyMaxActiveClusters and
+     -Xptxas -v's registers and spills; its time, the plain loop's and the
+     bound from these inputs' frames and emissions, and the replaced
+     one-block-per-lane kernel's times from PERF.md beside them;
+  3d. the beam search kernel (rnnt_beam: one cluster of 8 blocks per lane,
+     K beams, the trips of the plain version) against its plain version:
+     offline 16 lanes x 766 frames at K=4 in float32 (every state field and
+     each frame's recorded choice equal; scores to atol 1e-4 + rtol 1e-5) and
+     bf16 (the beam replay at 2 ulps), a streaming step of 16 lanes (steps
+     chained, frame_offset, extra_skip_sos), one frame in six emitting, K=8
+     and a vocabulary of 5,500 (the weights streamed); the plans, held equal
+     to the host mirror, with registers and spills; each case's time, its
+     device time, the plain loop's (once: it syncs once per trip) and the
+     bound from these inputs' frames and emitting beams;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
      OnlineRecognizer.decode_to_end (the online
      pin); under modified_beam_search (K=4) the zipformer2 and conformer pin
      dirs must give every n-best hypothesis of BEAM_PINS, offline and online;
+  4b. a conformer with 4 heads of 128 (ConformerConfig(num_heads=4), full
+     width from a seed, f32, 5 s): card against CPU, the encoder output
+     within tolerance and the tokens identical;
   5. each family at full width from a seed, one 5 s utterance in float32:
      card (kernel) against CPU (plain) — offline encoder output and each
      streaming step's encoder output within tolerance, tokens and
@@ -48,17 +63,19 @@ Phases (any failure exits non-zero; none is caught):
   6. each offline main path at full width: bf16, batches of 16 x 30 s
      through begin_decode/end_decode, every kernel's launches counted from 0
      (greedy search for each family, zipformer2-CTC, and zipformer2 under
-     modified_beam_search with its loop's trips per batch; LSTM launches
-     neither attention kernel; every greedy path one rnnt_greedy per batch);
-     each greedy batch's search held to the tie-aware replay;
+     modified_beam_search; LSTM launches neither attention kernel; every
+     greedy path one rnnt_greedy per batch, the beam path one rnnt_beam);
+     one greedy batch's search held to the tie-aware replay, each beam
+     batch's to the beam replay;
   6b. each streaming main path at full width (each family's causal config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
      per step; per-step latency, streaming RTF and the launches per step
-     (the same methods as phase 6);
+     (the same methods as phase 6; each beam step held to the beam replay);
   6c. no wait: zipformer2 at full width, 16 x 30 s, bf16: begin_decode
      under torch.cuda.set_sync_debug_mode("error") (greedy and CTC,
-     reference_pad_compat off and on) and begin_step (greedy and CTC, 16
-     lanes) raise nothing and give the sequential run's tokens; then the
+     reference_pad_compat off and on; modified_beam_search with and without
+     hotwords) and begin_step (the same methods, 16 lanes) raise nothing and
+     give the sequential run's tokens; then the
      2-deep pipeline of bench.py over 7 batches against the same batches
      one by one (audio-s/s each, begin_decode's host ms beside the batch
      ms);
@@ -117,6 +134,7 @@ from k2transducerasr_tpu_torch import ModelBundle, OfflineRecognizer, OnlineReco
 from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute
 from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
+from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.decoder import DecoderConfig
 from k2transducerasr_tpu_torch.models.lstm import LstmConfig
@@ -127,7 +145,7 @@ from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
-from k2transducerasr_tpu_torch.testing import tie_aware_replay
+from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
@@ -209,10 +227,13 @@ BEAM_PINS = {
     },
 }
 KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx,
-           "rnnt_greedy": rnnt_greedy.greedy_frames_skip}
+           "rnnt_greedy": rnnt_greedy.greedy_frames_skip,
+           "rnnt_beam": rnnt_beam.beam_frames_skip}
 GREEDY = "greedy_search"
-# rnnt_greedy's launches on each counted path, filled in by the phases
+# the searches' launches on each counted path, filled in by the phases
 GREEDY_PATHS: dict[str, int] = {}
+BEAM_PATHS: dict[str, int] = {}
+SEARCH_PATHS = {"rnnt_greedy": GREEDY_PATHS, "rnnt_beam": BEAM_PATHS}
 
 # flagship (Zipformer2Config()) at 16 x 30 s: t_pad 3072 frames -> 1532
 # encoder-rate frames; (T, heads, layers) per stack at downsampling 1,2,4,8,4,2
@@ -224,6 +245,9 @@ QD, PD = 32, 4
 # ((3072-1)//2 - 1)//2 = 767 frames after the subsampling, 8 heads of 64,
 # 12 layers
 CONF_T, CONF_H, CONF_D = 767, 8, 64
+# heads past 64: a conformer of d_model 512 with 4 heads (K1 and K2 in [3],
+# [3b]; the card-vs-CPU pin in [4b])
+WIDE_HEAD, WIDE_HEADS = 128, 4
 # the streaming stacks of Zipformer2Config(causal=True) (chunk 32, left 128):
 # (T = stack chunk, S = stack left + T, H, layers); a lane's kv_start is in
 # [0, S - T].  Conformer: ConformerConfig(causal=True), T=16, S=64+16.
@@ -258,7 +282,7 @@ MUTATIONS = [
      "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu", " * inv_l[r];", ";", "phase_k1"),
     ("K1 bf16 without the kv_start mask", "k2transducerasr_tpu_torch/csrc/relpos_attn_probs.cu",
      "rp::KeyMask mask(S, a.lens, a.kv_start,", "rp::KeyMask mask(S, a.lens, nullptr,", "phase_k1"),
-    ("greedy ties broken toward the higher index", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
+    ("greedy ties broken toward the higher index", "k2transducerasr_tpu_torch/csrc/rnnt_cluster.cuh",
      "(v == bv && i < bi)", "(v == bv && i > bi)", "phase_greedy"),
     ("greedy extra_skip_sos ignored", "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
      "(a.skip_sos && y == 1)", "(false && y == 1)", "phase_greedy"),
@@ -268,6 +292,16 @@ MUTATIONS = [
      "k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu",
      "for (int src = 0; src < kCL; ++src)", "for (int src = 0; src < kCL - 1; ++src)",
      "phase_greedy"),
+    ("beam extra_skip_sos ignored", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
+     "(a.skip_sos && v == 1)", "(false && v == 1)", "phase_beam"),
+    ("beam timestamps without frame_offset", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
+     "a.timestamps[dst + pos] = offset + t;", "a.timestamps[dst + pos] = t;", "phase_beam"),
+    ("beam windows never folded", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
+     "(t == trip_end - 1 ? 2 : 0)", "0", "phase_beam"),
+    ("beam log-sum-exp without the last rank's share",
+     "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
+     "for (int r = 0; r < kCL; ++r) S +=", "for (int r = 0; r < kCL - 1; ++r) S +=",
+     "phase_beam"),
 ]
 
 
@@ -389,21 +423,33 @@ def read_counts() -> dict:
 
 def path_kernels(spec, method=GREEDY) -> set:
     """The kernels a run of the family launches: its attention kernel, and
-    under greedy search of a transducer rnnt_greedy."""
-    return ({spec["kernel"]} - {None}) | ({"rnnt_greedy"} if spec["greedy"] and method == GREEDY
-                                          else set())
+    for a transducer rnnt_greedy under greedy search and rnnt_beam under
+    modified beam search."""
+    search = {GREEDY: {"rnnt_greedy"}, BEAM: {"rnnt_beam"}}.get(method, set())
+    return ({spec["kernel"]} - {None}) | (search if spec["greedy"] else set())
+
+
+def search_kernel(spec, method):
+    """The search kernel a run of the family launches, or None (CTC)."""
+    return next(iter(path_kernels(spec, method) & set(SEARCH_PATHS)), None)
 
 
 def family_launches(what, spec, counts, method=GREEDY) -> int:
     """A run of one family launched each kernel of its path and no other;
-    rnnt_greedy's launches are recorded in GREEDY_PATHS under ``what``.
-    Returns the family's attention kernel's launches."""
+    the search kernel's launches are recorded in GREEDY_PATHS or BEAM_PATHS
+    under ``what``.  Returns the family's attention kernel's launches."""
     want = path_kernels(spec, method)
     if {k for k, n in counts.items() if n} != want:
         raise AssertionError(f"{what} launched {counts}; expected {sorted(want) or 'none'}")
-    if "rnnt_greedy" in want:
-        GREEDY_PATHS[what] = counts["rnnt_greedy"]
+    search = search_kernel(spec, method)
+    if search:
+        SEARCH_PATHS[search][what] = counts[search]
     return counts.get(spec["kernel"], 0)
+
+
+def counts_of(**launches) -> dict:
+    """Every kernel's launch count, 0 but where given."""
+    return {k: launches.get(k, 0) for k in KERNELS}
 
 
 def reset_peak_memory():
@@ -451,13 +497,16 @@ def phase_build():
     return secs
 
 
-def _k1_inputs(b, t, s, h, dtype, seed, qd=QD):
+def _k1_inputs(b, t, s, h, dtype, seed, qd=QD, pd=PD):
+    """Random operands; a head wider than 64 scaled by sqrt(32 / width), as
+    a model scales its queries, so its scores are as large as at 32 wide."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    q = torch.randn((b, t, h, qd), generator=g, device=dev).to(dtype)
+    sq, sp = ((32 / w) ** 0.5 if w > 64 else 1.0 for w in (qd, pd))
+    q = (torch.randn((b, t, h, qd), generator=g, device=dev) * sq).to(dtype)
     k = torch.randn((b, s, h, qd), generator=g, device=dev).to(dtype)
-    pq = torch.randn((b, t, h, PD), generator=g, device=dev).to(dtype)
-    pk = torch.randn((t + s - 1, h, PD), generator=g, device=dev).to(dtype)
+    pq = (torch.randn((b, t, h, pd), generator=g, device=dev) * sp).to(dtype)
+    pk = torch.randn((t + s - 1, h, pd), generator=g, device=dev).to(dtype)
     return q, k, pq, pk, _ragged_lens(b, s)
 
 
@@ -468,12 +517,12 @@ def _ragged_lens(b, s):
     return lens
 
 
-def _k1_bytes_ops(b, t, s, h, in_dtype, out_dtype, qd=QD):
+def _k1_bytes_ops(b, t, s, h, in_dtype, out_dtype, qd=QD, pd=PD):
     ie = torch.finfo(in_dtype).bits // 8
     oe = torch.finfo(out_dtype).bits // 8
-    nbytes = (b * t * h * qd + b * s * h * qd + b * t * h * PD + (t + s - 1) * h * PD) * ie \
+    nbytes = (b * t * h * qd + b * s * h * qd + b * t * h * pd + (t + s - 1) * h * pd) * ie \
         + 2 * 4 * b + b * h * t * s * oe
-    ops = 2 * b * h * t * s * (qd + PD)
+    ops = 2 * b * h * t * s * (qd + pd)
     return nbytes, ops
 
 
@@ -540,10 +589,17 @@ def phase_k1(bw):
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((f"v1-stream-stack{si}-T{t}-S{s}", "zipformer", STREAM_LANES, t, s,
                           V1_H, V1_QD, dtype, {"kv_start": True}, 0, layers))
+    # heads past 64 (the chunked bodies; no main path of the repo's configs
+    # gives them): q and pos heads of WIDE_HEAD at zipformer2's stack-1 shape
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append((f"wide-qd{WIDE_HEAD}-pd{WIDE_HEAD}", "zipformer2", FLAGSHIP_B,
+                      FLAGSHIP_STACKS[1][0], FLAGSHIP_STACKS[1][0], 4, WIDE_HEAD, dtype,
+                      {"pd": WIDE_HEAD}, 0, 0))
 
     for name, family, b, t, s, h, qd, dtype, kw, layers, stream_layers in cases:
-        q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows), qd=qd)
         kw = dict(kw)
+        pd = kw.pop("pd", PD)
+        q, k, pq, pk, lens = _k1_inputs(b, t, s, h, dtype, seed=len(rows), qd=qd, pd=pd)
         if kw.pop("kv_start", False):
             kw["kv_start"] = _kv_start(b, t, s)
         out = AC.relpos_attn_probs(q, k, pq, pk, lens, **kw)
@@ -561,13 +617,14 @@ def phase_k1(bw):
         host = host_us(kernel)
         plain_ms = cuda_ms(lambda: AC.relpos_attn_probs_reference(q, k, pq, pk, lens, **kw),
                            reps=5, warm=1)
-        bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype, qd=qd), dtype, bw)
+        bound_ms, bound_by = bound(*_k1_bytes_ops(b, t, s, h, dtype, dtype, qd=qd, pd=pd), dtype,
+                                   bw)
         rows.append({"case": name, "family": family, "dtype": str(dtype).split(".")[-1],
-                     "B": b, "T": t, "S": s, "H": h, "qd": qd, "layers": layers,
+                     "B": b, "T": t, "S": s, "H": h, "qd": qd, "pd": pd, "layers": layers,
                      "stream_layers": stream_layers, "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"[3] K1 {name:28s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h} qd={qd}: "
+        log(f"[3] K1 {name:28s} {rows[-1]['dtype']:8s} B={b} T={t} S={s} H={h} qd={qd} pd={pd}: "
             f"max_err {err:.3e} ok | kernel {ms:.4f} ms (device {dev_ms:.4f}, host "
             f"{host:.1f} us) | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) "
             f"| {bound_ms / ms:.1%} of bound ({bound_ms / dev_ms:.1%} of device time)")
@@ -626,25 +683,31 @@ def phase_k2(bw):
     """K2 against its plain version, and SDPA's time on the same function
     (the skewed position term with NEG_INF at masked keys as its bias, built
     before the timed call and not timed)."""
-    b, t, h, d = FLAGSHIP_B, CONF_T, CONF_H, CONF_D
+    b, t = FLAGSHIP_B, CONF_T
     layers = FAMILIES["conformer"]["per_batch"]
     scfg = FAMILIES["conformer"]["stream_cfg"]()
     ts, ss = scfg.chunk_size, scfg.left_context + scfg.chunk_size
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        cases.append(("flagship-ragged", t, t, d, dtype, {"lens": True}, layers, 0))
-        cases.append(("flagship-chunk16-left64", t, t, d, dtype,
+        cases.append(("flagship-ragged", t, t, CONF_D, dtype, {"lens": True}, layers, 0))
+        cases.append(("flagship-chunk16-left64", t, t, CONF_D, dtype,
                       {"lens": True, "chunk": 16, "left": 64}, 0, 0))
         # the streaming main path: every layer, every step; kv_start in [0, 64]
-        cases.append((f"kv_start-T{ts}-S{ss}", ts, ss, d, dtype, {"kv_start": True}, 0,
+        cases.append((f"kv_start-T{ts}-S{ss}", ts, ss, CONF_D, dtype, {"kv_start": True}, 0,
                       scfg.num_layers))
     cases.append(("flagship-vd32", t, t, 32, torch.bfloat16, {"lens": True}, 0, 0))
+    # heads past 64 (the chunked bodies): a conformer of d_model 512 with 4
+    # heads of WIDE_HEAD, as converted from a 4-head export
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append((f"heads-{WIDE_HEADS}x{WIDE_HEAD}", t, t, WIDE_HEAD, dtype,
+                      {"lens": True, "h": WIDE_HEADS, "d": WIDE_HEAD}, 0, 0))
 
     rows = []
     worst = 0.0
     for name, tq, s, vd, dtype, kw, n_layers, stream_layers in cases:
-        q, k, pq, pk, v = _k2_inputs(b, tq, s, h, d, vd, dtype, seed=100 + len(rows))
         kw = dict(kw)
+        h, d = kw.pop("h", CONF_H), kw.pop("d", CONF_D)
+        q, k, pq, pk, v = _k2_inputs(b, tq, s, h, d, vd, dtype, seed=100 + len(rows))
         lens = _ragged_lens(b, s) if kw.pop("lens", False) else None
         if kw.pop("kv_start", False):
             kw["kv_start"] = _kv_start(b, tq, s)
@@ -703,12 +766,25 @@ GREEDY_MAX_TOKENS = 1024  # OfflineRecognizer's default buffer
 GREEDY_FIELDS = ("hyp", "tokens", "timestamps", "count", "trailing_blanks")
 GREEDY_RATE = 1 / 6  # emissions per frame of the blank-bias case (a trained model's order)
 GREEDY_BIG_VOCAB = 5500  # a real BPE vocabulary: the joiner's weights streamed
+GREEDY_WIDE, GREEDY_WIDE_CTX = 1536, 10  # past the caps the kernel once had (1024, 8)
 # the one-block-per-lane kernel this design replaced, at the same cases
 # (PERF.md §6, on an NVIDIA H100 80GB HBM3 at 700.00 W; that kernel is gone,
 # so not re-timed)
 GREEDY_ONE_BLOCK = ("the one-block-per-lane kernel, PERF.md §6 (NVIDIA H100 80GB HBM3, "
                     "700.00 W): offline bf16 20.80 ms (device 19.88), float32 50.30 (49.67), "
                     "streaming step 0.559 (0.411)")
+
+
+def _wide_search_models(enc_dim):
+    """A decoder and joiner GREEDY_WIDE wide with GREEDY_WIDE_CTX tokens of
+    context and vocab 500, initialised from numpy seed 0 (the port's
+    init_params), on the card."""
+    rng = np.random.default_rng(0)
+    cfg = DecoderConfig(vocab_size=500, decoder_dim=GREEDY_WIDE, context_size=GREEDY_WIDE_CTX)
+    dec = decoder_mod.init_params(rng, cfg)
+    join = joiner_mod.init_params(rng, joiner_mod.JoinerConfig(enc_dim, GREEDY_WIDE, GREEDY_WIDE,
+                                                               500))
+    return params_from_numpy(dec, "cuda"), params_from_numpy(join, "cuda"), cfg
 
 
 def _greedy_lens(b, t):
@@ -823,13 +899,13 @@ def _greedy_row(case, dtype, ops, st, got, enc, lens, bw, kernel, plain, err, di
     return row
 
 
-def _greedy_ptxas() -> str:
-    """What -Xptxas -v printed in [2] for rnnt_greedy's two kernels
-    (registers, stack, spills)."""
+def _ptxas(kernel) -> str:
+    """What -Xptxas -v printed in [2] for a search's two kernels (registers,
+    stack, spills); ``kernel`` is the template's name."""
     out, mine = [], False
     for line in BUILD_LOG:
         if "Compiling entry function" in line:
-            mine = "rnnt_greedy_kernel" in line
+            mine = kernel in line
             if mine:
                 out.append("bf16:" if "ILb1E" in line else "float32:")
         elif mine and ("registers" in line or "spill" in line):
@@ -842,12 +918,13 @@ def _greedy_plans(cases) -> dict:
     and where its weights live (rnnt_greedy.kernel_plan), the clusters that
     run at once, and the registers and spills.  Returns the plans by case."""
     plans, parts = {}, []
-    for name, dtype, j, d, v in cases:
-        p = rnnt_greedy.kernel_plan(j, d, v, dtype)
+    for name, dtype, j, d, v, c in cases:
+        p = rnnt_greedy.kernel_plan(j, d, v, dtype, c)
         dt = "float32" if dtype is None else "bf16"
         plans[f"{name} {dt}"] = p
         parts.append(
-            f"{name} {dt} (J={j} D={d} V={v}): {p['smem_bytes']} B/block, W_out "
+            f"{name} {dt} (J={j} D={d} V={v} C={c}): {p['smem_bytes']} B/block, "
+            f"rings of {p['ring_stages']}, W_out "
             f"{p['resident_ntiles']}/{p['ntiles_per_rank']} n-tiles resident"
             + (f" + stages of {p['stage_ntiles']}" if p["stage_ntiles"] else "")
             + f", decoder_proj {p['resident_chunks']}/{p['chunks_per_rank']} chunks"
@@ -855,7 +932,7 @@ def _greedy_plans(cases) -> dict:
             + f", {p['max_active_clusters']} clusters at once, {p['registers']} registers, "
             f"{p['local_bytes']} B local")
     log(f"[3c] rnnt_greedy: one cluster of {rnnt_greedy.CLUSTER} blocks x 512 threads per lane "
-        f"| " + " | ".join(parts) + f" | ptxas -v: {_greedy_ptxas()}")
+        f"| " + " | ".join(parts) + f" | ptxas -v: {_ptxas('rnnt_greedy_kernel')}")
     return plans
 
 
@@ -911,8 +988,10 @@ def phase_greedy(bw):
     b = FLAGSHIP_B
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
-    plans = _greedy_plans([("flagship", dt, j_dim, d_dim, 500) for dt in (None, torch.bfloat16)]
-                          + [("vocab-5500", torch.bfloat16, j_dim, d_dim, GREEDY_BIG_VOCAB)])
+    plans = _greedy_plans([("flagship", dt, j_dim, d_dim, 500, 2) for dt in (None, torch.bfloat16)]
+                          + [("vocab-5500", torch.bfloat16, j_dim, d_dim, GREEDY_BIG_VOCAB, 2)]
+                          + [(f"wide-{GREEDY_WIDE}", dt, GREEDY_WIDE, GREEDY_WIDE, 500,
+                              GREEDY_WIDE_CTX) for dt in (None, torch.bfloat16)])
 
     def frames(t, dtype, joiner=join):
         x = torch.randn((b, t, enc_dim), generator=g, device="cuda")
@@ -976,6 +1055,13 @@ def phase_greedy(bw):
     run("offline-v5500", bf16, big.decoder, big.decoder_cfg, big.joiner,
         lambda t, dtype: frames(t, dtype, big.joiner), GREEDY_T, False, 1, False, ragged=False)
     del big
+    # past the old caps (J, D <= 1024, context <= 8): a decoder and joiner
+    # GREEDY_WIDE wide with GREEDY_WIDE_CTX tokens of context, from seed 0
+    wdec, wjoin, wcfg = _wide_search_models(enc_dim)
+    for dtype in (None, bf16):
+        run(f"wide-{GREEDY_WIDE}-ctx{GREEDY_WIDE_CTX}", dtype, wdec, wcfg, wjoin,
+            lambda t, dtype: frames(t, dtype, wjoin), GREEDY_T, False, 1, False)
+    del wdec, wjoin
     torch.cuda.empty_cache()
 
     def pick(case, dtype):
@@ -993,6 +1079,230 @@ def phase_greedy(bw):
     return rows, plans
 
 
+# [3d] the beam search kernel (rnnt_beam): BEAM_K beams per lane at the
+# offline and streaming main paths' shapes, also at BEAM_WIDE_K beams, with
+# one frame in six emitting, and at GREEDY_BIG_VOCAB (the weights streamed)
+BEAM_WIDE_K = 8
+BEAM_MAX_TOKENS = 1024  # OfflineRecognizer's default buffer
+BEAM_FIELDS = ("hyp", "tokens", "timestamps", "count")
+
+
+def _beam_bytes_ops(ops, b, k, u, frames, emits):
+    """The least bytes and operations of one beam search, counted from what
+    this run's data needs: the valid frames of enc_proj read once, the two
+    weights and biases once, the context-table rows the emitting beams
+    gather (at most the whole tables), the beams' state read and written
+    once (contexts, decoder outputs, scores, counts, the token and timestamp
+    buffers), the lanes' lengths and offsets read; K joiner rows per valid
+    frame (2 K J V) and a decoder refresh per emitting beam (2 D J)."""
+    c, v, d = ops.tables.shape
+    j = ops.joiner_dim
+    e = 4 if ops.compute_dtype is None else 2
+    weights = (j * v + d * j) * e + (j + v) * 4
+    tables = min(c * v * d, emits * c * d) * 4
+    state = b * k * (c * 8 + j * e + 4 + 8 + 2 * u * 8)
+    nbytes = frames * j * e + weights + tables + 2 * state + 2 * b * 8
+    return nbytes, 2 * frames * k * j * v + 2 * emits * d * j
+
+
+def _beam_plans(cases) -> dict:
+    """[3d]'s first line: each case's plan on this card (rnnt_beam.kernel_plan),
+    held equal to the host mirror (rnnt_beam.plan_bytes), and the registers
+    and spills.  Returns the plans by case."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    plans, parts = {}, []
+    for name, dtype, j, d, v, c, k in cases:
+        p = rnnt_beam.kernel_plan(j, d, v, c, k, dtype)
+        mirror = rnnt_beam.plan_bytes(j, d, v, c, k, dtype, limit=limit)
+        if (p["smem_bytes"], p["resident_ntiles"], p["resident_chunks"]) != (
+                mirror["smem_bytes"], mirror["res_w"], mirror["res_d"]):
+            raise AssertionError(f"rnnt_beam plan {name}: card {p} vs host mirror {mirror}")
+        dt = "float32" if dtype is None else "bf16"
+        plans[f"{name} {dt}"] = p
+        parts.append(f"{name} {dt} (K={k} J={j} D={d} V={v}): {p['smem_bytes']} B/block, W_out "
+                     f"{p['resident_ntiles']}/{p['ntiles_per_rank']} n-tiles resident, "
+                     f"decoder_proj {p['resident_chunks']}/{p['chunks_per_rank']} chunks, "
+                     f"rings of {p['ring_stages']}, {p['max_active_clusters']} clusters at once")
+    log(f"[3d] rnnt_beam: one cluster of {rnnt_greedy.CLUSTER} blocks x 512 threads per lane "
+        f"| " + " | ".join(parts) + f" | host mirror equal | ptxas -v: {_ptxas('rnnt_beam_kernel')}")
+    return plans
+
+
+def _beam_compare(case, dtype, dec, cfg, join, st, enc, lens, offset, sos, got, trace, window):
+    """The kernel's state ``got`` and ``trace`` against the plain version
+    from ``st``.  float32: in each lane every field but the scores and
+    decoder outputs exactly, and each frame's recorded choice exactly; the
+    scores (and the recorded ones) to atol 1e-4 + rtol 1e-5, the decoder
+    outputs to F32_ATOL (summation order: the kernel's log-sum-exp is merged
+    over the ranks, its blank sums are sequential, the plain version's a
+    cumsum).  A lane whose two searches part at a near-tie (two candidates
+    within a float32 ulp of a score of thousands: the order of a sum decides
+    them) is held instead, with every other lane, by the beam replay at
+    BEAM_F32_ULPS, and the frame where it parted and the two choices' gap are
+    printed.  bf16: the beam replay at BEAM_ULPS.  Returns (max abs score
+    error of the lanes held exactly, steps decided otherwise than the plain
+    top K in bf16 / lanes parted at a near-tie in float32)."""
+    def fail(detail):
+        raise AssertionError(f"rnnt_beam {case}: kernel disagrees with plain ({detail})")
+
+    b = len(lens)
+    if dtype is None:
+        plain = rnnt_beam.BeamTrace.empty(*trace.steps.shape, "cuda")
+        want = rnnt_beam.beam_frames_skip_reference(dec, cfg, join, st, enc, lens, offset, sos,
+                                                    dtype, window, plain)
+        valid = torch.arange(enc.shape[1], device="cuda")[None, :] < lens[:, None]
+        same = ((trace.steps == plain.steps).all(2) | ~valid).all(1)
+        for f in BEAM_FIELDS:
+            same &= (getattr(got, f) == getattr(want, f)).reshape(b, -1).all(1)
+        score_ok = torch.isclose(got.score, want.score, atol=1e-4, rtol=1e-5).all(1)
+        recorded_ok = (torch.isclose(trace.values, plain.values, atol=1e-4, rtol=1e-5).all(2)
+                       | ~valid).all(1)
+        if not bool((score_ok & recorded_ok)[same].all()):
+            fail("scores beyond atol 1e-4 + rtol 1e-5")
+        err = float((got.dec_proj - want.dec_proj).abs()[same].max()) if bool(same.any()) else 0.0
+        if err > F32_ATOL:
+            fail(f"dec_proj max abs error {err}")
+        parted = (~same).nonzero()[:, 0].tolist()
+        if parted:
+            res = beam_replay(dec, cfg, join, st, enc, lens, offset, got, trace, sos, dtype,
+                              BEAM_F32_ULPS, window)
+            if not res.ok:
+                fail(f"lanes {parted} parted from the plain version, and the float32 beam "
+                     f"replay refuses: {res.reason}")
+            for lane in parted:
+                f = int(((trace.steps[lane] != plain.steps[lane]).any(1)
+                         & valid[lane]).nonzero()[0, 0])
+                kv, pv = trace.values[lane, f], plain.values[lane, f]
+                ulp = torch.finfo(torch.float32).eps * torch.exp2(torch.floor(torch.log2(
+                    pv.abs().max())))
+                log(f"[3d] rnnt_beam {case}: lane {lane} parted from the plain version at frame "
+                    f"{f} of {int(lens[lane])}: its K new beams' scores differ from the plain "
+                    f"ones by at most {float((kv - pv).abs().max() / ulp):.1f} float32 ulps "
+                    f"(|score| {float(pv.abs().max()):.1f}); the float32 beam replay at "
+                    f"{BEAM_F32_ULPS:g} ulps accepts the whole search")
+        score_err = (float((got.score - want.score).abs()[same].max()) if bool(same.any())
+                     else 0.0)
+        return score_err, len(parted)
+    res = beam_replay(dec, cfg, join, st, enc, lens, offset, got, trace, sos, dtype, BEAM_ULPS,
+                      window)
+    if not res.ok:
+        fail(f"beam replay: {res.reason}")
+    return 0.0, res.differing
+
+
+def phase_beam(bw):
+    """[3d] rnnt_beam against its plain version at the main paths' shapes, on
+    the decoder and joiner of Zipformer2Config(causal=True) from seed 0
+    (vocab 500, decoder and joiner 512 wide, context 2) and random encoder
+    frames through its encoder projection: offline, 16 lanes x GREEDY_T
+    frames from frame 0 at BEAM_K beams in both dtypes (the main path's
+    batch, the headline); streaming, 16 lanes x one window's encoder frames,
+    frame_offset per lane, extra_skip_sos, GREEDY_STEPS steps chained; and in
+    bf16 offline with the blank bias raised until about GREEDY_RATE of the
+    greedy search's frames emit, at BEAM_WIDE_K beams, and at a
+    GREEDY_BIG_VOCAB vocabulary (its weights stream).  The plain version
+    runs once per case (it syncs once per trip).  Returns (rows, plans)."""
+    bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
+                                seed=0, device="cuda")
+    dec, join, cfg = bundle.decoder, bundle.joiner, bundle.decoder_cfg
+    chunk = get_encoder("zipformer2").output_chunk_len(bundle.encoder_cfg)
+    enc_dim = join["encoder_proj"]["w"].shape[0]
+    j_dim, d_dim = join["decoder_proj"]["w"].shape[1], join["decoder_proj"]["w"].shape[0]
+    b, bf16 = FLAGSHIP_B, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    plans = _beam_plans([("flagship", dt, j_dim, d_dim, 500, 2, BEAM_K) for dt in (None, bf16)]
+                        + [(f"K{BEAM_WIDE_K}", bf16, j_dim, d_dim, 500, 2, BEAM_WIDE_K),
+                           ("vocab-5500", bf16, j_dim, d_dim, GREEDY_BIG_VOCAB, 2, BEAM_K)])
+
+    def frames(t, dtype, joiner=join):
+        x = torch.randn((b, t, enc_dim), generator=g, device="cuda")
+        with torch.inference_mode():
+            return joiner_mod.project_encoder(joiner, x, dtype)
+
+    def run(case, dtype, k, dec, cfg, join, make, t, sos, steps):
+        ops = rnnt_greedy.greedy_operands(dec, cfg, join, dtype)
+        st = rnnt_beam.init_state(dec, cfg, join, b, k, BEAM_MAX_TOKENS, dtype)
+        offset = (torch.arange(b, device="cuda") * 997) if steps > 1 else torch.zeros(
+            b, dtype=torch.int64, device="cuda")
+        worst, differing, emits, lane_frames = 0.0, 0, 0, 0
+        for step in range(steps):
+            enc = make(t, dtype)
+            lens = torch.full((b,), t, device="cuda")
+            if steps > 1:  # streaming: lanes that skip a step, or take part of a window
+                lens = torch.roll(_greedy_lens(b, t), step)
+            trace = rnnt_beam.BeamTrace.empty(b, t, k, "cuda")
+            with exact_f32(), torch.inference_mode():
+                got = rnnt_beam.beam_frames_skip(dec, cfg, join, st, enc, lens, offset, sos,
+                                                 dtype, operands=ops, trace=trace)
+                torch.cuda.synchronize()
+                err, diff = _beam_compare(f"{case} step {step}", dtype, dec, cfg, join, st, enc,
+                                          lens, offset, sos, got, trace, 64)
+            parent, stored, kind, token = trace.fields()
+            valid = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[..., None]
+            emits += int((valid & (kind == rnnt_beam.STEP_EMIT) & (token != cfg.blank_id)).sum())
+            lane_frames += int(lens.clamp(max=t).sum())
+            worst, differing = max(worst, err), differing + diff
+            if step == steps - 1:
+                def kernel(st=st, enc=enc, lens=lens, offset=offset):
+                    return rnnt_beam.beam_frames_skip(dec, cfg, join, st, enc, lens, offset, sos,
+                                                      dtype, operands=ops)
+
+                def plain(st=st, enc=enc, lens=lens, offset=offset):
+                    return rnnt_beam.beam_frames_skip_reference(dec, cfg, join, st, enc, lens,
+                                                                offset, sos, dtype)
+
+                last_frames = int(lens.clamp(max=t).sum())
+                last_emits = int((valid & (kind == rnnt_beam.STEP_EMIT)
+                                  & (token != cfg.blank_id)).sum())
+                with exact_f32(), torch.inference_mode():
+                    ms = cuda_ms(kernel, reps=5)
+                    dev_ms = device_ms(kernel, reps=5)
+                    plain_ms = cuda_ms(plain, reps=1, warm=0)
+                peak_dtype = torch.float32 if dtype is None else dtype
+                bound_ms, bound_by = bound(*_beam_bytes_ops(ops, b, k, BEAM_MAX_TOKENS,
+                                                            last_frames, last_emits),
+                                           peak_dtype, bw)
+                row = {"case": case, "dtype": str(peak_dtype).split(".")[-1], "B": b, "T": t,
+                       "K": k, "J": ops.joiner_dim, "V": ops.vocab, "frames": last_frames,
+                       "emitting_beams": last_emits, "max_abs_err": worst,
+                       "differing_steps": differing, "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                rows.append(row)
+                log(f"[3d] rnnt_beam {case:16s} {row['dtype']:8s} B={b} T={t} K={k} "
+                    f"J={row['J']} V={row['V']}: {lane_frames} lane-frames, {emits} emitting "
+                    f"beam-steps in {steps} call(s), "
+                    + (f"every field equal, max score err {worst:.2e}" if dtype is None else
+                       f"replay ok at {BEAM_ULPS:g} ulps, {differing} steps decided otherwise "
+                       f"than the plain top K")
+                    + (f", {differing} lane(s) parted at a near-tie" if dtype is None and
+                       differing else "")
+                    + f" | kernel {ms:.4f} ms (device {dev_ms:.4f}) | plain {plain_ms:.2f} ms "
+                    f"| bound {bound_ms:.5f} ms ({bound_by}) | {bound_ms / ms:.2%} of bound "
+                    f"({bound_ms / dev_ms:.2%} of device time)")
+            st, offset = got, offset + lens
+
+    for dtype in (None, bf16):
+        run("offline", dtype, BEAM_K, dec, cfg, join, frames, GREEDY_T, False, 1)
+    run("streaming", bf16, BEAM_K, dec, cfg, join, frames, chunk, True, GREEDY_STEPS)
+    full = torch.full((b,), GREEDY_T, device="cuda")
+    with torch.inference_mode():
+        rate_join, bias, rate = _joiner_at_rate(dec, cfg, join, frames(GREEDY_T, bf16), full,
+                                                bf16, GREEDY_RATE)
+    log(f"[3d] rnnt_beam offline-1in6: blank bias +{bias:.4f} (the greedy search emits "
+        f"{rate:.4f} per frame)")
+    run("offline-1in6", bf16, BEAM_K, dec, cfg, rate_join, frames, GREEDY_T, False, 1)
+    run(f"offline-K{BEAM_WIDE_K}", bf16, BEAM_WIDE_K, dec, cfg, join, frames, GREEDY_T, False, 1)
+    del bundle
+    big = ModelBundle.random("zipformer2", Zipformer2Config(causal=True),
+                             vocab_size=GREEDY_BIG_VOCAB, seed=0, device="cuda")
+    run("offline-v5500", bf16, BEAM_K, big.decoder, big.decoder_cfg, big.joiner,
+        lambda t, dtype: frames(t, dtype, big.joiner), GREEDY_T, False, 1)
+    del big
+    torch.cuda.empty_cache()
+    return rows, plans
+
+
 def greedy_replay(name, rec, enc, lens):
     """An offline main path's greedy search on one batch's encoder output
     (bf16), held to the plain ops by the tie-aware replay (not part of any
@@ -1004,7 +1314,7 @@ def greedy_replay(name, rec, enc, lens):
                                     rec.max_tokens, cd)
         zero = torch.zeros((enc.shape[0],), dtype=torch.int64, device="cuda")
         got = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, st, proj, lens,
-                                             zero, False, cd, operands=rec._greedy_ops)
+                                             zero, False, cd, operands=rec._search_ops)
         res = tie_aware_replay(b.decoder, b.decoder_cfg, b.joiner, st, proj, lens, zero, got,
                                False, cd, GREEDY_ULPS)
     log(f"[6] {name} greedy search on one batch vs the plain ops: tie-aware replay "
@@ -1014,6 +1324,61 @@ def greedy_replay(name, rec, enc, lens):
     if not res.ok:
         raise AssertionError(f"rnnt_greedy {name}: kernel disagrees with plain ({res.reason})")
     return res
+
+
+BEAM_ULPS = 2.0  # bf16: the beam replay's band (testing.py::beam_replay)
+# float32: the replay's band for a lane parted at a near-tie (float32 ulps
+# of the logits; the band's 4 ulps of the scores come on top)
+BEAM_F32_ULPS = 4.0
+
+
+@contextlib.contextmanager
+def beam_capture():
+    """Within: every call of rnnt_beam.beam_frames_skip (the recognizers look
+    it up at each call) records its choices in a BeamTrace, and its inputs,
+    result and trace are kept in the yielded list for beam_replays.  The
+    launches still count on the kernel's wrapper."""
+    calls = []
+    launch = rnnt_beam.beam_frames_skip
+
+    def recorded(dec, cfg, join, state, enc_proj, enc_lens, offset, sos=False, cd=None,
+                 window=64, operands=None, trace=None):
+        b, t = enc_proj.shape[:2]
+        trace = rnnt_beam.BeamTrace.empty(b, t, state.score.shape[1], enc_proj.device)
+        out = launch(dec, cfg, join, state, enc_proj, enc_lens, offset, sos, cd, window,
+                     operands=operands, trace=trace)
+        calls.append((state, enc_proj, enc_lens, offset, sos, cd, window, out, trace))
+        return out
+
+    # the wrapper counts its launches on its own attributes, looked up by
+    # name at each call: the stand-in shares them
+    recorded.__dict__ = launch.__dict__
+    rnnt_beam.beam_frames_skip = recorded
+    try:
+        yield calls
+    finally:
+        rnnt_beam.beam_frames_skip = launch
+
+
+def beam_replays(tag, name, rec, calls):
+    """Each captured beam search of a recognizer's run held to the plain ops
+    by the beam replay (bf16; float32 searches against the plain version
+    itself in [3d])."""
+    b = rec.bundle
+    frames = differing = 0
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (st, proj, lens, offset, sos, cd, window, out, trace) in enumerate(calls):
+            res = beam_replay(b.decoder, b.decoder_cfg, b.joiner, st, proj, lens, offset, out,
+                              trace, sos, cd, BEAM_ULPS, window)
+            if not res.ok:
+                raise AssertionError(f"rnnt_beam {name} search {i}: kernel disagrees with plain "
+                                     f"({res.reason})")
+            frames, differing, worst = frames + res.frames, differing + res.differing, max(
+                worst, res.worst_ulps)
+    log(f"{tag} {name} beam searches vs the plain ops: beam replay ok at {BEAM_ULPS:g} ulps "
+        f"for all {len(calls)} searches ({frames} lane-frames, {differing} steps decided "
+        f"otherwise than the plain top K, worst overshoot {worst:.2f} bands)")
 
 
 def phase_golden(family):
@@ -1062,8 +1427,9 @@ def phase_beam_pins(family) -> dict:
     rec = OfflineRecognizer(bundle, **kw)
     reset_counts()
     got = _nbest_pinned(rec.get_nbest_results(streams_for(rec, [pin_pcm(6400)]))[0])
-    launches["pin_beam_offline"] = read_counts()[spec["kernel"]]
     log(f"[4] {family} beam pin on card (K={BEAM_K}): {got} (launches {read_counts()})")
+    launches["pin_beam_offline"] = family_launches(f"{family}_pin_beam_offline", spec,
+                                                   read_counts(), BEAM)
     if got != BEAM_PINS[family]["offline"]:
         raise AssertionError(f"{family} offline beam pin mismatch: {got}")
     rec = OnlineRecognizer(bundle, max_lanes=2, **kw)
@@ -1072,14 +1438,11 @@ def phase_beam_pins(family) -> dict:
     reset_counts()
     rec.decode_to_end(stream)
     got = _nbest_pinned(rec.get_nbest_results([stream])[0])
-    launches["pin_beam_online"] = read_counts()[spec["kernel"]]
     log(f"[4] {family} online beam pin on card: {got} (launches {read_counts()})")
+    launches["pin_beam_online"] = family_launches(f"{family}_pin_beam_online", spec,
+                                                  read_counts(), BEAM)
     if got != BEAM_PINS[family]["online"]:
         raise AssertionError(f"{family} online beam pin mismatch: {got}")
-    if 0 in launches.values():
-        raise AssertionError(f"{family} beam pins did not launch {spec['kernel']}: {launches}")
-    if read_counts()["rnnt_greedy"]:
-        raise AssertionError(f"{family} beam pins launched rnnt_greedy")
     return launches
 
 
@@ -1097,9 +1460,12 @@ def phase_beam_full_width_vs_cpu(family="zipformer2"):
                                 max_active_paths=BEAM_K, device=dev)
         t0 = time.time()
         streams = streams_for(rec, pcm)
+        reset_counts()
         pending = rec.begin_decode(streams)
         nbest = rec._nbest_results(streams, pending[4])[0]
         outs[dev] = (rec.end_decode(pending)[0], nbest, float(pending[4][3][0, 0]))
+        if dev == "cuda":
+            family_launches(f"{family}_card_vs_cpu_beam", FAMILIES[family], read_counts(), BEAM)
         log(f"[5] {family} beam full width f32 on {dev}: {len(outs[dev][0].tokens)} tokens, "
             f"best score {outs[dev][2]:.4f}, {time.time() - t0:.1f} s")
     (rg, ng, sg), (rc, nc, sc) = outs["cuda"], outs["cpu"]
@@ -1168,10 +1534,16 @@ def phase_streaming_vs_cpu(family):
         raise AssertionError(f"{family}: streaming tokens differ between card and CPU")
 
 
-def phase_full_width_vs_cpu(family):
-    cfg = FAMILIES[family]["cfg"]()
+def phase_full_width_vs_cpu(family, cfg=None, name=None, tag="[5]"):
+    """One family at full width from a seed (``cfg``: another config of it,
+    run as ``name``), one 5 s utterance in float32, card against CPU: the
+    encoder output within rtol/atol 1e-3, tokens and timestamps identical.
+    Returns the card run's attention launches."""
+    cfg = cfg or FAMILIES[family]["cfg"]()
+    name = name or family
     pcm = [synth_pcm(5 * 16000, 101)]
     outs = {}
+    launches = 0
     for dev in ("cuda", "cpu"):
         bundle = ModelBundle.random(family, cfg, vocab_size=500, seed=0, device=dev)
         rec = OfflineRecognizer(bundle, compute_dtype=None, device=dev)
@@ -1181,27 +1553,30 @@ def phase_full_width_vs_cpu(family):
         reset_counts()
         res = rec.get_results(streams_for(rec, pcm))[0]
         if dev == "cuda":
-            family_launches(f"{family}_card_vs_cpu_offline", FAMILIES[family], read_counts())
+            launches = family_launches(f"{name}_card_vs_cpu_offline", FAMILIES[family],
+                                       read_counts())
         outs[dev] = (enc.float().cpu(), lens.cpu(), res)
-        log(f"[5] {family} full width f32 on {dev}: enc {tuple(enc.shape)}, "
+        log(f"{tag} {name} full width f32 on {dev}: enc {tuple(enc.shape)}, "
             f"{len(res.tokens)} tokens, {time.time() - t0:.1f} s")
     (eg, lg, rg), (ec, lc, rc) = outs["cuda"], outs["cpu"]
     if not torch.equal(lg, lc):
-        raise AssertionError(f"{family} enc lens differ: {lg} vs {lc}")
+        raise AssertionError(f"{name} enc lens differ: {lg} vs {lc}")
     diff = float((eg - ec).abs().max())
     scale = float(ec.abs().max())
-    log(f"[5] {family} encoder card vs CPU: max abs diff {diff:.3e} (max |enc| {scale:.3f}); "
-        f"tokens identical: {rg.tokens == rc.tokens}")
+    log(f"{tag} {name} encoder card vs CPU: max abs diff {diff:.3e} (max |enc| {scale:.3f}); "
+        f"tokens identical: {rg.tokens == rc.tokens} ({len(rg.tokens)} tokens)")
     if not torch.allclose(eg, ec, rtol=1e-3, atol=1e-3):
-        raise AssertionError(f"{family} encoder output card vs CPU beyond rtol/atol 1e-3 ({diff})")
+        raise AssertionError(f"{name} encoder output card vs CPU beyond rtol/atol 1e-3 ({diff})")
     if rg.tokens != rc.tokens or rg.timestamps != rc.timestamps:
-        raise AssertionError(f"{family}: tokens differ between card and CPU")
+        raise AssertionError(f"{name}: tokens differ between card and CPU")
+    return launches
 
 
 def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     """An offline main path (a CTC family always decodes CTC greedy): one
-    warm-up batch, then ``n_batches`` timed; the launches and, for beam
-    search, the loop's trips are counted from 0 over the timed batches.
+    warm-up batch, then ``n_batches`` timed, the launches counted from 0
+    over them; under beam search each timed batch is held to the beam
+    replay.
     ``accuracy="int8"``: the encoder's linears in int8 ([8])."""
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
@@ -1215,23 +1590,22 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     reset_peak_memory()
 
     reset_counts()
-    rnnt_beam.beam_frames_skip.trips = 0
     t0 = time.time()
     results = []
-    for k in range(1, n_batches + 1):
-        results.extend(rec.end_decode(rec.begin_decode(batches[k])))
-    torch.cuda.synchronize()
+    with beam_capture() as searches:  # each beam search's inputs and choices, for the replay
+        for k in range(1, n_batches + 1):
+            results.extend(rec.end_decode(rec.begin_decode(batches[k])))
+        torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
-    trips = rnnt_beam.beam_frames_skip.trips / n_batches
 
-    greedy = "rnnt_greedy" in path_kernels(spec, rec.decoding_method)
-    want = {k: (spec["per_batch"] * n_batches if k == spec["kernel"] else 0) for k in KERNELS}
-    want["rnnt_greedy"] = n_batches if greedy else 0
+    search = search_kernel(spec, rec.decoding_method)
+    want = counts_of(**{spec["kernel"] or "none": spec["per_batch"] * n_batches,
+                        search or "none": n_batches})
     if counts != want:
         raise AssertionError(f"{name} main path launched {counts}, expected {want}")
-    if greedy:
-        GREEDY_PATHS[name] = counts["rnnt_greedy"]
+    if search:
+        SEARCH_PATHS[search][name] = counts[search]
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1260,13 +1634,15 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         if not bool(torch.isfinite(score).all()) or bool((score[:, 1:] > score[:, :-1]).any()):
             raise AssertionError(f"{name}: n-best scores not finite or not sorted")
     tag = "[8]" if accuracy else "[6]"
-    if greedy and not accuracy:
+    if search == "rnnt_greedy" and not accuracy:
         greedy_replay(name, rec, enc, lens)
+    if searches:
+        beam_replays(tag, name, rec, searches)
     log(f"{tag} {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
         f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
         f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
         f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), "
-        f"enc out {tuple(enc.shape)}" + (f", beam loop {trips:.0f} trips/batch" if trips else ""))
+        f"enc out {tuple(enc.shape)}")
     log(f"{tag} {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
         f"{prep_ms:.1f} ms, fbank+encoder {enc_ms:.1f} ms; whole decode {full_ms:.1f} ms -> "
         f"search + readback ~{full_ms - prep_ms - enc_ms:.1f} ms")
@@ -1299,27 +1675,28 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
     reset_peak_memory()
 
     reset_counts()
-    rnnt_beam.beam_frames_skip.trips = 0
     lat = []
     t_start = time.perf_counter()
-    while any(s._ready() for s in streams):
-        t0 = time.perf_counter()
-        results = rec.get_results(streams)
-        lat.append(time.perf_counter() - t0)
+    with beam_capture() as searches:  # each beam search's inputs and choices, for the replay
+        while any(s._ready() for s in streams):
+            t0 = time.perf_counter()
+            results = rec.get_results(streams)
+            lat.append(time.perf_counter() - t0)
     wall = time.perf_counter() - t_start
     counts = read_counts()
-    trips = rnnt_beam.beam_frames_skip.trips
 
     steps = len(lat)
     per_step = spec["per_batch"]  # one call per layer
-    greedy = "rnnt_greedy" in path_kernels(spec, rec.decoding_method)
-    want = {k: (per_step * steps if k == spec["kernel"] else 0) for k in KERNELS}
-    want["rnnt_greedy"] = steps if greedy else 0  # every lane steps every time
+    search = search_kernel(spec, rec.decoding_method)
+    # every lane steps every time: one search launch per step
+    want = counts_of(**{spec["kernel"] or "none": per_step * steps, search or "none": steps})
     if counts != want:
         raise AssertionError(f"{name} streaming main path launched {counts} in {steps} steps, "
                              f"expected {want}")
-    if greedy:
-        GREEDY_PATHS[f"{name}/streaming"] = counts["rnnt_greedy"]
+    if search:
+        SEARCH_PATHS[search][f"{name}/streaming"] = counts[search]
+    if searches:
+        beam_replays("[8]" if accuracy else "[6b]", f"{name}/streaming", rec, searches)
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
@@ -1327,8 +1704,8 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
     if min(toks) == 0 or max(toks) > rec.max_tokens:
         raise AssertionError(f"{name} streaming: implausible token counts {toks}")
     row = {"family": family, "method": rec.decoding_method, "accuracy": accuracy,
-           "lanes": STREAM_LANES,
-           "steps": steps, "beam_trips_per_step": trips / steps, "p50_ms": p50, "p95_ms": p95, "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
+           "lanes": STREAM_LANES, "steps": steps, "p50_ms": p50, "p95_ms": p95,
+           "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
            "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": counts.get(spec["kernel"], 0), "launches_per_step": per_step,
@@ -1338,8 +1715,7 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
         f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
         f"{hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, {row['audio_s_per_s']:.1f} audio-s/s, "
         f"peak {row['peak_gib']:.2f} GiB, launches {counts} ({per_step}/step of "
-        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}"
-        + (f", beam loop {trips / steps:.1f} trips/step" if trips else ""))
+        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
     st = row["stages_ms"]
     log(f"{tag} {name} step split (host clock with device syncs, median of 5, all "
         f"{STREAM_LANES} lanes): lane gather {st['gather']:.2f} ms, fbank {st['fbank']:.2f}, "
@@ -1399,6 +1775,8 @@ def phase_no_wait() -> dict:
                                      f"tokens than get_results")
             if family == "zipformer2" and not compat:
                 pipeline_rec = rec
+        if family == "zipformer2":
+            beam = _no_wait_beam(bundle, n)
         del bundle
         sbundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
                                      device="cuda")
@@ -1419,6 +1797,8 @@ def phase_no_wait() -> dict:
             f"step (median)")
         if not steps:
             raise AssertionError(f"[6c] {family}: no streaming step ran")
+        if family == "zipformer2":
+            beam.update(_no_wait_beam_steps(sbundle))
         del online, sbundle
 
     rec = pipeline_rec
@@ -1448,7 +1828,8 @@ def phase_no_wait() -> dict:
     out = dict(sequential_audio_s_per_s=audio / seq_s, pipelined_audio_s_per_s=audio / pipe_s,
                sequential_batch_ms=seq_s / NO_WAIT_BATCHES * 1e3,
                pipelined_batch_ms=pipe_s / NO_WAIT_BATCHES * 1e3,
-               begin_decode_host_ms=statistics.mean(host) * 1e3, batches=NO_WAIT_BATCHES)
+               begin_decode_host_ms=statistics.mean(host) * 1e3, batches=NO_WAIT_BATCHES,
+               beam=beam)
     log(f"[6c] zipformer2/greedy_search pipeline, {NO_WAIT_BATCHES} batches x {FLAGSHIP_B} x 30 s "
         f"bf16: sequential {out['sequential_audio_s_per_s']:.1f} audio-s/s "
         f"({out['sequential_batch_ms']:.1f} ms/batch), 2-deep pipelined "
@@ -1457,6 +1838,75 @@ def phase_no_wait() -> dict:
         f"equal: {same}")
     if not same:
         raise AssertionError("[6c] the pipelined batches gave other tokens than the sequential")
+    return out
+
+
+NO_WAIT_HOTWORDS = ["tok7tok7"]  # any text: the n-best is read back and ranked on the host
+
+
+def _no_wait_beam(bundle, n) -> dict:
+    """[6c] under modified_beam_search (K=4), without and with hotwords: a
+    16 x 30 s begin_decode under set_sync_debug_mode("error") gives the
+    tokens of get_results; its host ms and end_decode's wait are returned."""
+    out = {}
+    for hotwords in (None, NO_WAIT_HOTWORDS):
+        rec = OfflineRecognizer(bundle, decoding_method=BEAM, max_active_paths=BEAM_K,
+                                hotwords=hotwords, device="cuda")
+        what = f"zipformer2/{BEAM}" + ("/hotwords" if hotwords else "")
+        batch = streams_for(rec, [synth_pcm(n, 900 + i) for i in range(FLAGSHIP_B)])
+        want = [(r.tokens, r.timestamps) for r in rec.get_results(batch)]  # warm, with waits
+        reset_counts()
+        pending, host = _no_sync(f"{what} begin_decode", lambda: rec.begin_decode(batch))
+        t0 = time.perf_counter()
+        got = [(r.tokens, r.timestamps) for r in rec.end_decode(pending)]
+        wait = (time.perf_counter() - t0) * 1e3
+        family_launches(f"no_wait_{what}", FAMILIES["zipformer2"], read_counts(), BEAM)
+        log(f"[6c] {what} begin_decode: no host sync; host {host:.1f} ms, then end_decode "
+            f"waited {wait:.1f} ms; tokens equal to the run with waits: {got == want}")
+        if got != want:
+            raise AssertionError(f"[6c] {what} begin_decode gave other tokens than get_results")
+        out["hotwords" if hotwords else "plain"] = dict(begin_decode_host_ms=host,
+                                                        end_decode_wait_ms=wait)
+    return out
+
+
+def _no_wait_beam_steps(sbundle) -> dict:
+    """[6c] begin_step under modified_beam_search (K=4, 16 lanes), without
+    and with hotwords, under set_sync_debug_mode("error"); each run's
+    partial results equal those of the same steps taken with end_step's
+    waits in between.  Returns the median host ms per step."""
+    out = {}
+    for hotwords in (None, NO_WAIT_HOTWORDS):
+        what = f"zipformer2/{BEAM}" + ("/hotwords" if hotwords else "")
+        texts, host = {}, []
+        for no_wait in (False, True):
+            online = OnlineRecognizer(sbundle, decoding_method=BEAM, max_active_paths=BEAM_K,
+                                      hotwords=hotwords, max_lanes=STREAM_LANES, device="cuda")
+            streams = []
+            for i in range(STREAM_LANES):
+                s = online.create_online_stream()
+                s.add_samples(synth_pcm(4 * 16000, 700 + i))
+                streams.append(s)
+            online.get_results(streams)  # warm
+            reset_counts()
+            steps = []
+            while all(s._ready() for s in streams):
+                if no_wait:
+                    pending, ms = _no_sync(f"{what} begin_step",
+                                           lambda: online.begin_step(streams))
+                    host.append(ms)
+                else:
+                    pending = online.begin_step(streams)
+                steps.append([r.text for r in online.end_step(pending)])
+            family_launches(f"no_wait_{what}/streaming" + ("" if no_wait else "/with_waits"),
+                            FAMILIES["zipformer2"], read_counts(), BEAM)
+            texts[no_wait] = steps
+        log(f"[6c] {what} begin_step, {STREAM_LANES} lanes: {len(host)} steps with no host "
+            f"sync, host {statistics.median(host):.2f} ms per step (median); partial results "
+            f"equal to the steps with waits: {texts[True] == texts[False]}")
+        if not host or texts[True] != texts[False]:
+            raise AssertionError(f"[6c] {what}: no step ran, or begin_step gave other results")
+        out[f"begin_step_host_ms{'_hotwords' if hotwords else ''}"] = statistics.median(host)
     return out
 
 
@@ -1749,8 +2199,7 @@ def phase_convert(tmp):
         f"identical to the source bundle's: {res[0].tokens == res[1].tokens}; launches {counts}")
     if (res[0].tokens, res[0].timestamps) != (res[1].tokens, res[1].timestamps):
         raise AssertionError("the converted dir decodes other tokens than its source bundle")
-    if counts != {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"], "relpos_attn_ctx": 0,
-                  "rnnt_greedy": 1}:
+    if counts != counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"], rnnt_greedy=1):
         raise AssertionError(f"the converted dir's decode launched {counts}")
     GREEDY_PATHS["converted_offline"] = counts["rnnt_greedy"]
     return launches, t2 - t1
@@ -1921,6 +2370,11 @@ def parallel_rank(job_path: str, rank: int) -> int:
         res, ms = _par_offline(OfflineRecognizer(bundle, compute_dtype=None, mesh=dp, device=dev))
         out["dp_offline"] = dict(results=res, ms=ms, launches=read_counts(),
                                  peak=torch.cuda.max_memory_allocated(dev))
+        res, ms = _par_offline(OfflineRecognizer(bundle, decoding_method=BEAM,
+                                                 max_active_paths=BEAM_K, compute_dtype=None,
+                                                 mesh=dp, device=dev))
+        out["dp_beam_offline"] = dict(results=res, ms=ms, launches=read_counts(),
+                                      peak=torch.cuda.max_memory_allocated(dev))
         del bundle
         bundle = ModelBundle.random("zipformer2", FAMILIES["zipformer2"]["stream_cfg"](),
                                     vocab_size=500, seed=0, device=dev)
@@ -1994,6 +2448,11 @@ def phase_parallel(tmp) -> dict:
         enc, lens = rec.encode(*rec.pcm_batch(streams_for(
             rec, [synth_pcm(n, seed) for n, seed in PAR_PCMS])))
         ref[family] = dict(results=res, ms=ms, enc=enc.cpu().numpy(), lens=lens.cpu().numpy())
+        if family == "zipformer2":
+            res, ms = _par_offline(OfflineRecognizer(bundle, decoding_method=BEAM,
+                                                     max_active_paths=BEAM_K, compute_dtype=None,
+                                                     device="cuda"))
+            ref["beam"] = dict(results=res, ms=ms)
         del rec, bundle
     bundle = ModelBundle.random("zipformer2", FAMILIES["zipformer2"]["stream_cfg"](),
                                 vocab_size=500, seed=0, device="cuda")
@@ -2015,12 +2474,12 @@ def phase_parallel(tmp) -> dict:
         runs["nccl"] = _spawn_ranks(tmp, "nccl")
     else:
         log("[12] nccl: not run (one card)")
-    want_tp = {"zipformer2": {"relpos_attn_probs": FAMILIES["zipformer2"]["per_batch"],
-                              "relpos_attn_ctx": 0, "rnnt_greedy": 1},
-               "conformer": {"relpos_attn_probs": 0,
-                             "relpos_attn_ctx": FAMILIES["conformer"]["per_batch"],
-                             "rnnt_greedy": 1}}
+    want_tp = {"zipformer2": counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"],
+                                       rnnt_greedy=1),
+               "conformer": counts_of(relpos_attn_ctx=FAMILIES["conformer"]["per_batch"],
+                                      rnnt_greedy=1)}
     want_dp = want_tp["zipformer2"]
+    want_dp_beam = counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"], rnnt_beam=1)
     for backend, ranks in runs.items():
         for r in ranks:
             tag = f"[12] {backend} rank {r['rank']}"
@@ -2036,7 +2495,8 @@ def phase_parallel(tmp) -> dict:
                     raise AssertionError(f"{tag} TP {family} differs from one process")
                 if got["launches"] != want_tp[family]:
                     raise AssertionError(f"{tag} TP {family} launched {got['launches']}")
-            for path, want in (("dp_offline", ref["zipformer2"]), ("dp_streaming", ref["streaming"])):
+            for path, want in (("dp_offline", ref["zipformer2"]), ("dp_beam_offline", ref["beam"]),
+                               ("dp_streaming", ref["streaming"])):
                 got = r[path]
                 log(f"{tag} DP 2x1 {path}: tokens identical {got['results'] == want['results']}, "
                     f"{got['ms']:.1f} ms, launches {got['launches']}, "
@@ -2046,16 +2506,22 @@ def phase_parallel(tmp) -> dict:
                     raise AssertionError(f"{tag} {path} differs from one process")
                 if path == "dp_offline" and got["launches"] != want_dp:
                     raise AssertionError(f"{tag} {path} launched {got['launches']}")
+                if path == "dp_beam_offline" and got["launches"] != want_dp_beam:
+                    raise AssertionError(f"{tag} {path} launched {got['launches']}")
                 if path == "dp_streaming" and not (got["launches"]["relpos_attn_probs"]
                                                    and got["launches"]["rnnt_greedy"]):
                     raise AssertionError(f"{tag} {path} launched no K1 or no rnnt_greedy")
     gloo = runs["gloo"]
     total = lambda path, k: sum(r[path]["launches"][k] for r in gloo)  # noqa: E731
-    for r in gloo:  # every rank launches the greedy kernel on its own rows
+    for r in gloo:  # every rank launches the search kernel on its own rows
         for path in ("tp_zipformer2", "tp_conformer", "dp_offline", "dp_streaming"):
             GREEDY_PATHS[f"{path}_rank{r['rank']}"] = r[path]["launches"]["rnnt_greedy"]
+        BEAM_PATHS[f"dp_beam_offline_rank{r['rank']}"] = r["dp_beam_offline"]["launches"][
+            "rnnt_beam"]
     return {"relpos_attn_probs": {"tp_offline": total("tp_zipformer2", "relpos_attn_probs"),
                                   "dp_offline": total("dp_offline", "relpos_attn_probs"),
+                                  "dp_beam_offline": total("dp_beam_offline",
+                                                           "relpos_attn_probs"),
                                   "dp_streaming": total("dp_streaming", "relpos_attn_probs")},
             "relpos_attn_ctx": {"tp_offline": total("tp_conformer", "relpos_attn_ctx")}}
 
@@ -2150,6 +2616,39 @@ def greedy_kernel_line(rows, plans) -> dict:
     }
 
 
+def beam_kernel_line(rows, plans) -> dict:
+    """rnnt_beam's entry: the headline numbers are the offline bf16 case (one
+    launch per 16 x 30 s batch of the beam main path), ``streaming`` the bf16
+    streaming step's; ``max_abs_err`` the worst float32 score error against
+    the plain version (every other field and every recorded choice exact;
+    bf16 is held by the beam replay, its steps decided otherwise counted in
+    ``cases``); ``plans`` each case's shared memory and residency."""
+    def pick(case):
+        return next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
+
+    head, step = pick("offline"), pick("streaming")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    return {
+        "name": "rnnt_beam",
+        "route": "cuda",
+        "source": "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
+        "replaces": "k2transducerasr_tpu/decode/rnnt_beam.py:160",
+        "launches": sum(BEAM_PATHS.values()),
+        "launches_by_path": dict(BEAM_PATHS),
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
+        **{k: head[k] for k in keys},
+        "library_ms": None,
+        "streaming": {f"{k}_per_step": step[k] for k in keys},
+        "plans": plans,
+        "per": f"one modified beam search of a 16 x 30 s batch (B=16, T=766, K={BEAM_K}, "
+               "J=512, V=500, bf16, random weights; one cluster of 8 blocks per lane); "
+               "streaming: one step of 16 lanes (T = one window's encoder frames); launches: "
+               "one per offline batch and per streaming step of every transducer beam path "
+               "(launches_by_path); library_ms null: no PyTorch call runs a beam search",
+        "cases": rows,
+    }
+
+
 def mutation_check() -> int:
     """Each of MUTATIONS, in a throwaway copy, must make its phase fail."""
     import shutil
@@ -2197,9 +2696,12 @@ def main() -> int:
     k1_rows, k1_worst = phase_k1(bw)
     k2_rows, k2_worst = phase_k2(bw)
     greedy_rows, greedy_plans = phase_greedy(bw)
+    beam_rows, beam_plans = phase_beam(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
+    wide_heads = phase_full_width_vs_cpu("conformer", ConformerConfig(num_heads=WIDE_HEADS),
+                                         f"conformer-{WIDE_HEADS}x{WIDE_HEAD}", "[4b]")
     for family in FAMILIES:
         phase_full_width_vs_cpu(family)
         phase_streaming_vs_cpu(family)
@@ -2261,16 +2763,19 @@ def main() -> int:
         kernel_line("relpos_attn_ctx", "k2transducerasr_tpu_torch/csrc/relpos_attn_ctx.cu",
                     "k2transducerasr_tpu/ops/attention_pallas.py:242",
                     dict(paths("conformer"), int8_offline=launches_int8["conformer"],
-                         **par_launches["relpos_attn_ctx"]),
+                         wide_heads_offline=wide_heads, **par_launches["relpos_attn_ctx"]),
                     k2_rows, k2_worst,
                     "one conformer flagship batch (16 x 30 s): 12 calls at B=16 T=S=767 H=8 "
                     "d=64 bf16 (int8_offline: the same under accuracy='int8'); streaming: one "
                     "step of 16 lanes of ConformerConfig(causal=True),"
-                    " 12 calls at T=16 S=80; tp_offline: [12]'s mesh 1x2 run, 12 calls per rank "
+                    " 12 calls at T=16 S=80; wide_heads_offline: [4b]'s 5 s decode of "
+                    "ConformerConfig(num_heads=4), heads of 128 (cases heads-4x128 time them); "
+                    "tp_offline: [12]'s mesh 1x2 run, 12 calls per rank "
                     "per batch, summed over the 2 ranks; library_ms: "
                     "scaled_dot_product_attention with the skewed position bias precomputed "
                     "(not timed)"),
         greedy_kernel_line(greedy_rows, greedy_plans),
+        beam_kernel_line(beam_rows, beam_plans),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

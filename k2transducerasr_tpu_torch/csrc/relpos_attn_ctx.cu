@@ -81,6 +81,87 @@ struct Args {
   int out_f32, T, S, H, qd, pd, vd, chunk, left;
 };
 
+// The online softmax over one key tile's scores sc (fragment row r of the
+// thread is sc[j][2r], sc[j][2r+1]), then P (bf16, unnormalised) . V into
+// acc, V the tile's [kBK][row_elems<DK>()] values in shared memory
+template <int DK>
+__device__ __forceinline__ void softmax_pv(float (&sc)[8][4], float (&m_run)[2],
+                                           float (&l_part)[2], float (&acc)[DK / 8][4],
+                                           const bf16* vt, int lane) {
+  constexpr int RE = rp::row_elems<DK>(), kBK = rp::kBK;
+  // online softmax; fragment row r of the thread is sc[j][2r], sc[j][2r+1]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m_run[r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+    mx = rp::quad_max(mx);  // finite: key s0 < S is in every tile
+    const float rescale = exp2f((m_run[r] - mx) * rp::kLog2e);  // 0 on the first tile
+    m_run[r] = mx;
+    l_part[r] *= rescale;
+#pragma unroll
+    for (int c = 0; c < DK / 8; ++c) {
+      acc[c][2 * r] *= rescale;
+      acc[c][2 * r + 1] *= rescale;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f((sc[j][2 * r + e] - mx) * rp::kLog2e);
+        sc[j][2 * r + e] = p;
+        l_part[r] += p;
+      }
+  }
+
+  // P (bf16, unnormalised) . V: n-tiles 2kk and 2kk+1 of the scores are the
+  // A fragment of keys 16kk .. 16kk+15
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint32_t pf[4] = {rp::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                            rp::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                            rp::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                            rp::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < DK / 16; ++np) {
+      // lanes 0-7 keys 0-7 cols 0-7, 8-15 keys 8-15 cols 0-7, 16-23 keys
+      // 0-7 cols 8-15, 24-31 keys 8-15 cols 8-15; transposed on the way
+      uint32_t bv[4];
+      rp::ldsm_x4_trans(bv, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RE +
+                                16 * np + (lane >> 4) * 8);
+      rp::mma_bf16(acc[2 * np], pf, bv[0], bv[1]);
+      rp::mma_bf16(acc[2 * np + 1], pf, bv[2], bv[3]);
+    }
+  }
+}
+
+// ctx columns col0 + 8c + 2 tig + e (< vd) of the warp's rows: acc / row sum
+template <int DK>
+__device__ __forceinline__ void write_ctx(const Args& a, const float (&acc)[DK / 8][4],
+                                          const float (&l_part)[2], int b, int h, int t0,
+                                          int warp, int lane, int col0) {
+  const int gid = lane >> 2, tig = lane & 3, T = a.T;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / rp::quad_sum(l_part[r]);
+    const int t = t0 + 16 * warp + gid + 8 * r;
+    if (t >= T) continue;
+    const long long row = (((long long)b * T + t) * a.H + h) * a.vd;
+#pragma unroll
+    for (int c = 0; c < DK / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * c + 2 * tig + e;
+        if (col >= a.vd) continue;
+        const float x = acc[c][2 * r + e] * inv;
+        if (a.out_f32)
+          static_cast<float*>(a.out)[row + col] = x;
+        else
+          static_cast<bf16*>(a.out)[row + col] = __float2bfloat16_rn(x);
+      }
+  }
+}
+
 // DK: q, pos and value widths, zero-padded to DK in shared memory.
 // QV, PV: elements per copy (stage()) of q, k and v rows, and of pos_q and
 // pos_k rows.
@@ -98,7 +179,7 @@ __global__ void __launch_bounds__(rp::kThreads, 2) relpos_attn_ctx_tc(const Args
 
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
   const int T = a.T, S = a.S;
   const long long q_stride = (long long)a.H * a.qd, p_stride = (long long)a.H * a.pd,
                   v_stride = (long long)a.H * a.vd;
@@ -163,73 +244,99 @@ __global__ void __launch_bounds__(rp::kThreads, 2) relpos_attn_ctx_tc(const Args
     rp::masked_scores<DK, DK>(sc, qa, pa, sK + buf * kBK * RE, sPK + (n % 3) * kBK * RE,
                               sPK + ((n + 1) % 3) * kBK * RE, mw, warp, lane, s0, mask);
 
-    // online softmax; fragment row r of the thread is sc[j][2r], sc[j][2r+1]
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m_run[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
-      mx = rp::quad_max(mx);  // finite: key s0 < S is in every tile
-      const float rescale = exp2f((m_run[r] - mx) * rp::kLog2e);  // 0 on the first tile
-      m_run[r] = mx;
-      l_part[r] *= rescale;
-#pragma unroll
-      for (int c = 0; c < DK / 8; ++c) {
-        acc[c][2 * r] *= rescale;
-        acc[c][2 * r + 1] *= rescale;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f((sc[j][2 * r + e] - mx) * rp::kLog2e);
-          sc[j][2 * r + e] = p;
-          l_part[r] += p;
-        }
-    }
-
-    // P (bf16, unnormalised) . V: n-tiles 2kk and 2kk+1 of the scores are the
-    // A fragment of keys 16kk .. 16kk+15
-    const bf16* vt = sV + buf * kBK * RE;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pf[4] = {rp::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              rp::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              rp::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              rp::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < DK / 16; ++np) {
-        // lanes 0-7 keys 0-7 cols 0-7, 8-15 keys 8-15 cols 0-7, 16-23 keys
-        // 0-7 cols 8-15, 24-31 keys 8-15 cols 8-15; transposed on the way
-        uint32_t bv[4];
-        rp::ldsm_x4_trans(bv, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RE +
-                                  16 * np + (lane >> 4) * 8);
-        rp::mma_bf16(acc[2 * np], pf, bv[0], bv[1]);
-        rp::mma_bf16(acc[2 * np + 1], pf, bv[2], bv[3]);
-      }
-    }
+    softmax_pv<DK>(sc, m_run, l_part, acc, sV + buf * kBK * RE, lane);
     __syncthreads();  // every warp is done with this buffer before it is restaged
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / rp::quad_sum(l_part[r]);
-    const int t = t0 + 16 * warp + gid + 8 * r;
-    if (t >= T) continue;
-    const long long row = (((long long)b * T + t) * a.H + h) * a.vd;
-#pragma unroll
-    for (int c = 0; c < DK / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * c + 2 * tig + e;
-        if (col >= a.vd) continue;
-        const float x = acc[c][2 * r + e] * inv;
-        if (a.out_f32)
-          static_cast<float*>(a.out)[row + col] = x;
-        else
-          static_cast<bf16*>(a.out)[row + col] = __float2bfloat16_rn(x);
+  write_ctx<DK>(a, acc, l_part, b, h, t0, warp, lane, 0);
+}
+
+// Heads wider than 64 (qd, pd or vd): the scores of each key tile summed
+// over the 64-wide chunks of q . k and of pos_q . pos_k (rp::kChunk) into
+// the same accumulators, and P . V over one 64-wide column tile of v per
+// block (grid.y = H x column tiles: each block recomputes its rows' scores).
+// Every chunk of the block's q and pos_q rows stays in shared memory; each
+// (tile, chunk) step stages one chunk of keys and of the pos_k window (and,
+// at chunk 0, the tile's v columns) and waits for it.
+template <int QV, int PV>
+__global__ void __launch_bounds__(rp::kThreads, 1) relpos_attn_ctx_tc_wide(const Args a) {
+  constexpr int RE = rp::row_elems<rp::kChunk>(), W = rp::kChunk;
+  constexpr int kBQ = rp::kBQ, kBK = rp::kBK, kWin = rp::kWin;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nq = rp::chunks(a.qd), np = rp::chunks(a.pd), nc = max(nq, np);
+  const int nvt = rp::chunks(a.vd);
+  float* scratch = reinterpret_cast<float*>(smem);  // [kWarps][16][kMwStride]
+  bf16* sQ = reinterpret_cast<bf16*>(smem + sizeof(float) * rp::kScratchFloats);  // [nq][kBQ][RE]
+  bf16* sPQ = sQ + nq * kBQ * RE;  // [np][kBQ][RE]
+  bf16* sK = sPQ + np * kBQ * RE;  // [kBK][RE] a chunk of the key tile
+  bf16* sPK = sK + kBK * RE;       // [kWin][RE] a chunk of its pos_k window
+  bf16* sV = sPK + kWin * RE;      // [kBK][RE] the tile's v columns of this block
+
+  const int b = blockIdx.z, h = blockIdx.y / nvt, vt = blockIdx.y % nvt, t0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int T = a.T, S = a.S;
+  const long long q_stride = (long long)a.H * a.qd, p_stride = (long long)a.H * a.pd,
+                  v_stride = (long long)a.H * a.vd;
+  const bf16* qb = a.q + ((long long)b * T * a.H + h) * a.qd;
+  const bf16* kb = a.k + ((long long)b * S * a.H + h) * a.qd;
+  const bf16* pqb = a.pq + ((long long)b * T * a.H + h) * a.pd;
+  const bf16* pkb = a.pk + (long long)h * a.pd;
+  const bf16* vb = a.v + ((long long)b * S * a.H + h) * a.vd + vt * W;
+  const int wv = rp::chunk_width(a.vd, vt);
+
+  rp::stage_query_chunks<QV>(sQ, qb, q_stride, t0, T, a.qd);
+  rp::stage_query_chunks<PV>(sPQ, pqb, p_stride, t0, T, a.pd);
+  rp::zero_columns<W>(sV, kBK, wv);  // every tile's v rows are wv wide
+  rp::cp_async_commit();
+
+  const rp::KeyMask mask(S, a.lens, a.kv_start, b, a.chunk, a.left, t0 + 16 * warp + (lane >> 2));
+  float* mw = scratch + warp * 16 * rp::kMwStride;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f};
+  float acc[W / 8][4];
+  rp::zero_acc(acc);
+  const int n_tiles = (S + kBK - 1) / kBK;
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s0 = n * kBK;
+    float sc[8][4], m[10][4];
+    rp::zero_acc(sc);
+    rp::zero_acc(m);
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // every warp is done with the last chunk (and tile's values)
+      if (c < nq) rp::stage_chunk<QV, kBK>(sK, kb, q_stride, s0, 0, S, a.qd, c);
+      if (c < np)
+        rp::stage_chunk<PV, kWin>(sPK, pkb, p_stride, rp::pos_window_first(T, t0, s0), 0,
+                                  T + S - 1, a.pd, c);
+      if (c == 0) rp::stage<W, QV, kBK>(sV, vb, v_stride, s0, 0, S, wv);
+      rp::cp_async_commit();
+      rp::cp_async_wait<0>();
+      __syncthreads();
+      if (c < nq) {
+        uint32_t qa[W / 16][4];
+        rp::load_rows<W>(qa, sQ + c * kBQ * RE, warp, lane);
+        rp::qk_products<W>(sc, qa, sK, lane);
       }
+      if (c < np) {
+        uint32_t pa[W / 16][4];
+        rp::load_rows<W>(pa, sPQ + c * kBQ * RE, warp, lane);
+        rp::pos_products<W>(m, pa, sPK, sPK + kBK * RE, warp, lane);
+      }
+    }
+    rp::skew_and_mask(sc, m, mw, lane, s0, mask);
+    softmax_pv<W>(sc, m_run, l_part, acc, sV, lane);
   }
+  write_ctx<W>(a, acc, l_part, b, h, t0, warp, lane, vt * W);
+}
+
+template <int QV, int PV>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * rp::kScratchFloats +
+                      sizeof(bf16) * rp::row_elems<rp::kChunk>() *
+                          ((rp::chunks(a.qd) + rp::chunks(a.pd)) * rp::kBQ + 2 * rp::kBK + rp::kWin);
+  const cudaError_t err = rp::allow_smem<relpos_attn_ctx_tc_wide<QV, PV>>(smem, true);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + rp::kBQ - 1) / rp::kBQ, a.H * rp::chunks(a.vd), B);
+  relpos_attn_ctx_tc_wide<QV, PV><<<grid, rp::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int DK, int QV, int PV>
@@ -259,6 +366,14 @@ cudaError_t launch_widths(const Args& a, int B, cudaStream_t stream) {
 
 cudaError_t run(const Args& a, int B, cudaStream_t stream) {
   const int dk = std::max({a.qd, a.pd, a.vd});
+  if (dk > 64) {
+    const int qv = std::min({rp::copy_elems(a.qd, a.q), rp::copy_elems(a.qd, a.k),
+                             rp::copy_elems(a.vd, a.v)});
+    const int pv = std::min(rp::copy_elems(a.pd, a.pq), rp::copy_elems(a.pd, a.pk));
+    return rp::with_copy_widths(qv, pv, [&](auto QV, auto PV) {
+      return launch_wide<decltype(QV)::value, decltype(PV)::value>(a, B, stream);
+    });
+  }
   if (dk <= 16) return launch_widths<16>(a, B, stream);
   if (dk <= 32) return launch_widths<32>(a, B, stream);
   return launch_widths<64>(a, B, stream);
@@ -300,6 +415,56 @@ __device__ __forceinline__ float row_max(float v) {
 __device__ __forceinline__ float row_sum(float v) {
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The tile's scores sc + ps, masked, into the online softmax of the
+// thread's four rows, then P . V into acc (sP stages the probabilities, sV
+// holds the tile's values)
+__device__ __forceinline__ void softmax_pv(float (&sc)[4][4], const float (&ps)[4][4],
+                                           float (&m_run)[4], float (&l_part)[4],
+                                           float (&acc)[4][4], float* sP, const float* sV, int s0,
+                                           int S, int limit, int start, const int (&cs)[4],
+                                           int chunk, int left, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = s0 + 4 * tx + j;
+      bool valid = s < limit && s >= start;
+      if (chunk > 0) valid = valid && s >= cs[i] - left && s <= cs[i] + chunk - 1;
+      // keys past S are not keys at all: exp(-inf) = 0 leaves them out
+      sc[i][j] = s >= S ? -INFINITY : (valid ? sc[i][j] + ps[i][j] : kNegInf);
+      mx = fmaxf(mx, sc[i][j]);
+    }
+    // finite: key s0 < S is in every tile
+    const float m_new = fmaxf(m_run[i], row_max(mx));
+    const float rescale = expf(m_run[i] - m_new);  // 0 on the first tile
+    m_run[i] = m_new;
+    l_part[i] *= rescale;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j] *= rescale;
+      sc[i][j] = expf(sc[i][j] - m_new);
+      l_part[i] += sc[i][j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(sP + (4 * tx + j) * kBQ + 4 * ty) =
+        make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+  __syncthreads();
+
+#pragma unroll 8
+  for (int c = 0; c < kBK; ++c) {
+    const float4 p = *reinterpret_cast<const float4*>(sP + c * kBQ + 4 * ty);
+    const float4 w = *reinterpret_cast<const float4*>(sV + c * kVD + 4 * tx);
+    const float pv[4] = {p.x, p.y, p.z, p.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], wv[j], acc[i][j]);
+  }
 }
 
 template <typename Tout, int DK>
@@ -395,46 +560,7 @@ relpos_attn_ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) ps[i][j] = fmaf(av[i], wv[3 - i + j], ps[i][j]);
     }
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = s0 + 4 * tx + j;
-        bool valid = s < limit && s >= start;
-        if (chunk > 0) valid = valid && s >= cs[i] - left && s <= cs[i] + chunk - 1;
-        // keys past S are not keys at all: exp(-inf) = 0 leaves them out
-        sc[i][j] = s >= S ? -INFINITY : (valid ? sc[i][j] + ps[i][j] : kNegInf);
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      // finite: key s0 < S is in every tile
-      const float m_new = fmaxf(m_run[i], row_max(mx));
-      const float rescale = expf(m_run[i] - m_new);  // 0 on the first tile
-      m_run[i] = m_new;
-      l_part[i] *= rescale;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] *= rescale;
-        sc[i][j] = expf(sc[i][j] - m_new);
-        l_part[i] += sc[i][j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sP + (4 * tx + j) * kBQ + 4 * ty) =
-          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(sP + c * kBQ + 4 * ty);
-      const float4 w = *reinterpret_cast<const float4*>(sV + c * kVD + 4 * tx);
-      const float pv[4] = {p.x, p.y, p.z, p.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], wv[j], acc[i][j]);
-    }
+    softmax_pv(sc, ps, m_run, l_part, acc, sP, sV, s0, S, limit, start, cs, chunk, left, tx, ty);
   }
 
 #pragma unroll
@@ -446,6 +572,115 @@ relpos_attn_ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int e = 4 * tx + j;
+      if (e < vd) o[e] = from_f32<Tout>(acc[i][j] / l);
+    }
+  }
+}
+
+// Heads wider than 64: the same body with the q, pos and key rows staged 64
+// columns at a time (each product summed over the chunks in column order)
+// and one 64-wide column tile of v per block (grid.y = H x column tiles).
+template <typename Tout>
+__global__ void __launch_bounds__(kThreads, 2)
+relpos_attn_ctx_wide(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ pq, const float* __restrict__ pk,
+                     const float* __restrict__ v, const int* __restrict__ lens,
+                     const int* __restrict__ kv_start, Tout* __restrict__ out, int T, int S, int H,
+                     int qd, int pd, int vd, int chunk, int left) {
+  constexpr int DK = 64;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;             // [DK][kBQ]   a chunk of the q rows, transposed
+  float* sPQ = sQ + DK * kBQ;   // [DK][kBQ]   ... of the pos_q rows
+  float* sK = sPQ + DK * kBQ;   // [DK][kBK]   ... of the key tile
+  float* sPK = sK + DK * kBK;   // [DK][kWin]  ... of its pos_k window
+  float* sV = sPK + DK * kWin;  // [kBK][kVD]  the tile's v columns of this block
+  float* sP = sV + kBK * kVD;   // [kBK][kBQ]  the tile's probabilities, transposed
+
+  const int nvt = (vd + kVD - 1) / kVD, nc = (max(qd, pd) + DK - 1) / DK;
+  const int b = blockIdx.z, h = blockIdx.y / nvt, vt = blockIdx.y % nvt;
+  const int t0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int R = T + S - 1;
+  const int limit = relpos::lane_limit(lens, b, S);
+  const int start = relpos::lane_start(kv_start, b);
+  int cs[4];  // chunk start of each row
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cs[i] = chunk > 0 ? ((t0 + 4 * ty + i) / chunk) * chunk : 0;
+  float m_run[4], l_part[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_part[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int s0 = 0; s0 < S; s0 += kBK) {
+    float sc[4][4], ps[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = ps[i][j] = 0.f;
+    const int m_base = T - t0 - kBQ + s0;  // window row w is pos_k row m_base + w
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the last chunk's (and tile's) readers are done
+      for (int i = tid; i < DK * kBQ; i += kThreads) {
+        const int d = DK * c + i / kBQ, t = t0 + i % kBQ;
+        const size_t row = ((size_t)b * T + t) * H + h;
+        sQ[i] = (t < T && d < qd) ? q[row * qd + d] : 0.f;
+        sPQ[i] = (t < T && d < pd) ? pq[row * pd + d] : 0.f;
+      }
+      for (int i = tid; i < DK * kBK; i += kThreads) {
+        const int d = DK * c + i / kBK, s = s0 + i % kBK;
+        sK[i] = (s < S && d < qd) ? k[(((size_t)b * S + s) * H + h) * qd + d] : 0.f;
+      }
+      for (int i = tid; i < DK * kWin; i += kThreads) {
+        const int d = DK * c + i / kWin, m = m_base + i % kWin;
+        sPK[i] = (m >= 0 && m < R && d < pd) ? pk[((size_t)m * H + h) * pd + d] : 0.f;
+      }
+      if (c == 0)
+        for (int i = tid; i < kBK * kVD; i += kThreads) {
+          const int cc = i / kVD, e = kVD * vt + i % kVD, s = s0 + cc;
+          sV[i] = (s < S && e < vd) ? v[(((size_t)b * S + s) * H + h) * vd + e] : 0.f;
+        }
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < DK; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(sQ + d * kBQ + 4 * ty);
+        const float4 w = *reinterpret_cast<const float4*>(sK + d * kBK + 4 * tx);
+        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], wv[j], sc[i][j]);
+      }
+      // row 4ty+i, key 4tx+j -> window row (kBQ-1 - (4ty+i)) + 4tx+j = base + 3 - i + j
+      const int base = kBQ - 4 - 4 * ty + 4 * tx;
+#pragma unroll 8
+      for (int d = 0; d < DK; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(sPQ + d * kBQ + 4 * ty);
+        const float4 w0 = *reinterpret_cast<const float4*>(sPK + d * kWin + base);
+        const float4 w1 = *reinterpret_cast<const float4*>(sPK + d * kWin + base + 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ps[i][j] = fmaf(av[i], wv[3 - i + j], ps[i][j]);
+      }
+    }
+    softmax_pv(sc, ps, m_run, l_part, acc, sP, sV, s0, S, limit, start, cs, chunk, left, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = row_sum(l_part[i]);
+    const int t = t0 + 4 * ty + i;
+    if (t >= T) continue;
+    Tout* o = out + (((size_t)b * T + t) * H + h) * vd;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = kVD * vt + 4 * tx + j;
       if (e < vd) o[e] = from_f32<Tout>(acc[i][j] / l);
     }
   }
@@ -471,6 +706,16 @@ cudaError_t dispatch_dk(const float* q, const float* k, const float* pq, const f
                         int T, int S, int H, int qd, int pd, int vd, int chunk, int left,
                         cudaStream_t stream) {
   const int dk = qd > pd ? qd : pd;
+  if (dk > 64 || vd > kVD) {
+    constexpr size_t smem = smem_bytes<64>();
+    const cudaError_t err = relpos::allow_smem<relpos_attn_ctx_wide<Tout>>(smem, true);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T + kBQ - 1) / kBQ, H * ((vd + kVD - 1) / kVD), B);
+    relpos_attn_ctx_wide<Tout><<<grid, kThreads, smem, stream>>>(
+        q, k, pq, pk, v, lens, kv_start, static_cast<Tout*>(out), T, S, H, qd, pd, vd, chunk,
+        left);
+    return cudaGetLastError();
+  }
   if (dk <= 16)
     return launch<Tout, 16>(q, k, pq, pk, v, lens, kv_start, out, B, T, S, H, qd, pd, vd, chunk,
                             left, stream);
@@ -483,13 +728,19 @@ cudaError_t dispatch_dk(const float* q, const float* k, const float* pq, const f
 
 }  // namespace cuda_core
 
+// the widest q, pos and value heads either body takes (the bf16 chunked
+// body's shared memory: 9 KB per 64-wide chunk of q or pos beside 58 KB)
+constexpr int kMaxWidth = 512;
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, pos_q, pos_k and v share
 // one).  bfloat16 inputs run the tensor-core body, float32 inputs the
-// CUDA-core body.  A null `lens` means every key is valid, a null
-// `kv_start` means 0.  Returns the launch's cudaError_t (0 on success); the
-// wrapper validates shapes, dtypes and the qd/pd/vd <= 64 limit.
+// CUDA-core body; heads wider than 64 run their bodies' chunked forms, up
+// to qd, pd, vd <= kMaxWidth (512).  A null `lens` means every key is
+// valid, a null `kv_start` means 0.  Returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue past the widths); the wrapper validates
+// shapes and dtypes.
 extern "C" int k2t_relpos_attn_ctx(const void* q, const void* k, const void* pq, const void* pk,
                                    const void* v, const void* lens, const void* kv_start,
                                    void* out, int B, int T, int S, int H, int qd, int pd, int vd,
@@ -498,7 +749,8 @@ extern "C" int k2t_relpos_attn_ctx(const void* q, const void* k, const void* pq,
   const int* ln = static_cast<const int*>(lens);
   const int* ks = static_cast<const int*>(kv_start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qd > 64 || pd > 64 || vd > 64 || (out_dtype != 0 && out_dtype != 1))
+  if (qd < 1 || pd < 1 || vd < 1 || qd > kMaxWidth || pd > kMaxWidth || vd > kMaxWidth ||
+      (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (in_dtype == 1) {
     using tc::bf16;

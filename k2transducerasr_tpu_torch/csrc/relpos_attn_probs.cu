@@ -81,6 +81,67 @@ struct Args {
   int out_f32, T, S, H, qd, pd, chunk, left;
 };
 
+// One key tile's scores sc through pass 1 (i < n_tiles: the rows' running
+// max and sum) or pass 2 (exp(score - max) / sum written out, through the
+// warp's scratch mw)
+__device__ __forceinline__ void passes(const Args& a, int i, int n_tiles, int s0,
+                                       float (&sc)[8][4], float (&m_run)[2], float (&l_part)[2],
+                                       float (&inv_l)[2], float* mw, int b, int h, int t0,
+                                       int warp, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const int T = a.T, S = a.S;
+  constexpr int kBK = rp::kBK;
+  if (i < n_tiles) {
+    // pass 1: running max and sum; fragment row r is sc[j][2r], sc[j][2r+1]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      mx = rp::quad_max(mx);  // finite: key s0 < S is in every tile
+      float l = l_part[r] * exp2f((m_run[r] - mx) * rp::kLog2e);  // 0 on the first tile
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) l += exp2f((sc[j][2 * r + e] - mx) * rp::kLog2e);
+      m_run[r] = mx;
+      l_part[r] = l;
+    }
+  } else {
+    if (i == n_tiles) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / rp::quad_sum(l_part[r]);
+    }
+    // pass 2: exp(score - max) / sum, through the scratch
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float p0 = exp2f((sc[j][2 * r] - m_run[r]) * rp::kLog2e) * inv_l[r];
+        const float p1 = exp2f((sc[j][2 * r + 1] - m_run[r]) * rp::kLog2e) * inv_l[r];
+        *reinterpret_cast<float2*>(mw + (gid + 8 * r) * rp::kMwStride + 8 * j + 2 * tig) =
+            make_float2(p0, p1);
+      }
+    __syncwarp();
+    // row rr of the warp, columns lane and lane + 32
+    const long long first = (((long long)b * a.H + h) * T + t0 + 16 * warp) * S + s0;
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr) {
+      if (t0 + 16 * warp + rr >= T) break;
+#pragma unroll
+      for (int c = lane; c < kBK; c += 32) {
+        if (s0 + c >= S) break;
+        const float x = mw[rr * rp::kMwStride + c];
+        if (a.out_f32)
+          static_cast<float*>(a.out)[first + rr * S + c] = x;
+        else
+          static_cast<bf16*>(a.out)[first + rr * S + c] = __float2bfloat16_rn(x);
+      }
+    }
+    __syncwarp();  // the scratch is free for the next tile's position term
+  }
+}
+
 // QD, PD: q and pos widths, zero-padded in shared memory.  QV, PV:
 // elements per copy (stage()) of q and k rows, and of pos_q and pos_k rows.
 template <int QD, int PD, int QV, int PV>
@@ -96,7 +157,7 @@ __global__ void __launch_bounds__(rp::kThreads, 2) relpos_attn_probs_tc(const Ar
 
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
   const int T = a.T, S = a.S;
   const long long q_stride = (long long)a.H * a.qd, p_stride = (long long)a.H * a.pd;
   // row t of (b, h) at base + t * stride
@@ -144,56 +205,73 @@ __global__ void __launch_bounds__(rp::kThreads, 2) relpos_attn_probs_tc(const Ar
     rp::masked_scores<QD, PD>(sc, qa, pa, sK + buf * kBK * REQ, win, win + kBK * REP, mw, warp,
                               lane, s0, mask);
 
-    if (i < n_tiles) {
-      // pass 1: running max and sum; fragment row r is sc[j][2r], sc[j][2r+1]
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m_run[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
-        mx = rp::quad_max(mx);  // finite: key s0 < S is in every tile
-        float l = l_part[r] * exp2f((m_run[r] - mx) * rp::kLog2e);  // 0 on the first tile
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) l += exp2f((sc[j][2 * r + e] - mx) * rp::kLog2e);
-        m_run[r] = mx;
-        l_part[r] = l;
-      }
-    } else {
-      if (i == n_tiles) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / rp::quad_sum(l_part[r]);
-      }
-      // pass 2: exp(score - max) / sum, through the scratch
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float p0 = exp2f((sc[j][2 * r] - m_run[r]) * rp::kLog2e) * inv_l[r];
-          const float p1 = exp2f((sc[j][2 * r + 1] - m_run[r]) * rp::kLog2e) * inv_l[r];
-          *reinterpret_cast<float2*>(mw + (gid + 8 * r) * rp::kMwStride + 8 * j + 2 * tig) =
-              make_float2(p0, p1);
-        }
-      __syncwarp();
-      // row rr of the warp, columns lane and lane + 32
-      const long long first = (((long long)b * a.H + h) * T + t0 + 16 * warp) * S + s0;
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        if (t0 + 16 * warp + rr >= T) break;
-#pragma unroll
-        for (int c = lane; c < kBK; c += 32) {
-          if (s0 + c >= S) break;
-          const float x = mw[rr * rp::kMwStride + c];
-          if (a.out_f32)
-            static_cast<float*>(a.out)[first + rr * S + c] = x;
-          else
-            static_cast<bf16*>(a.out)[first + rr * S + c] = __float2bfloat16_rn(x);
-        }
-      }
-      __syncwarp();  // the scratch is free for the next tile's position term
-    }
+    passes(a, i, n_tiles, s0, sc, m_run, l_part, inv_l, mw, b, h, t0, warp, lane);
     __syncthreads();  // every warp is done with this buffer before it is restaged
+  }
+}
+
+// Heads wider than 64 (qd or pd): the same two passes, each key tile's
+// scores summed over the 64-wide chunks of q . k and of pos_q . pos_k
+// (rp::kChunk) into the same accumulators.  Every chunk of the block's q
+// and pos_q rows stays in shared memory; each (tile, chunk) step stages one
+// chunk of the key tile and of its pos_k window and waits for it (no double
+// buffering: the narrow heads of every main path do not come here).
+template <int QV, int PV>
+__global__ void __launch_bounds__(rp::kThreads, 1) relpos_attn_probs_tc_wide(const Args a) {
+  constexpr int RE = rp::row_elems<rp::kChunk>(), W = rp::kChunk;
+  constexpr int kBQ = rp::kBQ, kBK = rp::kBK, kWin = rp::kWin;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nq = rp::chunks(a.qd), np = rp::chunks(a.pd), nc = max(nq, np);
+  float* scratch = reinterpret_cast<float*>(smem);  // [kWarps][16][kMwStride]
+  bf16* sQ = reinterpret_cast<bf16*>(smem + sizeof(float) * rp::kScratchFloats);  // [nq][kBQ][RE]
+  bf16* sPQ = sQ + nq * kBQ * RE;  // [np][kBQ][RE]
+  bf16* sK = sPQ + np * kBQ * RE;  // [kBK][RE] a chunk of the key tile
+  bf16* sPK = sK + kBK * RE;       // [kWin][RE] a chunk of its pos_k window
+
+  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int T = a.T, S = a.S;
+  const long long q_stride = (long long)a.H * a.qd, p_stride = (long long)a.H * a.pd;
+  const bf16* qb = a.q + ((long long)b * T * a.H + h) * a.qd;
+  const bf16* kb = a.k + ((long long)b * S * a.H + h) * a.qd;
+  const bf16* pqb = a.pq + ((long long)b * T * a.H + h) * a.pd;
+  const bf16* pkb = a.pk + (long long)h * a.pd;
+
+  rp::stage_query_chunks<QV>(sQ, qb, q_stride, t0, T, a.qd);
+  rp::stage_query_chunks<PV>(sPQ, pqb, p_stride, t0, T, a.pd);
+  rp::cp_async_commit();
+
+  const rp::KeyMask mask(S, a.lens, a.kv_start, b, a.chunk, a.left, t0 + 16 * warp + (lane >> 2));
+  float* mw = scratch + warp * 16 * rp::kMwStride;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+  const int n_tiles = (S + kBK - 1) / kBK;
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    const int s0 = (i < n_tiles ? i : i - n_tiles) * kBK;
+    float sc[8][4], m[10][4];
+    rp::zero_acc(sc);
+    rp::zero_acc(m);
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // every warp is done with the last chunk
+      if (c < nq) rp::stage_chunk<QV, kBK>(sK, kb, q_stride, s0, 0, S, a.qd, c);
+      if (c < np)
+        rp::stage_chunk<PV, kWin>(sPK, pkb, p_stride, rp::pos_window_first(T, t0, s0), 0,
+                                  T + S - 1, a.pd, c);
+      rp::cp_async_commit();
+      rp::cp_async_wait<0>();
+      __syncthreads();
+      if (c < nq) {
+        uint32_t qa[W / 16][4];
+        rp::load_rows<W>(qa, sQ + c * kBQ * RE, warp, lane);
+        rp::qk_products<W>(sc, qa, sK, lane);
+      }
+      if (c < np) {
+        uint32_t pa[W / 16][4];
+        rp::load_rows<W>(pa, sPQ + c * kBQ * RE, warp, lane);
+        rp::pos_products<W>(m, pa, sPK, sPK + kBK * RE, warp, lane);
+      }
+    }
+    rp::skew_and_mask(sc, m, mw, lane, s0, mask);
+    passes(a, i, n_tiles, s0, sc, m_run, l_part, inv_l, mw, b, h, t0, warp, lane);
   }
 }
 
@@ -227,7 +305,30 @@ cudaError_t launch_pd(const Args& a, int B, cudaStream_t stream) {
   return launch_widths<QD, 64>(a, B, stream);
 }
 
+size_t wide_smem(int qd, int pd) {
+  return sizeof(float) * rp::kScratchFloats +
+         sizeof(bf16) * rp::row_elems<rp::kChunk>() *
+             ((rp::chunks(qd) + rp::chunks(pd)) * rp::kBQ + rp::kBK + rp::kWin);
+}
+
+template <int QV, int PV>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = wide_smem(a.qd, a.pd);
+  const cudaError_t err = rp::allow_smem<relpos_attn_probs_tc_wide<QV, PV>>(smem, true);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + rp::kBQ - 1) / rp::kBQ, a.H, B);
+  relpos_attn_probs_tc_wide<QV, PV><<<grid, rp::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 cudaError_t run(const Args& a, int B, cudaStream_t stream) {
+  if (a.qd > 64 || a.pd > 64) {
+    const int qv = std::min(rp::copy_elems(a.qd, a.q), rp::copy_elems(a.qd, a.k));
+    const int pv = std::min(rp::copy_elems(a.pd, a.pq), rp::copy_elems(a.pd, a.pk));
+    return rp::with_copy_widths(qv, pv, [&](auto QV, auto PV) {
+      return launch_wide<decltype(QV)::value, decltype(PV)::value>(a, B, stream);
+    });
+  }
   if (a.qd <= 16) return launch_pd<16>(a, B, stream);
   if (a.qd <= 32) return launch_pd<32>(a, B, stream);
   return launch_pd<64>(a, B, stream);
@@ -260,6 +361,22 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Pass 1 for one row of a tile (a warp): the raw scores written to the
+// output row, coalesced, and folded into its running max and sum
+__device__ __forceinline__ void fold_row(const float* row, float* o, int s0, int S, int lane,
+                                         float& m_run, float& l_run) {
+  float mx = -INFINITY;
+  for (int c = lane; c < kTile; c += 32) {
+    mx = fmaxf(mx, row[c]);
+    if (s0 + c < S) o[s0 + c] = row[c];
+  }
+  const float m_new = fmaxf(m_run, warp_max(mx));  // finite: key s0 < S is in the tile
+  float sum = 0.f;
+  for (int c = lane; c < kTile; c += 32) sum += expf(row[c] - m_new);
+  l_run = l_run * expf(m_run - m_new) + warp_sum(sum);  // 0 on the first tile
+  m_run = m_new;
 }
 
 // QD: register length of one key vector (qd <= QD, zero-padded).
@@ -352,19 +469,7 @@ relpos_attn_probs_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     __syncthreads();
 
-    if (warp < nrows) {
-      const float* row = sc + warp * kTile;
-      float mx = -INFINITY;
-      for (int c = lane; c < kTile; c += 32) {
-        mx = fmaxf(mx, row[c]);
-        if (s0 + c < S) o[s0 + c] = row[c];
-      }
-      const float m_new = fmaxf(m_run, warp_max(mx));  // finite: key s0 < S is in the tile
-      float sum = 0.f;
-      for (int c = lane; c < kTile; c += 32) sum += expf(row[c] - m_new);
-      l_run = l_run * expf(m_run - m_new) + warp_sum(sum);  // 0 on the first tile
-      m_run = m_new;
-    }
+    if (warp < nrows) fold_row(sc + warp * kTile, o, s0, S, lane, m_run, l_run);
   }
   // pass 2: exp(score - max) / sum in place; each lane reads back only the
   // columns it wrote (s = lane mod 32, as kTile is a multiple of 32)
@@ -385,10 +490,135 @@ cudaError_t launch(const float* q, const float* k, const float* pq, const float*
   return cudaGetLastError();
 }
 
+// Heads wider than 64 (qd or pd): the same passes over 64-wide chunks.  The
+// block's q and pos_q rows sit whole in shared memory ([rows][64 nq] and
+// [rows][64 np]); a thread takes its key 64 values at a time in registers,
+// and the tile's pos_k rows are staged 64 columns at a time; each row's two
+// sums run on across the chunks in column order.
+size_t wide_smem_bytes(int rows, int qd, int pd) {
+  return sizeof(float) * ((size_t)rows * 64 * (size_t)((qd + 63) / 64 + (pd + 63) / 64) +
+                          (size_t)(kTile + rows - 1) * 64 + (size_t)rows * kTile);
+}
+
+__global__ void __launch_bounds__(kThreads)
+relpos_attn_probs_wide(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ pq, const float* __restrict__ pk,
+                       const int* __restrict__ lens, const int* __restrict__ kv_start,
+                       float* __restrict__ out, int T, int S, int H, int qd, int pd, int chunk,
+                       int left, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * rows;
+  const int nrows = min(rows, T - t0);
+  const int nq = (qd + 63) / 64, np = (pd + 63) / 64, qw = 64 * nq, pw = 64 * np;
+  const int n_pos = T + S - 1, m_lo = T - t0 - nrows;
+  float* sq = smem;                            // [rows][qw]
+  float* spq = sq + rows * qw;                 // [rows][pw]
+  float* spk = spq + rows * pw;                // [kTile + rows - 1][64] a chunk of pos_k rows
+  float* sc = spk + (kTile + rows - 1) * 64;   // [rows][kTile] the tile's scores
+
+  for (int i = threadIdx.x; i < rows * qw; i += blockDim.x) {
+    const int r = i / qw, d = i % qw;
+    sq[i] = (r < nrows && d < qd) ? q[(((size_t)b * T + t0 + r) * H + h) * qd + d] : 0.f;
+  }
+  for (int i = threadIdx.x; i < rows * pw; i += blockDim.x) {
+    const int r = i / pw, j = i % pw;
+    spq[i] = (r < nrows && j < pd) ? pq[(((size_t)b * T + t0 + r) * H + h) * pd + j] : 0.f;
+  }
+
+  const int limit = relpos::lane_limit(lens, b, S);
+  const int start = relpos::lane_start(kv_start, b);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* o = out + (((size_t)b * H + h) * T + t0 + warp) * S;
+  float m_run = -INFINITY, l_run = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kTile) {
+    const int s = s0 + threadIdx.x;
+    float acc[kMaxRows], mp[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) acc[r] = mp[r] = 0.f;
+    if (s < S) {
+      const float* kp = k + (((size_t)b * S + s) * H + h) * qd;
+      for (int c = 0; c < nq; ++c) {
+        float kr[64];
+#pragma unroll
+        for (int d = 0; d < 64; ++d) kr[d] = 64 * c + d < qd ? kp[64 * c + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r >= nrows) break;
+          const float4* q4 = reinterpret_cast<const float4*>(sq + r * qw + 64 * c);
+#pragma unroll
+          for (int d4 = 0; d4 < 16; ++d4) {
+            const float4 v = q4[d4];
+            acc[r] = fmaf(v.x, kr[4 * d4 + 0], acc[r]);
+            acc[r] = fmaf(v.y, kr[4 * d4 + 1], acc[r]);
+            acc[r] = fmaf(v.z, kr[4 * d4 + 2], acc[r]);
+            acc[r] = fmaf(v.w, kr[4 * d4 + 3], acc[r]);
+          }
+        }
+      }
+    }
+    for (int c = 0; c < np; ++c) {
+      __syncthreads();  // the last chunk's pos rows and the last tile's scores are read
+      for (int x = threadIdx.x; x < (kTile + nrows - 1) * 64; x += blockDim.x) {
+        const int m = x / 64, j = 64 * c + x % 64, row = m_lo + s0 + m;
+        spk[x] = (j < pd && row < n_pos) ? pk[((size_t)row * H + h) * pd + j] : 0.f;
+      }
+      __syncthreads();
+      if (s < S) {
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r >= nrows) break;
+          // skew: query t0+r, key s -> pos_k row (T-1) - (t0+r) + s
+          const float4* pk4 = reinterpret_cast<const float4*>(spk + (nrows - 1 - r + threadIdx.x) * 64);
+          const float4* pq4 = reinterpret_cast<const float4*>(spq + r * pw + 64 * c);
+#pragma unroll 4
+          for (int j4 = 0; j4 < 16; ++j4) {
+            const float4 x = pq4[j4], y = pk4[j4];
+            mp[r] = fmaf(x.x, y.x, mp[r]);
+            mp[r] = fmaf(x.y, y.y, mp[r]);
+            mp[r] = fmaf(x.z, y.z, mp[r]);
+            mp[r] = fmaf(x.w, y.w, mp[r]);
+          }
+        }
+      }
+    }
+    const bool key_ok = s < S && s < limit && s >= start;
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      if (r >= nrows) break;
+      bool valid = key_ok;
+      if (chunk > 0) {
+        const int cs = ((t0 + r) / chunk) * chunk;
+        valid = valid && s <= cs + chunk - 1 && s >= cs - left;
+      }
+      sc[r * kTile + threadIdx.x] = s >= S ? -INFINITY : (valid ? acc[r] + mp[r] : kNegInf);
+    }
+    __syncthreads();
+    if (warp < nrows) fold_row(sc + warp * kTile, o, s0, S, lane, m_run, l_run);
+  }
+  if (warp < nrows)
+    for (int s = lane; s < S; s += 32) o[s] = expf(o[s] - m_run) / l_run;
+}
+
+cudaError_t launch_wide(const float* q, const float* k, const float* pq, const float* pk,
+                        const int* lens, const int* kv_start, float* out, int B, int T, int S,
+                        int H, int qd, int pd, int chunk, int left, int rows,
+                        cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(rows, qd, pd);
+  const cudaError_t err = relpos::allow_smem<relpos_attn_probs_wide>(smem, false);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + rows - 1) / rows, H, B);
+  relpos_attn_probs_wide<<<grid, kThreads, smem, stream>>>(q, k, pq, pk, lens, kv_start, out, T,
+                                                            S, H, qd, pd, chunk, left, rows);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch_qd(const float* q, const float* k, const float* pq, const float* pk,
                         const int* lens, const int* kv_start, float* out, int B, int T, int S,
                         int H, int qd, int pd, int chunk, int left, int rows,
                         cudaStream_t stream) {
+  if (qd > kMaxQd || pd > kMaxPd)
+    return launch_wide(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left, rows,
+                       stream);
   if (qd <= 32)
     return launch<32>(q, k, pq, pk, lens, kv_start, out, B, T, S, H, qd, pd, chunk, left, rows,
                       stream);
@@ -398,12 +628,17 @@ cudaError_t dispatch_qd(const float* q, const float* k, const float* pq, const f
 
 }  // namespace cuda_core
 
+// the widest q and pos heads either body takes (the bf16 chunked body's
+// shared memory: 9 KB per 64-wide chunk of q or pos beside 49 KB)
+constexpr int kMaxWidth = 512;
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 inputs run the
-// tensor-core body (qd, pd <= 64, any S, either output dtype; `rows`
-// unused), float32 inputs the CUDA-core body (qd, pd <= 64, any S, `rows`
-// <= 8 query rows per block, float32 output only).  A null `lens` means
+// tensor-core body (any S, either output dtype; `rows` unused), float32
+// inputs the CUDA-core body (any S, `rows` <= 8 query rows per block,
+// float32 output only).  Both take qd, pd <= kMaxWidth (512): heads wider
+// than 64 run their bodies' chunked forms.  A null `lens` means
 // every key is valid, a null `kv_start` means 0.  Returns the launch's
 // cudaError_t (0 on success); the wrapper validates shapes, dtypes and
 // these limits.
@@ -416,16 +651,15 @@ extern "C" int k2t_relpos_attn_probs(const void* q, const void* k, const void* p
   const int* ks = static_cast<const int*>(kv_start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (qd < 1 || pd < 1 || qd > kMaxWidth || pd > kMaxWidth) return (int)cudaErrorInvalidValue;
   if (in_dtype == 1) {
-    if (qd > 64 || pd > 64) return (int)cudaErrorInvalidValue;
     using tc::bf16;
     const tc::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                      static_cast<const bf16*>(pq), static_cast<const bf16*>(pk), ln, ks, out,
                      out_dtype == 0, T, S, H, qd, pd, chunk, left};
     return (int)tc::run(a, B, st);
   }
-  if (in_dtype != 0 || out_dtype != 0 || qd > cuda_core::kMaxQd || pd > cuda_core::kMaxPd ||
-      rows <= 0 || rows > cuda_core::kMaxRows)
+  if (in_dtype != 0 || out_dtype != 0 || rows <= 0 || rows > cuda_core::kMaxRows)
     return (int)cudaErrorInvalidValue;
   return (int)cuda_core::dispatch_qd(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(pq),

@@ -275,42 +275,42 @@ struct KeyMask {
 // The warp's 16 x 64 tile of masked scores for keys s0 .. s0+63, in the
 // m16n8 accumulator layout: sc[j][0..1] is row gid (= lane/4), keys
 // s0 + 8j + 2*(lane%4) + {0, 1}; sc[j][2..3] the same keys of row gid + 8.
+// In three pieces, so that heads wider than 64 can add their 64-wide chunks
+// into the same accumulators (qk_products and pos_products once per chunk,
+// skew_and_mask once):
 //   qa, pa: the warp's q and pos_q rows (load_rows)
 //   sk:     [kBK][row_elems<QD>()] the key tile
 //   spk_lo, spk_hi: [kBK][row_elems<PD>()] each, the window's pos_k rows
 //           from pos_window_first(T, t0, s0): rows 0-63 and rows 64-127
+//   m:      M_w, the warp's 16 x 80 position product (10 n-tiles)
 //   mw:     the warp's [16][kMwStride] f32 scratch
-template <int QD, int PD>
-__device__ __forceinline__ void masked_scores(float (&sc)[8][4], const uint32_t (&qa)[QD / 16][4],
-                                              const uint32_t (&pa)[PD / 16][4], const bf16* sk,
-                                              const bf16* spk_lo, const bf16* spk_hi, float* mw,
-                                              int warp, int lane,
-                                              int s0, const KeyMask& mask) {
-  const int gid = lane >> 2, tig = lane & 3;
-  // ldmatrix x4 of 16 rows x 16 columns as two n-tiles' B fragments:
-  // lanes 0-7 rows 0-7 cols 0-7, 8-15 rows 0-7 cols 8-15, 16-23 rows 8-15
-  // cols 0-7, 24-31 rows 8-15 cols 8-15
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+
+// ldmatrix x4 of 16 rows x 16 columns as two n-tiles' B fragments: lanes
+// 0-7 rows 0-7 cols 0-7, 8-15 rows 0-7 cols 8-15, 16-23 rows 8-15 cols 0-7,
+// 24-31 rows 8-15 cols 8-15
+__device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
+
+// sc += q . k^T over the QD columns of the tile
+template <int QD>
+__device__ __forceinline__ void qk_products(float (&sc)[8][4], const uint32_t (&qa)[QD / 16][4],
+                                            const bf16* sk, int lane) {
 #pragma unroll
   for (int ks = 0; ks < QD / 16; ++ks)
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       uint32_t b[4];
-      ldsm_x4(b, sk + (16 * p + b_row) * row_elems<QD>() + 16 * ks + b_col);
+      ldsm_x4(b, sk + (16 * p + b_row(lane)) * row_elems<QD>() + 16 * ks + b_col(lane));
       mma_bf16(sc[2 * p], qa[ks], b[0], b[1]);
       mma_bf16(sc[2 * p + 1], qa[ks], b[2], b[3]);
     }
+}
 
-  // M_w = pos_q[16 rows] . pos_k[window rows base .. base+79]^T
-  float m[10][4];
-#pragma unroll
-  for (int j = 0; j < 10; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) m[j][e] = 0.f;
+// m += pos_q[16 rows] . pos_k[window rows base .. base+79]^T over PD columns
+template <int PD>
+__device__ __forceinline__ void pos_products(float (&m)[10][4], const uint32_t (&pa)[PD / 16][4],
+                                             const bf16* spk_lo, const bf16* spk_hi, int warp,
+                                             int lane) {
   const int base = (kBQ - 16) - 16 * warp;  // base_w within the block's window
 #pragma unroll
   for (int ks = 0; ks < PD / 16; ++ks)
@@ -320,10 +320,16 @@ __device__ __forceinline__ void masked_scores(float (&sc)[8][4], const uint32_t 
       const int r0 = base + 16 * p;  // 16 rows in one half of the window
       const bf16* half =
           r0 < kBK ? spk_lo + r0 * row_elems<PD>() : spk_hi + (r0 - kBK) * row_elems<PD>();
-      ldsm_x4(b, half + b_row * row_elems<PD>() + 16 * ks + b_col);
+      ldsm_x4(b, half + b_row(lane) * row_elems<PD>() + 16 * ks + b_col(lane));
       mma_bf16(m[2 * p], pa[ks], b[0], b[1]);
       mma_bf16(m[2 * p + 1], pa[ks], b[2], b[3]);
     }
+}
+
+// sc += the skewed M_w (through the scratch), then the key masks
+__device__ __forceinline__ void skew_and_mask(float (&sc)[8][4], const float (&m)[10][4],
+                                              float* mw, int lane, int s0, const KeyMask& mask) {
+  const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int j = 0; j < 10; ++j) {
     *reinterpret_cast<float2*>(mw + gid * kMwStride + 8 * j + 2 * tig) = make_float2(m[j][0], m[j][1]);
@@ -351,6 +357,60 @@ __device__ __forceinline__ void masked_scores(float (&sc)[8][4], const uint32_t 
       sc[j][e] = mask(sc[j][e], s, 0);
       sc[j][2 + e] = mask(sc[j][2 + e], s, 1);
     }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+}
+
+// The whole tile for heads of at most 64 (one chunk)
+template <int QD, int PD>
+__device__ __forceinline__ void masked_scores(float (&sc)[8][4], const uint32_t (&qa)[QD / 16][4],
+                                              const uint32_t (&pa)[PD / 16][4], const bf16* sk,
+                                              const bf16* spk_lo, const bf16* spk_hi, float* mw,
+                                              int warp, int lane,
+                                              int s0, const KeyMask& mask) {
+  zero_acc(sc);
+  qk_products<QD>(sc, qa, sk, lane);
+  float m[10][4];
+  zero_acc(m);
+  pos_products<PD>(m, pa, spk_lo, spk_hi, warp, lane);
+  skew_and_mask(sc, m, mw, lane, s0, mask);
+}
+
+// Heads wider than 64 run in 64-wide chunks (kChunk): chunk c of a row is
+// its columns 64c .. 64c+63, staged with this width into rows of
+// row_elems<kChunk>() (the last chunk zero-padded)
+constexpr int kChunk = 64;
+
+__host__ __device__ constexpr int chunks(int width) { return (width + kChunk - 1) / kChunk; }
+
+__host__ __device__ constexpr int chunk_width(int width, int c) {
+  return width - kChunk * c < kChunk ? width - kChunk * c : kChunk;
+}
+
+// stage() of chunk c of rows first .. first+NROWS-1 (row g at base + g *
+// stride, `width` wide) into rows of row_elems<kChunk>(); a last chunk
+// narrower than kChunk gets its pad columns zeroed
+template <int V, int NROWS>
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* base, long long stride,
+                                            int first, int lo, int hi, int width, int c) {
+  const int w = chunk_width(width, c);
+  if (w < kChunk) zero_columns<kChunk>(dst, NROWS, w);
+  stage<kChunk, V, NROWS>(dst, base + kChunk * c, stride, first, lo, hi, w);
+}
+
+// Every chunk of the block's kBQ query rows from t0, chunk c at dst + c *
+// kBQ * row_elems<kChunk>()
+template <int V>
+__device__ __forceinline__ void stage_query_chunks(bf16* dst, const bf16* base, long long stride,
+                                                   int t0, int T, int width) {
+  for (int c = 0; c < chunks(width); ++c)
+    stage_chunk<V, kBQ>(dst + c * kBQ * row_elems<kChunk>(), base, stride, t0, 0, T, width, c);
 }
 
 // max / sum over the 4 lanes that share a fragment row

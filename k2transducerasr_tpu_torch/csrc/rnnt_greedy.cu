@@ -53,10 +53,14 @@
 // step reads a weight from L2 where it fits.  Where a share does not fit
 // (float32 at the flagship, J or D = 1024, a vocabulary of thousands), the
 // rest streams from L2 every step through a ring of two stages of ~32 KB
+// (one where two do not fit beside the fixed parts: wide float32 joiners)
 // filled by bulk copies, which runs ahead across steps (the weights do not
-// change).  enc_proj's frames are read from global memory as the tile is
-// staged (bulk-copying them ahead through a ring gained under 2% on an
-// H100).  One step of a lane, every rank in lockstep:
+// change); rnnt_cluster.cuh holds the placement and the helpers G shares
+// with the beam search (rnnt_beam.cu).  The context is a ring of C tokens
+// in shared memory, so any context size runs; staging takes any J (past
+// 1024 columns a thread stages several column pairs of a row).  enc_proj's
+// frames are read from global memory as the tile is staged (bulk-copying
+// them ahead through a ring gained under 2% on an H100).  One step of a lane, every rank in lockstep:
 //   1. stage tanh(enc + dec_proj) for the next `rows` frames (up to the
 //      mma's 16; after an emission at offset f of the tile, 2 (f + 1)
 //      rounded up to 4, doubling after a blank tile: the staging follows
@@ -81,6 +85,7 @@
 // still write its shared memory.
 
 #include "relpos_scores.cuh"  // relpos::allow_smem
+#include "rnnt_cluster.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,33 +98,12 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kCL = 8;  // blocks per cluster (the portable maximum)
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;  // frames per tile: the mma's M
-constexpr int kMaxCtx = 8;
-constexpr int kMaxJ = 1024;
-constexpr int kMaxD = 1024;
-constexpr int kStage = 32768;  // a streamed stage's target bytes
-constexpr int kG = 2;  // bf16: n-tiles of a logits work item
-// mbarriers: two per weight ring, one for the resident load
-constexpr int kBarW = 0, kBarD = 2, kBarRes = 4;
-constexpr int kBars = 5;
-
-struct Cand {
-  float v;
-  int i;
-};
+using namespace rnnt;
 
 // Where each part of a block's shared memory lies (bytes) and how much of
 // each weight share is resident; the same for every rank (make_plan).
-struct Plan {
-  int res_w, res_d;  // n-tiles / chunks of a share held resident
-  int sw, sd;        // units per streamed stage
-  int uw, ud;        // bytes of one n-tile of W_out / one chunk of decoder_proj.w
-  int dproj, dout, slots, red, scratch, bias_w, bias_d, tile, wres, wring, dres, dring, bytes;
+struct Plan : WeightPlan {
+  int dproj, dout, hist, slots, red, scratch, bias_w, bias_d, tile;
 };
 
 struct Args {
@@ -145,142 +129,8 @@ struct Args {
   Plan p;
 };
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__host__ __device__ inline int floor_pow2(int x) {
-  int p = 1;
-  while (2 * p <= x) p *= 2;
-  return p;
-}
-
-// rank r's share of n units: [share_lo(n, r), share_lo(n, r + 1)), the
-// first n % kCL ranks one unit more (decode/rnnt_greedy.py::rank_ranges)
-__host__ __device__ inline int share_lo(int n, int r) {
-  return r * (n / kCL) + (r < n % kCL ? r : n % kCL);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// (v, i) beats (bv, bi): a larger logit, or an equal one at a lower index —
-// the first maximum, as torch.argmax takes it (a NaN counts as the maximum)
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  const bool vn = isnan(v), bn = isnan(bv);
-  if (vn || bn) return vn && (!bn || i < bi);
-  return v > bv || (v == bv && i < bi);
-}
-
 __device__ __forceinline__ bool blankish(int y, const Args& a) {
   return y == a.blank || y == 2 || (a.skip_sos && y == 1);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-__device__ __forceinline__ int cluster_index() {
-  uint32_t c;
-  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(c));
-  return (int)c;
-}
-
-// every thread of every block of the cluster; the release/acquire pair
-// makes the remote shared-memory writes before it visible after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// p (in this block's shared memory) as the same offset in block `rank`'s
-__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, Cand c) {
-  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(addr),
-               "r"(__float_as_uint(c.v)), "r"(c.i)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// the bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// from global memory into this block's shared memory, completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// one thread: the bar's one arrival, expecting `bytes` of bulk copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of bar with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// the shared memory about to be refilled by a bulk copy was last read by
-// ordinary loads (ordered before by a __syncthreads)
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void shfl_best(float& v, int& i, int offset) {
-  const float ov = __shfl_xor_sync(0xffffffffu, v, offset);
-  const int oi = __shfl_xor_sync(0xffffffffu, i, offset);
-  if (better(ov, oi, v, i)) {
-    v = ov;
-    i = oi;
-  }
 }
 
 __device__ __forceinline__ void take(float logit, int col, float& bv, int& bi) {
@@ -291,11 +141,8 @@ __device__ __forceinline__ void take(float logit, int col, float& bv, int& bi) {
 }
 
 // ---------------------------------------------------------------------------
-// The joiner on the tensor cores (bf16).  sA is the tile [kRows][Jp + 8]
-// (8 elements of pad put ldmatrix's rows on distinct banks); W holds `count`
-// n-tiles in fragment order, [count][Jp/16][32] uint2, the first at column
-// col0.  Each thread keeps its best (logit, index) for rows lane / 4 and
-// lane / 4 + 8.
+// The bf16 joiner's epilogue (rnnt_cluster.cuh::logits_bf16): each thread
+// keeps its best (logit, index) for rows lane / 4 and lane / 4 + 8.
 
 __device__ __forceinline__ void finish_bf16(const Args& a, int c0, const float (&acc)[4],
                                             const float* bias, float (&bv)[2], int (&bi)[2]) {
@@ -304,77 +151,6 @@ __device__ __forceinline__ void finish_bf16(const Args& a, int c0, const float (
   for (int e = 0; e < 4; ++e) {
     const int col = c0 + 2 * tig + (e & 1);
     if (col < a.V) take(bf16_round(bf16_round(acc[e]) + bias[col]), col, bv[e >> 1], bi[e >> 1]);
-  }
-}
-
-// Work items are (kG n-tiles, k-slice): where the share has few n-tiles, the
-// J sum of each is split into k-slices until there is about one item a warp
-// (partials through `scratch`, added in k-slice order).  Each n-tile keeps
-// two accumulator chains, the even and the odd k-steps, added at the end.
-// bias[col] is output.b at the global column; `sync_after`: another pass
-// reuses scratch.
-__device__ __forceinline__ void logits_bf16(const Args& a, const uint2* W, int count, int col0,
-                                            const bf16* sA, float4* scratch, const float* bias,
-                                            bool sync_after, float (&bv)[2], int (&bi)[2]) {
-  if (count <= 0) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int KS = a.Jp / 16, AS = a.Jp + 8;
-  const int groups = (count + kG - 1) / kG;
-  const int ksl = max(1, min(kWarps / groups, KS));
-  const bf16* pa = sA + (lane & 15) * AS + (lane >> 4) * 8;
-  for (int it = warp; it < groups * ksl; it += kWarps) {
-    const int g = it / ksl, s = it - g * ksl;
-    const int q0 = kG * g, k0 = s * KS / ksl, k1 = (s + 1) * KS / ksl;
-    const uint2* w = W + (size_t)q0 * KS * 32 + lane;
-    float acc[kG][2][4] = {};
-    for (int ks = k0; ks < k1; ks += 2) {
-      uint32_t af[4];
-      ldsm_x4(af, pa + ks * 16);
-#pragma unroll
-      for (int q = 0; q < kG; ++q) {
-        if (q0 + q < count) {
-          const uint2 b = w[((size_t)q * KS + ks) * 32];
-          mma_bf16(acc[q][0], af, b.x, b.y);
-        }
-      }
-      if (ks + 1 < k1) {
-        ldsm_x4(af, pa + (ks + 1) * 16);
-#pragma unroll
-        for (int q = 0; q < kG; ++q) {
-          if (q0 + q < count) {
-            const uint2 b = w[((size_t)q * KS + ks + 1) * 32];
-            mma_bf16(acc[q][1], af, b.x, b.y);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kG; ++q) {
-      float c[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[e] = acc[q][0][e] + acc[q][1][e];
-      if (ksl == 1) {
-        if (q0 + q < count) finish_bf16(a, col0 + (q0 + q) * 8, c, bias, bv, bi);
-      } else {
-        scratch[((size_t)it * kG + q) * 32 + lane] = make_float4(c[0], c[1], c[2], c[3]);
-      }
-    }
-  }
-  if (ksl > 1) {
-    __syncthreads();
-    for (int q = warp; q < count; q += kWarps) {  // [item][kG][32]
-      const float4* part = scratch + ((size_t)(q / kG) * ksl * kG + q % kG) * 32 + lane;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int s = 0; s < ksl; ++s) {
-        const float4 x = part[(size_t)s * kG * 32];
-        c[0] += x.x;
-        c[1] += x.y;
-        c[2] += x.z;
-        c[3] += x.w;
-      }
-      finish_bf16(a, col0 + q * 8, c, bias, bv, bi);
-    }
-    if (sync_after) __syncthreads();
   }
 }
 
@@ -476,60 +252,25 @@ __device__ __forceinline__ void logits_f32_rows(int rows, const Args& a, const f
 }
 
 // ---------------------------------------------------------------------------
-// The refresh's decoder_proj columns: `count` (<= kWarps) chunks of 8
-// columns (the first chunk0), each [D][8] in the compute dtype at W, times
-// dout.  Warp `ch` takes chunk ch: lane l sums rows l, l + 32, ...; then a
-// transposing shuffle tree (9 shuffles for the 8 columns) leaves column
-// 4 (l >> 4 & 1) + 2 (l >> 3 & 1) + (l >> 2 & 1) summed over the warp in
-// lanes l % 4 == 0, which add the bias (bias[j], decoder_proj.b at the
-// global column) and push it into every rank's dproj.  No barrier.
+// The refresh's decoder_proj columns: `count` chunks of 8 columns (the
+// first chunk0), each [D][8] in the compute dtype at W, times dout; warp w
+// takes chunks w, w + kWarps, ... (rnnt_cluster.cuh::chunk_dot), and lanes
+// l % 4 == 0 add the bias (bias[j], decoder_proj.b at the global column)
+// and push it into every rank's dproj.  No barrier.
 
 template <bool BF>
 __device__ __forceinline__ void refresh_cols(const Args& a, const unsigned char* W, int count,
                                              int chunk0, const float* dout, const float* bias,
                                              float* dproj) {
-  const int ch = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (ch >= count) return;
-  float acc[8] = {};
-#pragma unroll 4
-  for (int d = lane; d < a.D; d += 32) {
-    const float x = dout[d];
-    float w[8];
-    if (BF) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(W + ((size_t)ch * a.D + d) * 16);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const int lane = threadIdx.x % 32;
+  for (int ch = threadIdx.x / 32; ch < count; ch += kWarps) {  // one pass below 16 chunks
+    const float v1 = chunk_dot<BF>(W + (size_t)ch * a.D * (BF ? 16 : 32), dout, a.D, lane);
+    const int j = (chunk0 + ch) * 8 + chunk_col(lane);
+    if ((lane & 3) == 0 && j < a.J) {
+      const float v = BF ? bf16_round(bf16_round(v1) + bias[j]) : v1 + bias[j];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f2 = __bfloat1622float2(h2[e]);
-        w[2 * e] = f2.x;
-        w[2 * e + 1] = f2.y;
-      }
-    } else {
-      const float4* src = reinterpret_cast<const float4*>(W + ((size_t)ch * a.D + d) * 32);
-      const float4 w0 = src[0], w1 = src[1];
-      w[0] = w0.x, w[1] = w0.y, w[2] = w0.z, w[3] = w0.w;
-      w[4] = w1.x, w[5] = w1.y, w[6] = w1.z, w[7] = w1.w;
+      for (int dst = 0; dst < kCL; ++dst) st_cluster(map_rank(dproj + j, dst), v);
     }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = fmaf(x, w[e], acc[e]);
-  }
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float v4[4], v2[2];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    v4[e] = (h16 ? acc[e + 4] : acc[e]) +
-            __shfl_xor_sync(0xffffffffu, h16 ? acc[e] : acc[e + 4], 16);
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    v2[e] = (h8 ? v4[e + 2] : v4[e]) + __shfl_xor_sync(0xffffffffu, h8 ? v4[e] : v4[e + 2], 8);
-  float v1 = (h4 ? v2[1] : v2[0]) + __shfl_xor_sync(0xffffffffu, h4 ? v2[0] : v2[1], 4);
-  v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
-  v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
-  const int j = (chunk0 + ch) * 8 + (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
-  if ((lane & 3) == 0 && j < a.J) {
-    const float v = BF ? bf16_round(bf16_round(v1) + bias[j]) : v1 + bias[j];
-#pragma unroll
-    for (int dst = 0; dst < kCL; ++dst) st_cluster(map_rank(dproj + j, dst), v);
   }
 }
 
@@ -558,34 +299,17 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
   const int len = (int)min(max(a.lens[b], 0LL), (long long)a.T);
   const long long offset = a.offset[b];
 
-  // this rank's shares: resident first, the rest streamed in stages
-  const int NT = a.Vp / 8, NCH = a.Jp / 8;
-  const int w0 = share_lo(NT, rank), nw = share_lo(NT, rank + 1) - w0;
-  const int c0 = share_lo(NCH, rank), nd = share_lo(NCH, rank + 1) - c0;
-  const int w_res = min(P.res_w, nw), w_str = nw - w_res;
-  const int d_res = min(P.res_d, nd), d_str = nd - d_res;
-  const int w_st = w_str > 0 ? (w_str + P.sw - 1) / P.sw : 0;  // stages per step
-  const int d_st = d_str > 0 ? (d_str + P.sd - 1) / P.sd : 0;  // stages per refresh
-  const unsigned char* out_w = static_cast<const unsigned char*>(a.out_w);
-  const unsigned char* dec_w = static_cast<const unsigned char*>(a.dec_w);
-
-  // stage k of a ring (one thread): stage k % st of the streamed units
-  auto issue_w = [&](int k) {
-    const int u = (k % w_st) * P.sw, n = min(P.sw, w_str - u);
-    uint64_t* bar = bars + kBarW + (k & 1);
-    fence_async();
-    mbar_expect(bar, (uint32_t)n * P.uw);
-    bulk_load(wring + (size_t)(k & 1) * P.sw * P.uw, out_w + (size_t)(w0 + w_res + u) * P.uw,
-              (uint32_t)n * P.uw, bar);
-  };
-  auto issue_d = [&](int k) {
-    const int u = (k % d_st) * P.sd, n = min(P.sd, d_str - u);
-    uint64_t* bar = bars + kBarD + (k & 1);
-    fence_async();
-    mbar_expect(bar, (uint32_t)n * P.ud);
-    bulk_load(dring + (size_t)(k & 1) * P.sd * P.ud, dec_w + (size_t)(c0 + d_res + u) * P.ud,
-              (uint32_t)n * P.ud, bar);
-  };
+  // this rank's shares: resident first, the rest streamed in stages (w_st
+  // stages per step, d_st per refresh)
+  const Shares sh(P, a.Vp / 8, a.Jp / 8, rank, a.out_w, a.dec_w);
+  const int w0 = sh.w0, nw = sh.nw, c0 = sh.c0, nd = sh.nd;
+  const int w_res = sh.w_res, w_str = sh.w_str, d_res = sh.d_res, d_str = sh.d_str;
+  const int w_st = sh.w_st, d_st = sh.d_st;
+  const unsigned char* out_w = sh.out_w;
+  const unsigned char* dec_w = sh.dec_w;
+  auto issue_w = [&](int k) { sh.issue_w(P, wring, bars, k); };
+  auto issue_d = [&](int k) { sh.issue_d(P, dring, bars, k); };
+  int* hist = reinterpret_cast<int*>(smem + P.hist);  // the context, a ring of C tokens
 
   if (tid == 0) {
     for (int i = 0; i < kBars; ++i) mbar_init(bars + i);
@@ -599,13 +323,9 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
       if (w_res) bulk_load(wres, out_w + (size_t)w0 * P.uw, (uint32_t)w_res * P.uw, bars + kBarRes);
       if (d_res) bulk_load(dres, dec_w + (size_t)c0 * P.ud, (uint32_t)d_res * P.ud, bars + kBarRes);
     }
-    if (w_st) {
-      issue_w(0);
-      issue_w(1);
-    }
-    if (d_st) {
-      issue_d(0);
-      issue_d(1);
+    for (int k = 0; k < P.depth; ++k) {
+      if (w_st) issue_w(k);
+      if (d_st) issue_d(k);
     }
   }
   for (int i = tid; i < nw * 8; i += kThreads) bias_w[i] = a.out_b[w0 * 8 + i];
@@ -623,18 +343,22 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
     const int words = BF ? kRows * (a.Jp + 8) / 2 : a.Jp * kRows;
     for (int i = tid; i < words; i += kThreads) reinterpret_cast<float*>(tile)[i] = 0.f;
   }
-  int hyp[kMaxCtx];
-#pragma unroll
-  for (int c = 0; c < kMaxCtx; ++c) hyp[c] = c < a.C ? (int)a.hyp_in[(size_t)b * a.C + c] : 0;
+  // context token c is hist[(head + c) % C]; an emission overwrites the
+  // oldest, hist[head], and moves head on
+  for (int c = tid; c < a.C; c += kThreads) hist[c] = (int)a.hyp_in[(size_t)b * a.C + c];
+  int head = 0;
   long long count = a.count_in[b], trailing = a.trailing_in[b];
   if (res_bytes) mbar_wait(bars + kBarRes, 0);
   cluster_sync();  // every block of the cluster has started and holds its state
 
   int t = 0, rows_cap = kRows, step = 0;
   int kw = 0, kd = 0;  // ring stages consumed
-  // bf16 staging: `per_row` column pairs of a tile row, rows r0, r0 + rstep, ...
-  const int per_row = a.Jp / 2, rstep = kThreads / per_row;
-  const int r0 = tid / per_row, jpair = tid % per_row;
+  // bf16 staging: `per_row` column pairs of a tile row, rows r0, r0 + rstep,
+  // ...; past 1024 columns (per_row > kThreads) each thread takes column
+  // pairs tid, tid + kThreads, ... of every row
+  const int per_row = a.Jp / 2, rstep = max(1, kThreads / per_row);
+  const int r0 = per_row <= kThreads ? tid / per_row : 0;
+  const int jpair0 = per_row <= kThreads ? tid % per_row : tid;
   while (t < len) {
     if (count >= a.K) {  // a full buffer: every frame left counts as a blank
       trailing += len - t;
@@ -645,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
     // 1. stage the joiner's input for frames t .. t + rows - 1
     if (BF) {
       bf16* sA = reinterpret_cast<bf16*>(tile);
-      if (r0 < rstep) {
+      for (int jpair = jpair0; r0 < rstep && jpair < per_row; jpair += kThreads) {
         const int j = 2 * jpair;
         const float d0 = dproj[j], d1 = dproj[j + 1];
         const bf16* enc = static_cast<const bf16*>(a.enc) + ((size_t)b * a.T + t) * a.J;
@@ -693,15 +417,16 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
       const bf16* sA = reinterpret_cast<const bf16*>(tile);
       float4* sc = reinterpret_cast<float4*>(scratch);
       const float* ob = bias_w - w0 * 8;  // indexed by global column
-      logits_bf16(a, reinterpret_cast<const uint2*>(wres), w_res, w0 * 8, sA, sc, ob, w_st > 0,
-                  bv, bi);
+      auto take_best = [&](int c0, const float (&acc)[4]) { finish_bf16(a, c0, acc, ob, bv, bi); };
+      logits_bf16(a.Jp, reinterpret_cast<const uint2*>(wres), w_res, w0 * 8, sA, sc, w_st > 0,
+                  take_best);
       for (int g = 0; g < w_st; ++g, ++kw) {
-        mbar_wait(bars + kBarW + (kw & 1), (kw >> 1) & 1);
+        ring_wait(bars, kBarW, P.depth, kw);
         const int u = g * P.sw;
-        logits_bf16(a, reinterpret_cast<const uint2*>(wring + (size_t)(kw & 1) * P.sw * P.uw),
-                    min(P.sw, w_str - u), (w0 + w_res + u) * 8, sA, sc, ob, false, bv, bi);
+        logits_bf16(a.Jp, reinterpret_cast<const uint2*>(wring + (size_t)(kw % P.depth) * P.sw * P.uw),
+                    min(P.sw, w_str - u), (w0 + w_res + u) * 8, sA, sc, false, take_best);
         __syncthreads();
-        if (tid == 0) issue_w(kw + 2);
+        if (tid == 0) issue_w(kw + P.depth);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -725,14 +450,14 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
       logits_f32_rows(rows, a, reinterpret_cast<const float*>(wres), w_res, w0 * 8, sAt, scratch,
                       ob, w_st > 0, bv, bi, bv1, bi1);
       for (int g = 0; g < w_st; ++g, ++kw) {
-        mbar_wait(bars + kBarW + (kw & 1), (kw >> 1) & 1);
+        ring_wait(bars, kBarW, P.depth, kw);
         const int u = g * P.sw;
         logits_f32_rows(rows, a,
-                        reinterpret_cast<const float*>(wring + (size_t)(kw & 1) * P.sw * P.uw),
+                        reinterpret_cast<const float*>(wring + (size_t)(kw % P.depth) * P.sw * P.uw),
                         min(P.sw, w_str - u), (w0 + w_res + u) * 8, sAt, scratch, ob, false, bv,
                         bi, bv1, bi1);
         __syncthreads();
-        if (tid == 0) issue_w(kw + 2);
+        if (tid == 0) issue_w(kw + P.depth);
       }
       // each staged row's best over lanes 0-7 (bv), then each 8-lane
       // group's row (bv1) merged in
@@ -790,36 +515,35 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
     }
     ++count;
     trailing = 0;
-#pragma unroll
-    for (int c = 0; c + 1 < kMaxCtx; ++c)
-      if (c + 1 < a.C) hyp[c] = hyp[c + 1];
-#pragma unroll
-    for (int c = 0; c < kMaxCtx; ++c)
-      if (c == a.C - 1) hyp[c] = y;
-    // dout = relu(sum_c tables[c][hyp[c]])
+    // dout = relu(sum_c tables[c][hyp[c]]) over the new context: the old
+    // context's tokens 1 .. C-1, then y
     for (int d = tid; d < a.D; d += kThreads) {
       float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < kMaxCtx; ++c) {
-        if (c < a.C) {
-          const int h = hyp[c] < 0 ? a.blank : hyp[c];
-          const float x = __ldg(a.tables + ((size_t)c * a.V + h) * a.D + d);
-          s = c == 0 ? x : s + x;
+      for (int c = 0; c < a.C; ++c) {
+        int h = y;
+        if (c + 1 < a.C) {
+          const int at = head + 1 + c;
+          h = hist[at < a.C ? at : at - a.C];
         }
+        h = h < 0 ? a.blank : h;
+        const float x = __ldg(a.tables + ((size_t)c * a.V + h) * a.D + d);
+        s = c == 0 ? x : s + x;
       }
       s = fmaxf(s, 0.f);
       dout[d] = BF ? bf16_round(s) : s;
     }
-    __syncthreads();
+    __syncthreads();  // also: every thread has read the context
+    if (tid == 0) hist[head] = y;
+    head = head + 1 < a.C ? head + 1 : 0;
     const float* db = bias_d - c0 * 8;  // indexed by global column
     refresh_cols<BF>(a, dres, d_res, c0, dout, db, dproj);
     for (int g = 0; g < d_st; ++g, ++kd) {
-      mbar_wait(bars + kBarD + (kd & 1), (kd >> 1) & 1);
+      ring_wait(bars, kBarD, P.depth, kd);
       const int u = g * P.sd;
-      refresh_cols<BF>(a, dring + (size_t)(kd & 1) * P.sd * P.ud, min(P.sd, d_str - u),
+      refresh_cols<BF>(a, dring + (size_t)(kd % P.depth) * P.sd * P.ud, min(P.sd, d_str - u),
                        c0 + d_res + u, dout, db, dproj);
       __syncthreads();  // the stage's ring slot is read: refill it
-      if (tid == 0) issue_d(kd + 2);
+      if (tid == 0) issue_d(kd + P.depth);
     }
     cluster_sync();
     t += f + 1;
@@ -828,8 +552,8 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
 
   // every bulk copy still in flight lands before the block may exit
   if (tid == 0) {
-    for (int k = kw; k < kw + 2 && w_st; ++k) mbar_wait(bars + kBarW + (k & 1), (k >> 1) & 1);
-    for (int k = kd; k < kd + 2 && d_st; ++k) mbar_wait(bars + kBarD + (k & 1), (k >> 1) & 1);
+    for (int k = kw; k < kw + P.depth && w_st; ++k) ring_wait(bars, kBarW, P.depth, k);
+    for (int k = kd; k < kd + P.depth && d_st; ++k) ring_wait(bars, kBarD, P.depth, k);
   }
   if (rank == 0) {
     for (int j = tid; j < a.J; j += kThreads) {
@@ -839,10 +563,11 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
       else
         static_cast<float*>(a.dec_proj)[at] = dproj[j];
     }
+    for (int c = tid; c < a.C; c += kThreads) {
+      const int at = head + c;
+      a.hyp[(size_t)b * a.C + c] = hist[at < a.C ? at : at - a.C];
+    }
     if (tid == 0) {
-#pragma unroll
-      for (int c = 0; c < kMaxCtx; ++c)
-        if (c < a.C) a.hyp[(size_t)b * a.C + c] = hyp[c];
       a.count[b] = count;
       a.trailing[b] = trailing;
     }
@@ -854,71 +579,29 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const Args a) 
 // ---------------------------------------------------------------------------
 // The plan: shared-memory layout and residency, from the shapes and the
 // device's per-block limit.  Each rank holds ceil(units / kCL) units at most.
-// Fixed parts first (barriers, dec_proj, the decoder output, the partial
-// slots, the reduction, the scratch, the tile); then every weight resident if
-// it fits.  Else decoder_proj streams, in stages of ~kStage bytes through a
-// two-stage ring, and so does W_out unless its whole share fits beside that
-// ring; the memory left holds W_out's first n-tiles and then decoder_proj's
-// first chunks.
+// Fixed parts first (barriers, dec_proj, the decoder output, the context,
+// the partial slots, the reduction, the scratch, the tile); then the weights
+// (rnnt_cluster.cuh::place_weights): every weight resident if it fits, else
+// the rest streamed.
 
 template <bool BF>
-bool make_plan(int J, int D, int V, int limit, Plan& p) {
+bool make_plan(int J, int D, int V, int C, int limit, Plan& p) {
   const int Jp = round_up(J, 16), Vp = round_up(V, 8), esz = BF ? 2 : 4;
   const int ntw = (Vp / 8 + kCL - 1) / kCL, ntd = (Jp / 8 + kCL - 1) / kCL;
   p = Plan{};
   p.uw = BF ? Jp / 16 * 256 : Jp * 32;
   p.ud = D * 8 * esz;
-  int at = round_up(kBars * 8, 16);
-  auto place = [&](int bytes) {
-    const int here = at;
-    at = round_up(at + bytes, 128);
-    return here;
-  };
-  p.dproj = place(Jp * 4);
-  p.dout = place(round_up(D, 4) * 4);
-  p.slots = place(2 * kCL * kRows * (int)sizeof(Cand));
-  p.red = place(kWarps * kRows * (int)sizeof(Cand));
-  p.scratch = place(BF ? kWarps * kG * 32 * 16 : kWarps * kRows * 8 * 4);
-  p.bias_w = place(ntw * 8 * 4);
-  p.bias_d = place(ntd * 8 * 4);
-  p.tile = place(BF ? kRows * (Jp + 8) * 2 : Jp * kRows * 4);
-  const int fixed = at;
-  auto fits = [&](long long bytes) { return fixed + bytes + 128 * 6 <= limit; };
-  const long long all = (long long)ntw * p.uw + (long long)ntd * p.ud;
-  int sw = 0, sd = 0;
-  if (fits(all)) {
-    p.res_w = ntw, p.res_d = ntd;
-  } else {
-    // W_out keeps its whole share where that fits beside decoder_proj's
-    // smallest ring, else it streams too; then each weight's resident part
-    // fills the memory left beside the rings, W_out's first
-    sw = fits((long long)ntw * p.uw + 2LL * p.ud) ? 0 : std::max(1, std::min(ntw, kStage / p.uw));
-    sd = std::max(1, std::min(ntd, kStage / p.ud));
-    const long long keep = sw ? 0 : (long long)ntw * p.uw;
-    while (sw > 1 && !fits(keep + 2LL * sw * p.uw + 2LL * sd * p.ud)) --sw;
-    while (sd > 1 && !fits(keep + 2LL * sw * p.uw + 2LL * sd * p.ud)) --sd;
-    const long long rings = 2LL * sw * p.uw + 2LL * sd * p.ud;
-    if (!fits(keep + rings)) return false;
-    const int max_w = sw ? ntw - 1 : ntw;
-    while (p.res_w < max_w && fits(rings + (p.res_w + 1LL) * p.uw)) ++p.res_w;
-    while (p.res_d + 1 < ntd && fits(rings + (long long)p.res_w * p.uw + (p.res_d + 1LL) * p.ud))
-      ++p.res_d;
-  }
-  p.sw = sw, p.sd = sd;
-  p.wres = place(p.res_w * p.uw);
-  p.wring = place(2 * sw * p.uw);
-  p.dres = place(p.res_d * p.ud);
-  p.dring = place(2 * sd * p.ud);
-  p.bytes = at;
-  return p.bytes <= limit;
-}
-
-int smem_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return limit;
+  Layout L;
+  p.dproj = L.place(Jp * 4);
+  p.dout = L.place(round_up(D, 4) * 4);
+  p.hist = L.place(C * 4);
+  p.slots = L.place(2 * kCL * kRows * (int)sizeof(Cand));
+  p.red = L.place(kWarps * kRows * (int)sizeof(Cand));
+  p.scratch = L.place(BF ? kWarps * kG * 32 * 16 : kWarps * kRows * 8 * 4);
+  p.bias_w = L.place(ntw * 8 * 4);
+  p.bias_d = L.place(ntd * 8 * 4);
+  p.tile = L.place(BF ? kRows * (Jp + 8) * 2 : Jp * kRows * 4);
+  return place_weights(p, L, ntw, ntd, limit);
 }
 
 template <bool BF>
@@ -978,8 +661,11 @@ cudaError_t describe(const Plan& p, long long* out) {
 // rounded up to 8, zero padded (decode/rnnt_greedy.py::greedy_operands).
 // The search reads hyp, dec_proj, count and trailing from the *_in buffers
 // and writes them to the others; it writes its emissions into tokens and
-// timestamps in place.  Takes B, V, K >= 1, J, D <= 1024 and 1 <= C <= 8;
-// returns the launch's cudaError_t (0 on success).
+// timestamps in place.  Takes B, V, K, C >= 1 and any J and D whose fixed
+// parts (make_plan) leave room for one stage of each weight beside them in
+// a block's shared memory (on an H100, J = D up to ~1,600 in float32 and
+// ~3,000 in bf16); returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue for shapes it does not take).
 extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* offset,
                                const void* tables, const void* dec_w, const void* dec_b,
                                const void* out_w, const void* out_b, const void* hyp_in,
@@ -988,12 +674,11 @@ extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* of
                                void* trailing, void* tokens, void* timestamps, int B, int T,
                                int J, int D, int V, int C, int K, int blank, int skip_sos,
                                int dtype, void* stream) {
-  if (B < 1 || T < 0 || J < 1 || J > kMaxJ || D < 1 || D > kMaxD || V < 1 || C < 1 ||
-      C > kMaxCtx || K < 1 || (dtype != 0 && dtype != 1))
+  if (B < 1 || T < 0 || J < 1 || D < 1 || V < 1 || C < 1 || K < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Plan p;
   const int limit = smem_limit();
-  if (!(dtype ? make_plan<true>(J, D, V, limit, p) : make_plan<false>(J, D, V, limit, p)))
+  if (!(dtype ? make_plan<true>(J, D, V, C, limit, p) : make_plan<false>(J, D, V, C, limit, p)))
     return (int)cudaErrorInvalidValue;
   const Args a{enc, static_cast<const long long*>(lens), static_cast<const long long*>(offset),
                static_cast<const float*>(tables), dec_w, static_cast<const float*>(dec_b),
@@ -1007,20 +692,21 @@ extern "C" int k2t_rnnt_greedy(const void* enc, const void* lens, const void* of
   return (int)(dtype == 1 ? launch<true>(a, B, st) : launch<false>(a, B, st));
 }
 
-// What a launch at these shapes would use, for logs: out[0..9] = shared
+// What a launch at these shapes would use, for logs: out[0..10] = shared
 // memory bytes per block, resident n-tiles of W_out and chunks of
 // decoder_proj per rank, units per streamed stage of each, the most n-tiles
-// and chunks a rank owns, cudaOccupancyMaxActiveClusters, and the kernel's
-// registers per thread and local (spill) bytes.
-extern "C" int k2t_rnnt_greedy_plan(int J, int D, int V, int dtype, long long* out) {
-  if (J < 1 || J > kMaxJ || D < 1 || D > kMaxD || V < 1 || (dtype != 0 && dtype != 1))
+// and chunks a rank owns, cudaOccupancyMaxActiveClusters, the kernel's
+// registers per thread and local (spill) bytes, and the rings' stages.
+extern "C" int k2t_rnnt_greedy_plan(int J, int D, int V, int C, int dtype, long long* out) {
+  if (J < 1 || D < 1 || V < 1 || C < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Plan p;
   const int limit = smem_limit();
-  if (!(dtype ? make_plan<true>(J, D, V, limit, p) : make_plan<false>(J, D, V, limit, p)))
+  if (!(dtype ? make_plan<true>(J, D, V, C, limit, p) : make_plan<false>(J, D, V, C, limit, p)))
     return (int)cudaErrorInvalidValue;
   const int Jp = round_up(J, 16), Vp = round_up(V, 8);
   out[0] = p.bytes, out[1] = p.res_w, out[2] = p.res_d, out[3] = p.sw, out[4] = p.sd;
   out[5] = (Vp / 8 + kCL - 1) / kCL, out[6] = (Jp / 8 + kCL - 1) / kCL;
+  out[10] = p.depth;
   return (int)(dtype ? describe<true>(p, out) : describe<false>(p, out));
 }

@@ -10,11 +10,20 @@ each new beam's parent state and a masked token append.
 ``beam_frames_skip`` is the production path: each trip evaluates the joiner
 over a window of frames for every beam, skips the frames where the top K
 are provably all blank in closed form, and takes the exact per-frame step
-at the first frame that may emit.  The reference runs it as a
-``lax.while_loop``; here it is a Python loop with one host sync per trip
-(``rnnt_greedy.greedy_frames_skip`` runs its loop as one CUDA kernel on the
-card; this search has no kernel yet).  ``beam_frames`` (one step per
-frame) is the oracle it is tested against.
+at the first frame that may emit.  The reference runs it as one
+``lax.while_loop`` on the device; here, for CUDA tensors, it is one launch
+of a hand-written kernel (``csrc/rnnt_beam.cu``) that runs every lane's
+whole search on the card, trip by trip, so a caller that queues it does
+not wait.  For CPU tensors it runs ``beam_frames_skip_reference``, the
+plain version: the same trips as a Python loop with one host sync per trip
+(the loop condition).  ``beam_frames`` (one step per frame) is the oracle
+both are tested against.
+
+The kernel takes the greedy kernel's operands (``rnnt_greedy.greedy_operands``:
+one copy of the weights serves both searches) and runs each lane on a
+cluster of ``rnnt_greedy.CLUSTER`` blocks.  It records each frame's choices
+(``BeamTrace``); ``k2transducerasr_tpu_torch.testing.beam_replay`` holds a
+bf16 search to the plain ops through them.
 
 Ordering: ``jax.lax.top_k`` puts equal values lower index first, and
 ``torch.topk`` orders ties arbitrarily.  Ties are common here (the dead
@@ -26,16 +35,25 @@ beam is the first maximum.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
+from k2transducerasr_tpu_torch.decode import rnnt_greedy
 from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
+from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.runtime.checkpoint import tree_map
 
 NEG_INF = -1e30
 _UNK = 2
+MAX_BEAMS = 16  # what the kernel takes (csrc/rnnt_beam.cu kMaxBeams): the rows of one tile
+_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the kinds of a frame in a BeamTrace: no step, an emission step (the exact
+# per-frame step at a frame that may emit), a window's end (the fold)
+STEP_NONE, STEP_EMIT, STEP_FOLD = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -70,6 +88,30 @@ def init_state(dec_params, dec_cfg: decoder_mod.DecoderConfig, join_params, batc
         timestamps=zeros.clone(),
         count=torch.zeros((batch, k), dtype=torch.int64, device=dev),
     )
+
+
+@dataclasses.dataclass
+class BeamTrace:
+    """Each frame's choices of a search, per lane and new beam k: ``steps``
+    [B, T, K] int32 ``(token << 7) | (kind << 5) | (stored << 4) | parent``
+    (``kind``: STEP_NONE, STEP_EMIT or STEP_FOLD; ``parent``: the beam, in
+    the order before the frame, that new beam k continues; ``stored``: its
+    token went into the buffer), ``values`` [B, T, K] float32 the beams'
+    scores after the frame.  Frames at or past a lane's length are not
+    written."""
+
+    steps: torch.Tensor
+    values: torch.Tensor
+
+    @staticmethod
+    def empty(b: int, t: int, k: int, device) -> "BeamTrace":
+        return BeamTrace(torch.zeros((b, t, k), dtype=torch.int32, device=device),
+                         torch.zeros((b, t, k), dtype=torch.float32, device=device))
+
+    def fields(self):
+        """(parent, stored, kind, token) [B, T, K] int64."""
+        e = self.steps.long()
+        return e & 15, (e >> 4) & 1, (e >> 5) & 3, e >> 7
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -147,12 +189,14 @@ def beam_frames(dec_params, dec_cfg, join_params, state: BeamState, enc_proj, en
     return st
 
 
-def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_proj, enc_lens,
-                     frame_offset, extra_skip_sos: bool = False, compute_dtype=None,
-                     window: int = 64) -> BeamState:
-    """Blank-skipping modified beam search — the same results as
-    ``beam_frames`` in max-over-lanes(#emission frames + ceil(T/window))
-    trips instead of T.
+def beam_frames_skip_reference(dec_params, dec_cfg, join_params, state: BeamState, enc_proj,
+                               enc_lens, frame_offset, extra_skip_sos: bool = False,
+                               compute_dtype=None, window: int = 64,
+                               trace: BeamTrace | None = None) -> BeamState:
+    """The plain version of ``beam_frames_skip``: blank-skipping modified
+    beam search — the same results as ``beam_frames`` in
+    max-over-lanes(#emission frames + ceil(T/window)) trips instead of T, as
+    a Python loop with one host sync per trip (the loop condition).
 
     While no beam emits, the decoder states do not change, so one trip
     evaluates the joiner over a window of W frames for every beam
@@ -168,7 +212,8 @@ def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_pro
     top-K's order); the exact per-frame step then runs at w*, in the sorted
     beam order, and maps back through the sort.  A trigger that fires
     without an emission costs a trip, never a result.  Each trip adds one
-    to ``beam_frames_skip.trips``."""
+    to ``beam_frames_skip.trips``.  ``trace``: each frame's choices are
+    written into it (a test's record, as the kernel keeps them)."""
     b, t_max, _ = enc_proj.shape
     k = state.score.shape[1]
     dev = enc_proj.device
@@ -224,13 +269,219 @@ def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_pro
         new = _expand(st, tables, dec_cfg, join_params, parent, token, emit,
                       (frame_offset + frame)[:, None], score, compute_dtype)
         # lanes out of frames keep their beams whole
-        st = _keep(~active, st, new)
         scanned_to = torch.minimum(start + w, enc_lens)
+        if trace is not None:
+            stored = (new.count - st.count.gather(1, parent)).to(torch.int64)
+            step_at = torch.where(has, frame, scanned_to - 1)
+            _record(trace, st.score, t_ptr, step_at, active, parent, token,
+                    torch.where(has, STEP_EMIT, STEP_FOLD), stored, score, blank)
+        st = _keep(~active, st, new)
         t_ptr = torch.where(active, torch.where(has, frame + 1, scanned_to), t_ptr)
     return st
 
 
+def _record(trace: BeamTrace, old_score, t_ptr, step_at, active, parent, token, kind, stored,
+            score, blank):
+    """One trip into ``trace``: frames t_ptr .. step_at - 1 of the active
+    lanes keep their beams (STEP_NONE, the blank token, their scores), the
+    step at step_at."""
+    b, t, k = trace.steps.shape
+    ts = torch.arange(t, device=t_ptr.device)[None, :]
+    beam = torch.arange(k, device=t_ptr.device)[None, None, :]
+    idle = (active[:, None] & (ts >= t_ptr[:, None]) & (ts < step_at[:, None]))[..., None]
+    keep = (blank << 7) | (STEP_NONE << 5) | beam
+    trace.steps.copy_(torch.where(idle, keep.to(torch.int32), trace.steps))
+    trace.values.copy_(torch.where(idle, old_score[:, None, :], trace.values))
+    lanes = active.nonzero()[:, 0]
+    entry = (token << 7) | (kind[:, None] << 5) | (stored << 4) | parent
+    trace.steps[lanes, step_at[lanes]] = entry[lanes].to(torch.int32)
+    trace.values[lanes, step_at[lanes]] = score[lanes]
+
+
+def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_proj, enc_lens,
+                     frame_offset, extra_skip_sos: bool = False, compute_dtype=None,
+                     window: int = 64, operands: "rnnt_greedy.GreedyOperands | None" = None,
+                     trace: BeamTrace | None = None) -> BeamState:
+    """Blank-skipping modified beam search over ``T`` encoder frames — the
+    same results as ``beam_frames``.  enc_proj: [B, T, J] joiner-projected
+    encoder frames.
+
+    CPU tensors run the plain version (``beam_frames_skip_reference``,
+    ``window`` frames per trip).  CUDA tensors launch the kernel once, with
+    no host sync, or raise ``ValueError`` for what it does not take; there is
+    no fallback.  The kernel runs the same trips (``window`` sets their
+    windows).  ``operands``: ``rnnt_greedy.greedy_operands(dec_params,
+    dec_cfg, join_params, compute_dtype)``, built here when not given.
+    ``trace``: a ``BeamTrace.empty(B, T, K, device)`` that receives each
+    frame's choices.  ``beam_frames_skip.launches`` counts the kernel's
+    launches (one per call, a grid of B clusters); ``beam_frames_skip.trips``
+    the plain version's trips."""
+    if enc_proj.device.type == "cpu":
+        return beam_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
+                                          enc_lens, frame_offset, extra_skip_sos, compute_dtype,
+                                          window, trace)
+    if enc_proj.device.type != "cuda":
+        raise ValueError(f"beam_frames_skip: unsupported device {enc_proj.device}")
+    if operands is None:
+        operands = rnnt_greedy.greedy_operands(dec_params, dec_cfg, join_params, compute_dtype)
+    return _launch_kernel(operands, dec_cfg, state, enc_proj, enc_lens, frame_offset,
+                          extra_skip_sos, compute_dtype, window, trace)
+
+
 beam_frames_skip.trips = 0
+beam_frames_skip.launches = 0
+
+
+def _launch_kernel(ops, dec_cfg, state: BeamState, enc_proj, enc_lens, frame_offset,
+                   extra_skip_sos, compute_dtype, window, trace) -> BeamState:
+    b, t_max, j = enc_proj.shape
+    dev = enc_proj.device
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    c, v, d = ops.tables.shape
+    k = state.score.shape[1] if state.score.dim() == 2 else 0
+    u = state.tokens.shape[-1]
+    if ops.compute_dtype != compute_dtype:
+        raise ValueError(f"beam kernel: operands built for {ops.compute_dtype}, "
+                         f"called with {compute_dtype}")
+    if enc_proj.dtype != dtype or state.dec_proj.dtype != dtype:
+        raise ValueError(f"beam kernel: enc_proj {enc_proj.dtype} and dec_proj "
+                         f"{state.dec_proj.dtype} must be {dtype}")
+    if not 1 <= k <= MAX_BEAMS:
+        raise ValueError(f"beam kernel takes 1..{MAX_BEAMS} beams, got {k}")
+    if (j != ops.joiner_dim or tuple(state.dec_proj.shape) != (b, k, j)
+            or tuple(state.hyp.shape) != (b, k, c) or tuple(state.count.shape) != (b, k)
+            or state.tokens.shape != state.timestamps.shape
+            or tuple(state.tokens.shape) != (b, k, u) or u < 1):
+        raise ValueError(f"beam kernel: enc_proj {tuple(enc_proj.shape)}, hyp "
+                         f"{tuple(state.hyp.shape)}, dec_proj {tuple(state.dec_proj.shape)}, "
+                         f"count {tuple(state.count.shape)}, tokens {tuple(state.tokens.shape)}, "
+                         f"operands J={ops.joiner_dim} context {c}")
+    if state.score.dtype != torch.float32:
+        raise ValueError(f"beam kernel: score must be float32, got {state.score.dtype}")
+    tensors = (enc_proj, ops.tables, ops.dec_w, ops.dec_b, ops.out_w, ops.out_b, state.hyp,
+               state.dec_proj, state.score, state.count, state.tokens, state.timestamps)
+    if any(x.device != dev for x in tensors):
+        raise ValueError("beam kernel: operands and state must be on enc_proj's device")
+    if any(not w.is_contiguous() or w.data_ptr() % 16 for w in (ops.out_w, ops.dec_w)):
+        raise ValueError("beam kernel: out_w and dec_w must be contiguous and 16-byte aligned "
+                         "(the blocks copy their shares in bulk)")
+    if trace is not None and (tuple(trace.steps.shape) != (b, t_max, k)
+                              or trace.steps.dtype != torch.int32
+                              or tuple(trace.values.shape) != (b, t_max, k)
+                              or trace.values.dtype != torch.float32
+                              or not trace.steps.is_contiguous()
+                              or not trace.values.is_contiguous()
+                              or trace.steps.device != dev or trace.values.device != dev):
+        raise ValueError(f"beam kernel: trace must be BeamTrace.empty({b}, {t_max}, {k}) on "
+                         f"{dev}")
+    if b == 0 or t_max == 0:
+        return tree_map(torch.clone, state)
+
+    def lane_ints(x):
+        return torch.as_tensor(x, device=dev).to(torch.int64).expand(b).contiguous()
+
+    enc, lens, offset = enc_proj.contiguous(), lane_ints(enc_lens), lane_ints(frame_offset)
+    src = [x.to(want).contiguous() for x, want in (
+        (state.hyp, torch.int64), (state.dec_proj, dtype), (state.score, torch.float32),
+        (state.count, torch.int64), (state.tokens, torch.int64),
+        (state.timestamps, torch.int64))]
+    hyp, dec_proj, score, count, tokens, timestamps = (torch.empty_like(x) for x in src)
+    out = BeamState(hyp, dec_proj, score, tokens, timestamps, count)
+    steps = (trace.steps if trace is not None
+             else torch.empty((b, t_max, k), dtype=torch.int32, device=dev))
+    fn = cuda_build.function("rnnt_beam", "k2t_rnnt_beam", _ARGTYPES)
+    cuda_build.launch("rnnt_beam", fn, dev,
+                      enc.data_ptr(), lens.data_ptr(), offset.data_ptr(),
+                      ops.tables.data_ptr(), ops.dec_w.data_ptr(), ops.dec_b.data_ptr(),
+                      ops.out_w.data_ptr(), ops.out_b.data_ptr(),
+                      *(x.data_ptr() for x in src),
+                      *(x.data_ptr() for x in (out.hyp, out.dec_proj, out.score, out.count,
+                                               out.tokens, out.timestamps)),
+                      steps.data_ptr(), None if trace is None else trace.values.data_ptr(),
+                      b, t_max, min(t_max, window), j, d, v, c, k, u, dec_cfg.blank_id,
+                      int(extra_skip_sos), rnnt_greedy._DTYPE_CODE[compute_dtype])
+    beam_frames_skip.launches += 1
+    return out
+
+
+# csrc/rnnt_beam.cu's fixed shared-memory parts per block (make_plan), for
+# plan_bytes; _BEAM_SMEM is sizeof(BeamSmem)
+_BEAM_SMEM = 1360
+_CAND, _KERNEL_WARPS, _G = 8, 16, 2
+
+
+def plan_bytes(joiner_dim: int, decoder_dim: int, vocab: int, context: int, beams: int,
+               compute_dtype=None, limit: int = 232448) -> dict:
+    """csrc/rnnt_beam.cu's make_plan on the host: the shared memory of one
+    block of the kernel's cluster at these shapes and where the weights
+    live, for a per-block limit of ``limit`` bytes (an H100's: 227 KB).
+    Returns None where nothing fits (the kernel refuses the shapes)."""
+    bf = compute_dtype is not None
+    jp, vp = -(-joiner_dim // 16) * 16, -(-vocab // 8) * 8
+    cl, rows = rnnt_greedy.CLUSTER, 16
+    ntw, ntd = -(-(vp // 8) // cl), -(-(jp // 8) // cl)
+    uw = jp // 16 * 256 if bf else jp * 32
+    ud = decoder_dim * 8 * (2 if bf else 4)
+    at = 48  # the mbarriers
+
+    def place(n):
+        nonlocal at
+        here, at = at, -(-(at + n) // 128) * 128
+        return here
+
+    for n in (2 * beams * jp * 4, beams * -(-decoder_dim // 4) * 4 * 4, 2 * beams * context * 4,
+              _BEAM_SMEM, 2 * cl * rows * 16, 2 * cl * (rows + 1) * _CAND, rows * rows * _CAND,
+              beams * ntw * 8 * 4, _KERNEL_WARPS * _G * 32 * 16 if bf else 0, ntw * 8 * 4,
+              ntd * 8 * 4, rows * (jp + 8) * 2 if bf else beams * jp * 4):
+        place(n)
+    fixed = at
+
+    def fits(n):
+        return fixed + n + 128 * 6 <= limit
+
+    plan = dict(fixed_bytes=fixed, res_w=0, res_d=0, sw=0, sd=0, depth=2)
+    if fits(ntw * uw + ntd * ud):
+        plan.update(res_w=ntw, res_d=ntd)
+    else:
+        for depth in (2, 1):
+            sw = 0 if fits(ntw * uw + depth * ud) else max(1, min(ntw, 32768 // uw))
+            sd = max(1, min(ntd, 32768 // ud))
+            keep = 0 if sw else ntw * uw
+            while sw > 1 and not fits(keep + depth * (sw * uw + sd * ud)):
+                sw -= 1
+            while sd > 1 and not fits(keep + depth * (sw * uw + sd * ud)):
+                sd -= 1
+            rings = depth * (sw * uw + sd * ud)
+            if not fits(keep + rings):
+                continue
+            res_w, res_d = 0, 0
+            while res_w < (ntw - 1 if sw else ntw) and fits(rings + (res_w + 1) * uw):
+                res_w += 1
+            while res_d + 1 < ntd and fits(rings + res_w * uw + (res_d + 1) * ud):
+                res_d += 1
+            plan.update(res_w=res_w, res_d=res_d, sw=sw, sd=sd, depth=depth)
+            break
+        else:
+            return None
+    for n in (plan["res_w"] * uw, plan["depth"] * plan["sw"] * uw, plan["res_d"] * ud,
+              plan["depth"] * plan["sd"] * ud):
+        place(n)
+    plan.update(smem_bytes=at, ntiles_per_rank=ntw, chunks_per_rank=ntd)
+    return plan if at <= limit else None
+
+
+def kernel_plan(joiner_dim: int, decoder_dim: int, vocab: int, context: int, beams: int,
+                compute_dtype=None) -> dict:
+    """What the kernel would use on the current card at these shapes (its C
+    entry ``k2t_rnnt_beam_plan``), with the keys of
+    ``rnnt_greedy.kernel_plan``.  Needs the card."""
+    out = (ctypes.c_longlong * 11)()
+    fn = cuda_build.function("rnnt_beam", "k2t_rnnt_beam_plan", _PLAN_ARGTYPES)
+    err = fn(joiner_dim, decoder_dim, vocab, context, beams,
+             rnnt_greedy._DTYPE_CODE[compute_dtype], ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rnnt_beam plan failed: cudaError {err}")
+    return dict(zip(rnnt_greedy.PLAN_KEYS, list(out)))
 
 
 def rnnt_beam_search(dec_params, dec_cfg, join_params, enc_out, enc_lens,

@@ -45,15 +45,14 @@ from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.ops import cuda_build
 
 _UNK = 2
-# what the kernel takes (csrc/rnnt_greedy.cu): joiner and decoder widths,
-# context tokens
-MAX_JOINER_DIM = 1024
-MAX_DECODER_DIM = 1024
-MAX_CONTEXT = 8
 CLUSTER = 8  # blocks per lane (kCL)
 _DTYPE_CODE = {None: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# what k2t_rnnt_greedy_plan and k2t_rnnt_beam_plan report, in order
+PLAN_KEYS = ("smem_bytes", "resident_ntiles", "resident_chunks", "stage_ntiles",
+             "stage_chunks", "ntiles_per_rank", "chunks_per_rank", "max_active_clusters",
+             "registers", "local_bytes", "ring_stages")
 
 
 @dataclasses.dataclass
@@ -298,20 +297,20 @@ def rank_ranges(units: int) -> list[tuple[int, int]]:
     return [(lo[r], lo[r + 1]) for r in range(CLUSTER)]
 
 
-def kernel_plan(joiner_dim: int, decoder_dim: int, vocab: int, compute_dtype=None) -> dict:
+def kernel_plan(joiner_dim: int, decoder_dim: int, vocab: int, compute_dtype=None,
+                context: int = 2) -> dict:
     """What the kernel would use on the current card at these shapes (its C
     entry ``k2t_rnnt_greedy_plan``): shared memory per block, the resident
-    and streamed units per block, ``cudaOccupancyMaxActiveClusters`` and its
-    registers and local (spill) bytes per thread.  Needs the card."""
-    out = (ctypes.c_longlong * 10)()
+    and streamed units per block, ``cudaOccupancyMaxActiveClusters``, its
+    registers and local (spill) bytes per thread and the stages of its
+    weight rings (``PLAN_KEYS``).  Needs the card."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
     fn = cuda_build.function("rnnt_greedy", "k2t_rnnt_greedy_plan", _PLAN_ARGTYPES)
-    err = fn(joiner_dim, decoder_dim, vocab, _DTYPE_CODE[compute_dtype], ctypes.addressof(out))
+    err = fn(joiner_dim, decoder_dim, vocab, context, _DTYPE_CODE[compute_dtype],
+             ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"rnnt_greedy plan failed: cudaError {err}")
-    keys = ("smem_bytes", "resident_ntiles", "resident_chunks", "stage_ntiles",
-            "stage_chunks", "ntiles_per_rank", "chunks_per_rank", "max_active_clusters",
-            "registers", "local_bytes")
-    return dict(zip(keys, list(out)))
+    return dict(zip(PLAN_KEYS, list(out)))
 
 
 def _launch_kernel(ops: GreedyOperands, dec_cfg, state: GreedyState, enc_proj, enc_lens,
@@ -333,9 +332,6 @@ def _launch_kernel(ops: GreedyOperands, dec_cfg, state: GreedyState, enc_proj, e
     if tuple(state.hyp.shape) != (b, c) or state.tokens.shape[0] != b or k < 1:
         raise ValueError(f"greedy kernel: hyp {tuple(state.hyp.shape)}, tokens "
                          f"{tuple(state.tokens.shape)} for B={b}, context {c}")
-    if j > MAX_JOINER_DIM or d > MAX_DECODER_DIM or not 1 <= c <= MAX_CONTEXT:
-        raise ValueError(f"greedy kernel takes J, D <= {MAX_JOINER_DIM}, {MAX_DECODER_DIM} and "
-                         f"context 1..{MAX_CONTEXT}; got J={j} D={d} context={c}")
     tensors = (enc_proj, ops.tables, ops.dec_w, ops.dec_b, ops.out_w, ops.out_b, state.hyp,
                state.dec_proj, state.tokens, state.timestamps, state.count,
                state.trailing_blanks)

@@ -29,8 +29,13 @@ point: bf16 inputs run on the tensor cores around one shared score tile
 cores would round them to TF32; its output is float32, cast by the wrapper
 when a bf16 output is asked for).
 
-Limits: both kernels, in both bodies, tile the key axis and take any S,
-with qd and pd (and K2's vd) up to 64; wider heads raise ValueError.
+Limits: both kernels, in both bodies, tile the key axis and take any S.
+Heads of up to 64 (qd, pd and K2's vd) run each body's one-chunk form;
+wider heads run its chunked form, which sums the scores over 64-wide
+chunks of the head (and K2's P.V over 64-wide column tiles of v), up to
+``MAX_HEAD`` = 512: the bf16 chunked bodies keep every chunk of their 64
+query rows in shared memory, 9 KB per chunk.  Wider heads raise
+ValueError.
 """
 
 from __future__ import annotations
@@ -44,34 +49,34 @@ from k2transducerasr_tpu_torch.ops.attention import chunk_causal_mask, rel_shift
 from k2transducerasr_tpu_torch.ops.layers import NEG_INF, length_mask
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_QD = 64  # K1: widest q head (both bodies)
-_MAX_PD = 64  # K1's float32 body: its pos rows sit in shared memory 64 wide
-_TC_MAX_D = 64  # the bf16 bodies: q and pos rows zero-padded to 16, 32 or 64
+MAX_HEAD = 512  # both kernels' widest q, pos and (K2) value heads, in both bodies
+_CHUNK = 64  # heads up to this run the one-chunk forms; K1's float32 one
+# keeps its q and pos rows this wide in shared memory
 _ROWS = 8  # K1's float32 body: query rows per block (one warp each)
 _KEY_TILE = 256  # K1's float32 body: keys per tile (one per thread)
-_CTX_MAX_D = 64  # K2: widest q, pos and value head
 
 _PROBS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CTX_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _probs_max_widths(dtype) -> tuple[int, int]:
-    """K1's widest (qd, pd) for inputs of ``dtype``."""
-    return (_MAX_QD, _TC_MAX_D) if dtype == torch.bfloat16 else (_MAX_QD, _MAX_PD)
+    """K1's widest (qd, pd) for inputs of ``dtype`` (either body)."""
+    return MAX_HEAD, MAX_HEAD
 
 
 def _probs_rows(dtype, t: int) -> int:
     """K1's ``rows`` argument: 0 for bf16 (the tensor-core body's rows are
     fixed), else the float32 body's query rows per block, ``_ROWS`` or T
     when shorter.  Its shared memory holds one tile of keys
-    (``_smem_bytes``), so neither S nor pd (up to 64) changes the rows."""
+    (``_smem_bytes``; the chunked form's pos rows 64 columns at a time), so
+    neither S nor pd changes the rows."""
     return 0 if dtype == torch.bfloat16 else min(_ROWS, t)
 
 
 def _smem_bytes(rows: int, pd: int) -> int:
-    # must match smem_bytes() in csrc/relpos_attn_probs.cu
+    # must match smem_bytes() in csrc/relpos_attn_probs.cu (heads up to 64)
     pd4 = -(-pd // 4) * 4
-    return 4 * (rows * _MAX_QD + rows * _MAX_PD + (_KEY_TILE + rows - 1) * pd4
+    return 4 * (rows * _CHUNK + rows * _CHUNK + (_KEY_TILE + rows - 1) * pd4
                 + rows * _KEY_TILE)
 
 
@@ -199,8 +204,8 @@ def relpos_attn_ctx(q, k, pos_q, pos_k, v, lens, out_dtype=None, chunk: int = 0,
     out_dtype = out_dtype or q.dtype
     _check_operands({"q": q, "k": k, "pos_q": pos_q, "pos_k": pos_k, "v": v}, q, out_dtype)
     _check_shapes(q, k, pos_q, pos_k, v)
-    if max(qd, pd, vd) > _CTX_MAX_D:
-        raise ValueError(f"kernel takes qd, pd and vd <= {_CTX_MAX_D}, got {qd}, {pd}, {vd}")
+    if max(qd, pd, vd) > MAX_HEAD:
+        raise ValueError(f"kernel takes qd, pd and vd <= {MAX_HEAD}, got {qd}, {pd}, {vd}")
     lens = _lane_ints(lens, b, q.device)
     kv_start = _lane_ints(kv_start, b, q.device)
 

@@ -111,17 +111,28 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+# cudaErrorInvalidValue: what the entry points return, before any launch,
+# for shapes their kernels do not take (a shared-memory plan that does not
+# fit a block)
+_INVALID_VALUE = 1
+
+
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
     stream, with ``device`` as the current device, and raise if it returns
-    a cudaError.  The raw stream handle and the device check are the cheap
-    forms of ``current_stream()`` and ``torch.cuda.device``: the host's time
-    here is time the card idles when the queue is empty."""
+    a cudaError: ``ValueError`` for cudaErrorInvalidValue (shapes the kernel
+    does not take), else ``RuntimeError``.  The raw stream handle and the
+    device check are the cheap forms of ``current_stream()`` and
+    ``torch.cuda.device``: the host's time here is time the card idles when
+    the queue is empty."""
     idx = device.index
     if idx == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
         with torch.cuda.device(device):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err == _INVALID_VALUE:
+        raise ValueError(f"{name} kernel does not take these shapes (cudaErrorInvalidValue: "
+                         f"its shared-memory plan does not fit a block)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -162,10 +162,11 @@ class OfflineRecognizer:
         self._fbank_tables = tuple(
             torch.from_numpy(m).to(dev) for m in fbank_matrices(bundle.frontend_cfg)
         )
-        # the greedy kernel's operands, built once (decode/rnnt_greedy.py)
-        self._greedy_ops = None
-        if dev.type == "cuda" and decoding_method == "greedy_search":
-            self._greedy_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+        # the search kernels' operands (greedy and beam share them), built once
+        # (decode/rnnt_greedy.py::greedy_operands)
+        self._search_ops = None
+        if dev.type == "cuda" and decoding_method in ("greedy_search", "modified_beam_search"):
+            self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
                                                            bundle.joiner, compute_dtype)
 
     # -- public API ---------------------------------------------------------
@@ -217,13 +218,13 @@ class OfflineRecognizer:
     def begin_decode(self, streams: list[OfflineStream]):
         """Queue the device work for a batch and return a pending handle: the
         best hypothesis's token buffers and, under beam search, the ordered
-        n-best buffers (``rnnt_beam.nbest_beams``).  Under greedy and CTC
-        search on the card it returns without waiting for the device (the
-        upload is pinned and non-blocking, the greedy search one kernel
-        launch), so a serving loop can prepare batch k+1 while batch k runs;
-        beam search still syncs once per trip.  Everything stays on the
-        device until ``end_decode``, the one place that waits, which reads
-        the n-best back only when hotwords need it."""
+        n-best buffers (``rnnt_beam.nbest_beams``).  On the card it returns
+        without waiting for the device under every search method (the upload
+        is pinned and non-blocking, the greedy and the beam search one
+        kernel launch each), so a serving loop can prepare batch k+1 while
+        batch k runs.  Everything stays on the device until ``end_decode``,
+        the one place that waits, which reads the n-best back only when
+        hotwords need it."""
         samples, sample_counts = self.pcm_batch(streams)
         with torch.inference_mode(), self._precision():
             tokens, timestamps, count, nbest = self._decode(samples, sample_counts)
@@ -318,11 +319,12 @@ class OfflineRecognizer:
             state = rnnt_beam.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                          self.max_active_paths, self.max_tokens, cd)
             final = rnnt_beam.beam_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
-                                               enc_proj, enc_lens, zero, False, cd)
+                                               enc_proj, enc_lens, zero, False, cd,
+                                               operands=self._search_ops)
             return (*rnnt_beam.best_beam(final), rnnt_beam.nbest_beams(final))
         state = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                        self.max_tokens, cd)
         final = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
                                                enc_proj, enc_lens, zero, False, cd,
-                                               operands=self._greedy_ops)
+                                               operands=self._search_ops)
         return final.tokens, final.timestamps, final.count, None

@@ -218,10 +218,11 @@ class OnlineRecognizer:
         self.window_samples = (self._feat_window - 1) * fcfg.frame_shift + fcfg.frame_length
         self.hop_samples = enc_cfg.decode_chunk_len * fcfg.frame_shift
         self._fbank_tables = tuple(torch.from_numpy(m).to(dev) for m in fbank_matrices(fcfg))
-        # the greedy kernel's operands, built once (decode/rnnt_greedy.py)
-        self._greedy_ops = None
-        if dev.type == "cuda" and decoding_method == "greedy_search":
-            self._greedy_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+        # the search kernels' operands (greedy and beam share them), built once
+        # (decode/rnnt_greedy.py::greedy_operands)
+        self._search_ops = None
+        if dev.type == "cuda" and decoding_method in ("greedy_search", "modified_beam_search"):
+            self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
                                                            bundle.joiner, compute_dtype)
 
         self._free_lanes = list(range(max_lanes))
@@ -284,10 +285,9 @@ class OnlineRecognizer:
     def begin_step(self, streams: list[OnlineStream]):
         """Run one step for every ready stream and start the readback of the
         results without waiting for it; ``end_step`` takes the handle.  Under
-        greedy and CTC search on the card nothing here waits for the device:
-        the windows and lane indices go up pinned and non-blocking, the
-        greedy search is one kernel launch (beam search still syncs once per
-        trip)."""
+        every search method on the card nothing here waits for the device:
+        the windows and lane indices go up pinned and non-blocking, and the
+        greedy and beam searches are one kernel launch each."""
         active = [s for s in streams if s.lane >= 0 and s._ready()]
         if active:
             # windows travel as int16, made by truncation toward zero
@@ -512,10 +512,9 @@ class OnlineRecognizer:
             # online search also skips <sos/eos> = 1 (extra_skip_sos)
             enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
             args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
-            if self.decoding_method == "modified_beam_search":
-                new_dec = rnnt_beam.beam_frames_skip(*args)
-            else:
-                new_dec = rnnt_greedy.greedy_frames_skip(*args, operands=self._greedy_ops)
+            search = (rnnt_beam.beam_frames_skip if self.decoding_method == "modified_beam_search"
+                      else rnnt_greedy.greedy_frames_skip)
+            new_dec = search(*args, operands=self._search_ops)
         tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
         self._frame_count.index_add_(0, lanes_t, lens)
 

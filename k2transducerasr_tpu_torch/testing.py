@@ -5,7 +5,9 @@ recognizers do not.
 ``tie_aware_replay`` holds a greedy search (``decode/rnnt_greedy.py``) to the
 plain ops frame by frame: in bf16 the kernel's summation order may
 legitimately flip a near-tie, and one flip changes every later frame, so the
-tokens alone cannot be compared.
+tokens alone cannot be compared.  ``beam_replay`` does the same for a
+modified beam search (``decode/rnnt_beam.py``) through the choices it
+recorded (``BeamTrace``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import math
 
 import torch
 
+from k2transducerasr_tpu_torch.decode import rnnt_beam
+from k2transducerasr_tpu_torch.decode.rnnt_beam import BeamState, BeamTrace
 from k2transducerasr_tpu_torch.decode.rnnt_greedy import GreedyState, _blankish, _UNK
 from k2transducerasr_tpu_torch.models import decoder as decoder_mod
 from k2transducerasr_tpu_torch.ops.layers import apply_linear
@@ -161,3 +165,180 @@ def _round_once(x: torch.Tensor, dtype) -> torch.Tensor:
     f = torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
     f = torch.where(f.double() != x, (f.view(torch.int32) | 1).view(torch.float32), f)
     return f.to(dtype)
+
+
+def beam_replay(dec_params, dec_cfg, join_params, state: BeamState, enc_proj, enc_lens,
+                frame_offset, final: BeamState, trace: BeamTrace, extra_skip_sos: bool = False,
+                compute_dtype=None, ulps: float = 2.0, window: int = 64) -> ReplayResult:
+    """Hold ``final``, a modified beam search's result from ``state`` over
+    ``enc_proj`` (``rnnt_beam.beam_frames_skip``'s trips), to the plain ops
+    along the choices it recorded in ``trace``, allowing near-ties to go
+    either way.
+
+    Frame by frame it keeps the search's beams as the trace gives them
+    (contexts, token buffers, the recorded scores) with decoder outputs
+    from the plain ops, evaluates ``joint_logits`` and the float32
+    log-softmax for every beam (products exact and rounded once,
+    ``_linear``), and sums the trip's blank log-probs as the plain version
+    does.  The band ``tol`` is 2 ``ulps`` (of the compute dtype, at each
+    row's largest logit: one for the logit, one for the log-sum-exp),
+    counted once per frame of the trip so far and once more for the frame,
+    doubled for a comparison of two candidates, plus 4 float32 ulps of the
+    live scores' magnitude (two roundings of score + log-prob on each side:
+    where the log-probs differ in their last bits, the sums at a score of
+    thousands may round one ulp apart).  It requires:
+      * a frame without a step: no non-blank candidate beats the worst
+        blank one by more than the band, and the trip's window has not
+        ended there;
+      * an emission step: the recorded scores within the band of the plain
+        values of the chosen (parent, token) pairs, which are distinct,
+        ordered best first within the band, and beaten by no other
+        candidate by more than the band; the stored flags as the buffers
+        allow;
+      * a window's end: the frame is the trip's last and may not emit beyond
+        the band; the recorded scores within the band of score + the trip's
+        blank sum, a permutation of the beams, ordered within the band;
+      * at the end: the tokens, timestamps, counts, contexts and scores the
+        choices give, exactly; each decoder output within ``ulps`` of the
+        plain one.
+    ``differing`` counts the steps whose choice is not the plain ops' own
+    (a flip inside the band); ``worst_ulps`` the largest overshoot of a
+    choice's plain value past another's, in bands."""
+    b, t_max, j = enc_proj.shape
+    dev = enc_proj.device
+    k = state.score.shape[1]
+    c = state.hyp.shape[2]
+    u = state.tokens.shape[2]
+    blank = dec_cfg.blank_id
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    lens = enc_lens.to(dev, torch.int64).clamp(0, t_max)
+    offset = torch.as_tensor(frame_offset, device=dev).to(torch.int64).expand(b)
+    w = min(t_max, window)
+    parent_t, stored_t, kind_t, token_t = trace.fields()
+    tables = decoder_mod.context_tables(dec_params, dec_cfg)
+    lane = torch.arange(b, device=dev)[:, None]
+    beam = torch.arange(k, device=dev)[None, :]
+    hyp, dp = state.hyp.clone(), state.dec_proj.to(dtype).clone()
+    score, count = state.score.clone(), state.count.clone()
+    tokens, timestamps = state.tokens.clone(), state.timestamps.clone()
+    cumi = torch.zeros((b, k), device=dev)
+    trip_end = torch.zeros((b,), dtype=torch.int64, device=dev)
+    n_trip = torch.zeros((b,), dtype=torch.int64, device=dev)
+    frames = differing = 0
+    worst = 0.0
+
+    def fail(t, lanes, reason):
+        return ReplayResult(False, frames, differing, math.inf,
+                            f"lane {int(lanes.nonzero()[0, 0])} frame {t}: {reason}")
+
+    for t in range(t_max):
+        valid = t < lens
+        if not bool(valid.any()):
+            break
+        fresh = valid & (t >= trip_end)
+        trip_end = torch.where(fresh, torch.clamp(torch.full_like(trip_end, t), max=t_max - w)
+                               + w, trip_end).clamp(max=lens)
+        n_trip = torch.where(fresh, 0, n_trip) + 1
+        logits = _linear(join_params["output"], torch.tanh(enc_proj[:, t, None, :] + dp),
+                         compute_dtype).float()  # [B, K, V]
+        logp = rnnt_beam._log_probs(logits, extra_skip_sos)
+        v = logp.shape[-1]
+        blp = logp[..., blank]
+        cumi = torch.where(fresh[:, None], 0.0, cumi) + blp
+        cume = cumi - blp
+        skip = score + cume
+        foldv = score + cumi
+        min_blank = foldv.amin(dim=1)
+        cand = skip[..., None] + logp  # [B, K, V]
+        nb = cand.clone()
+        nb[..., blank] = -math.inf
+        max_nb = nb.amax(dim=(1, 2))
+        mag = logits.abs().amax(dim=-1).clamp_min(torch.finfo(dtype).tiny)
+        delta = (2 * ulps * torch.finfo(dtype).eps
+                 * torch.exp2(torch.floor(torch.log2(mag)))).amax(dim=1)  # [B]
+        live = torch.where(score > rnnt_beam.NEG_INF / 2, score.abs(), 0.0).amax(dim=1)
+        score_ulp = torch.finfo(torch.float32).eps * torch.exp2(torch.floor(torch.log2(
+            live.clamp_min(torch.finfo(torch.float32).tiny))))
+        tol = 2 * (n_trip + 1) * delta + 4 * score_ulp
+        kind, par, tok = kind_t[:, t], parent_t[:, t], token_t[:, t]
+        kind0 = kind[:, 0]
+        end = t == trip_end - 1
+        may = max_nb >= min_blank - tol
+        must = max_nb >= min_blank + tol
+        if bool((valid & (kind != kind0[:, None]).any(1)).any()):
+            return fail(t, valid & (kind != kind0[:, None]).any(1), "mixed step kinds")
+        idle, emit_step, fold = (valid & (kind0 == kk) for kk in (0, 1, 2))
+        bad = (idle & (must | end)) | (fold & (must | ~end)) | (emit_step & ~may)
+        if bool(bad.any()):
+            return fail(t, bad, f"step kind {int(kind0[bad][0])} where the plain ops "
+                                f"{'emit' if bool(must[bad][0]) else 'do not'} (window end: "
+                                f"{bool(end[bad][0])})")
+        values = trace.values[:, t]
+        if bool((idle & (values != score).any(1)).any()):
+            return fail(t, idle & (values != score).any(1), "scores changed without a step")
+        step = emit_step | fold
+        frames += int(valid.sum())
+        if not bool(step.any()):
+            continue
+        # the plain values of the recorded choices
+        chosen = torch.where(emit_step[:, None], cand[lane, par, tok.clamp(0, v - 1)],
+                             foldv.gather(1, par))
+        off = (values - chosen).abs() > tol[:, None]
+        order = (chosen[:, 1:] > chosen[:, :-1] + tol[:, None]).any(1)
+        pick = par * v + tok
+        dup = (pick[:, :, None] == pick[:, None, :]) & ~torch.eye(k, dtype=torch.bool,
+                                                                   device=dev)[None]
+        taken = torch.zeros((b, k * v), dtype=torch.bool, device=dev)
+        taken[lane.expand(b, k), pick.clamp(0, k * v - 1)] = True
+        others = cand.reshape(b, k * v).masked_fill(taken, -math.inf).amax(dim=1)
+        beaten = emit_step & (others > chosen.amin(dim=1) + tol)
+        perm_bad = fold & ((tok != blank).any(1) | dup.any((1, 2)))
+        bad = step & (off.any(1) | order | beaten | perm_bad | (emit_step & dup.any((1, 2))))
+        if bool(bad.any()):
+            return fail(t, bad, "a recorded choice outside the band of the plain top K")
+        gap = torch.where(emit_step, (others - chosen.amin(dim=1)) / delta.clamp_min(1e-30),
+                          -math.inf)
+        worst = max(worst, float(gap.max()))
+        differing += int((emit_step & ((others > chosen.amin(dim=1))
+                                       | (chosen[:, 1:] > chosen[:, :-1]).any(1))).sum())
+        # the step, on the lanes that took one
+        emit = emit_step[:, None] & (tok != blank)
+        count_p = count.gather(1, par)
+        want_stored = emit & (count_p < u)
+        if bool((step[:, None] & (stored_t[:, t] != want_stored.long())).any()):
+            return fail(t, (step[:, None] & (stored_t[:, t] != want_stored.long())).any(1),
+                        "a stored flag the buffers do not allow")
+        hyp_p, dp_p = hyp[lane, par], dp[lane, par]
+        new_hyp = torch.where(emit[..., None], torch.cat([hyp_p[..., 1:], tok[..., None]], 2), hyp_p)
+        dec_out = decoder_mod.forward_from_tables(tables, dec_cfg, new_hyp.reshape(b * k, c))
+        fresh_dp = _linear(join_params["decoder_proj"], dec_out, compute_dtype).reshape(b, k, j)
+        new_dp = torch.where(emit[..., None], fresh_dp.to(dp.dtype), dp_p)
+        tok_p, ts_p = tokens[lane, par], timestamps[lane, par]
+        pos = count_p.clamp(max=u - 1)
+        tok_p[lane, beam, pos] = torch.where(want_stored, tok, tok_p[lane, beam, pos])
+        ts_p[lane, beam, pos] = torch.where(want_stored, offset[:, None] + t,
+                                            ts_p[lane, beam, pos])
+        sel = step[:, None]
+        hyp = torch.where(sel[..., None], new_hyp, hyp)
+        dp = torch.where(sel[..., None], new_dp, dp)
+        score = torch.where(sel, values, score)
+        count = torch.where(sel, count_p + want_stored.long(), count)
+        tokens = torch.where(sel[..., None], tok_p, tokens)
+        timestamps = torch.where(sel[..., None], ts_p, timestamps)
+        trip_end = torch.where(step, t + 1, trip_end)
+
+    for name, got, want in (("tokens", final.tokens, tokens),
+                            ("timestamps", final.timestamps, timestamps),
+                            ("count", final.count, count), ("hyp", final.hyp, hyp),
+                            ("score", final.score, score)):
+        if not torch.equal(got, want):
+            lanes = (got != want).reshape(b, -1).any(1).nonzero()[:, 0].tolist()
+            return ReplayResult(False, frames, differing, worst,
+                                f"final {name} differs from the recorded choices' in lanes "
+                                f"{lanes}")
+    want_dp = dp.float()
+    dp_tol = torch.maximum(ulps * torch.finfo(dtype).eps * want_dp.abs(),
+                           torch.full_like(want_dp, 1e-5))
+    if not bool(((final.dec_proj.float() - want_dp).abs() <= dp_tol).all()):
+        return ReplayResult(False, frames, differing, worst, "final dec_proj differs")
+    return ReplayResult(True, frames, differing, worst, "")

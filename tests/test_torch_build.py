@@ -82,10 +82,12 @@ def test_kernels_share_the_score_tile_header(name):
 
 
 @pytest.mark.parametrize(
-    "dtype,want", [(torch.bfloat16, (64, 64)), (torch.float32, (64, 64))], ids=["bf16", "f32"]
+    "dtype,want", [(torch.bfloat16, (512, 512)), (torch.float32, (512, 512))], ids=["bf16", "f32"]
 )
 def test_probs_max_widths(dtype, want):
-    assert TC._probs_max_widths(dtype) == want
+    """Both bodies take q and pos heads up to MAX_HEAD: past 64 they sum
+    their scores over 64-wide chunks."""
+    assert TC._probs_max_widths(dtype) == want == (TC.MAX_HEAD, TC.MAX_HEAD)
 
 
 def test_probs_rows_only_for_float32():

@@ -10,7 +10,10 @@ converted model dir on the card.
 
 The greedy kernel is also held bit for bit in each of its regimes (weights
 resident in the cluster's shared memory or streamed, ragged widths, context
-1 and 8, more lanes than clusters run at once).
+1, 8 and 10, J = D = 1536, more lanes than clusters run at once).  The beam
+search kernel is held against its plain version (float32: every state field
+and each frame's recorded choice; bf16: the beam replay), and K1 and K2 at
+heads of 128 (their chunked bodies) against their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -28,8 +31,10 @@ of the exact product; then both round the output once).  Searches: tokens,
 timestamps, counts and contexts exactly; beam scores, sums of float32
 log-probs over up to 40 frames reaching |score| ~ 130, to rtol 1e-5 plus
 atol 1e-4 (summation order of the log-softmax on the card: a few float32
-ulps per frame).  LSTM: float32 encoder output to atol 1e-5 with TF32 off
-(cuDNN against ATen's loop: summation order), bf16 to atol 0.05 (bf16
+ulps per frame); the beam kernel's decoder outputs to atol 1e-5 and, in
+bf16, its search through the beam replay at 2 ulps.  LSTM: float32
+encoder output to atol 1e-5 with TF32 off (cuDNN against ATen's loop:
+summation order), bf16 to atol 0.05 (bf16
 linears that may round one ulp apart, over LayerNorm outputs).  int8: the
 int32 product exactly; tokens and timestamps exactly.
 """
@@ -51,7 +56,7 @@ from k2transducerasr_tpu_torch.models import lstm as TL
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
-from k2transducerasr_tpu_torch.testing import tie_aware_replay
+from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
 
 PIN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_data")
 
@@ -181,17 +186,26 @@ def test_ctx_kernel_out_dtype_and_fully_masked_lane(cuda):
 
 
 def test_ctx_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """Wrong layouts and dtypes raise; a value head of 72 (past the old cap
+    of 64) runs and equals the plain version; past MAX_HEAD (512) raises."""
     q, k, pq, pk = _inputs(0, 1, 8, 8, 2, 32, 32, torch.float32)
     v = torch.zeros((1, 8, 2, 16), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         AC.relpos_attn_ctx(q, k, pq, pk, v.transpose(1, 2).contiguous().transpose(1, 2), None)
     with pytest.raises(ValueError, match="dtype"):
         AC.relpos_attn_ctx(q, k, pq, pk, v.to(torch.bfloat16), None)
-    with pytest.raises(ValueError, match="vd <= 64"):
-        AC.relpos_attn_ctx(q, k, pq, pk, torch.zeros((1, 8, 2, 72), device=cuda), None)
+    v72 = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 8, 2, 72)).astype(
+        np.float32)).to(cuda)
+    torch.testing.assert_close(AC.relpos_attn_ctx(q, k, pq, pk, v72, None),
+                               AC.relpos_attn_ctx_reference(q, k, pq, pk, v72, None),
+                               atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="vd <= 512"):
+        AC.relpos_attn_ctx(q, k, pq, pk, torch.zeros((1, 8, 2, 520), device=cuda), None)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """Wrong layouts and dtypes raise; a q head of 72 (past the old cap of
+    64) runs and equals the plain version; past MAX_HEAD (512) raises."""
     q, k, pq, pk = _inputs(0, 1, 8, 8, 2, 32, 4, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         AC.relpos_attn_probs(q.transpose(1, 2).contiguous().transpose(1, 2), k, pq, pk, None)
@@ -200,8 +214,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32/bfloat16"):
         AC.relpos_attn_probs(q.half(), k.half(), pq.half(), pk.half(), None)
     wide = _inputs(0, 1, 8, 8, 2, 72, 4, torch.float32)
-    with pytest.raises(ValueError, match="qd <= 64"):
-        AC.relpos_attn_probs(*wide, None)
+    _assert_close(AC.relpos_attn_probs(*wide, None), AC.relpos_attn_probs_reference(*wide, None))
+    wider = _inputs(0, 1, 8, 8, 2, 520, 4, torch.float32)
+    with pytest.raises(ValueError, match="qd <= 512"):
+        AC.relpos_attn_probs(*wider, None)
+
+
+# Heads past 64, the kernels' chunked bodies: q, pos and value heads of 128
+# (a conformer of d_model 512 with 4 heads), a partial last chunk (qd 72, pd
+# 96, vd 200: four value tiles, the last 8 wide), with ragged lens, the
+# chunk window and kv_start.  (b, t, s, h, qd, pd, vd, lens, kw)
+WIDE_CASES = [
+    pytest.param(2, 65, 130, 2, 128, 128, 128, [130, 70], {}, id="d128"),
+    pytest.param(1, 63, 63, 4, 128, 4, 128, None, {"chunk": 8, "left": 16}, id="qd128-pd4-chunk"),
+    pytest.param(3, 17, 80, 2, 72, 96, 200, [80, 33, 5], {"kv_start": [63, 10, 0]},
+                 id="qd72-pd96-vd200-kv_start"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,s,h,qd,pd,vd,lens,kw", WIDE_CASES)
+def test_k1_and_k2_at_wide_heads(cuda, dtype, b, t, s, h, qd, pd, vd, lens, kw):
+    """K1 and K2 at heads past 64 against their plain versions, at the
+    tolerances of the narrow heads (module docstring); q and pos_q scaled by
+    sqrt(32 / width), as a model scales its queries, so that the scores are
+    as large as at the narrow heads' 32 wide."""
+    q, k, pq, pk = _inputs(3, b, t, s, h, qd, pd, dtype)
+    q, pq = q * (32 / qd) ** 0.5, pq * (32 / max(pd, 32)) ** 0.5
+    v = torch.from_numpy(np.random.default_rng(4).standard_normal((b, s, h, vd)).astype(
+        np.float32)).to(cuda, dtype)
+    ln = None if lens is None else torch.tensor(lens, device=cuda)
+    kw = {key: torch.tensor(x, device=cuda) if isinstance(x, list) else x for key, x in kw.items()}
+    _assert_close(AC.relpos_attn_probs(q, k, pq, pk, ln, **kw),
+                  AC.relpos_attn_probs_reference(q, k, pq, pk, ln, **kw))
+    _assert_ctx_close(AC.relpos_attn_ctx(q, k, pq, pk, v, ln, **kw),
+                      AC.relpos_attn_ctx_reference(q, k, pq, pk, v, ln, **kw), v)
 
 
 # The bf16 tensor-core bodies: T and S off the 16/64 grid, T != S, narrow
@@ -410,8 +457,9 @@ def _host_syncs(fn):
 
 
 def test_beam_trip_syncs_the_host_once(cuda):
-    """One host sync per trip (the loop condition, and once more to end the
-    loop), none inside a trip."""
+    """The plain version on the card: one host sync per trip (the loop
+    condition, and once more to end the loop), none inside a trip; the
+    wrapper (the kernel) none at all."""
     dp, jp, cfg = _beam_models(cuda)
     enc = np.random.default_rng(5).standard_normal((3, 40, 16)).astype(np.float32)
     proj = TJ.project_encoder(jp, torch.from_numpy(enc).to(cuda))
@@ -419,10 +467,16 @@ def test_beam_trip_syncs_the_host_once(cuda):
     lens = torch.tensor([40, 0, 23], device=cuda)
     off = torch.zeros(3, dtype=torch.int64, device=cuda)
     TBeam.beam_frames_skip.trips = 0
-    syncs = _host_syncs(lambda: TBeam.beam_frames_skip(dp, cfg, jp, st, proj, lens, off, True,
-                                                       window=8))
+    syncs = _host_syncs(lambda: TBeam.beam_frames_skip_reference(dp, cfg, jp, st, proj, lens, off,
+                                                                 True, window=8))
     assert TBeam.beam_frames_skip.trips > 0
     assert len(syncs) == TBeam.beam_frames_skip.trips + 1
+    ops = TGreedy.greedy_operands(dp, cfg, jp)
+    call = lambda: TBeam.beam_frames_skip(dp, cfg, jp, st, proj, lens, off, True,  # noqa: E731
+                                          window=8, operands=ops)
+    call()  # the build, and the library's first load
+    TBeam.beam_frames_skip.trips = 0
+    assert _host_syncs(call) == [] and TBeam.beam_frames_skip.trips == 0
 
 
 def test_ctc_frames_does_not_sync(cuda):
@@ -512,10 +566,11 @@ def test_greedy_kernel_bit_for_bit_on_dyadic_inputs(cuda, dtype, ctx, skip_sos, 
 # (J, D, V, context, lanes, frames, where the weights live).  "resident":
 # every block's share of W_out and decoder_proj in its shared memory (bf16 at
 # the flagship's 512/512/500); "streamed": some of it through the rings every
-# step (J = D = 1024; V = 5,500; float32 at the flagship); "ragged": V not a
-# multiple of 64 nor of 8, J and D not multiples of 16 (bf16 frames of 200
-# bytes); context 1 and 8; 32 lanes, more clusters than run at
-# once.  Every case has a lane of 0 frames and one whose buffer is full on
+# step (J = D = 1024 and 1536, past the old cap of 1024, the float32 one
+# through rings of one stage; V = 5,500; float32 at the flagship); "ragged": V
+# not a multiple of 64 nor of 8, J and D not multiples of 16 (bf16 frames of
+# 200 bytes); context 1, 8 and 10 (past the old cap of 8); 32 lanes, more
+# clusters than run at once.  Every case has a lane of 0 frames and one whose buffer is full on
 # entry.
 GREEDY_REGIMES = [
     ("flagship", 512, 512, 500, 2, 6, 40),
@@ -524,6 +579,7 @@ GREEDY_REGIMES = [
     ("ragged", 100, 92, 203, 2, 6, 40),
     ("ctx1", 512, 512, 500, 1, 6, 40),
     ("ctx8", 512, 512, 500, 8, 6, 40),
+    ("wide-1536-ctx10", 1536, 1536, 500, 10, 6, 40),
     ("lanes-32", 512, 512, 500, 2, 32, 24),
 ]
 
@@ -561,11 +617,12 @@ def test_greedy_kernel_regimes_bit_for_bit(cuda, dtype, j, d, v, ctx, b, t):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.count[0]) > 4 and int(got.count[1]) == 0
     assert int(got.count[2]) == max_tokens and int(got.trailing_blanks[2]) == t
-    plan = TGreedy.kernel_plan(j, d, v, dtype)
+    plan = TGreedy.kernel_plan(j, d, v, dtype, ctx)
     resident = (plan["resident_ntiles"] == plan["ntiles_per_rank"]
                 and plan["resident_chunks"] == plan["chunks_per_rank"])
-    streamed = (j == 1024 or v == 5500 or (dtype is None and j == 512))
+    streamed = (j >= 1024 or v == 5500 or (dtype is None and j == 512))
     assert resident != streamed, plan
+    assert plan["ring_stages"] == (1 if dtype is None and j == 1536 else 2), plan
     if b > plan["max_active_clusters"]:
         assert b == 32  # the lanes ran in waves
 
@@ -661,21 +718,178 @@ def test_greedy_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             operands=TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16))
     with pytest.raises(ValueError, match="compute_dtype"):
         run(dp, cfg, jp, st, enc.half(), lens, off, compute_dtype=torch.float16)
+    # past the old caps (J, D <= 1024, context <= 8): taken, as the plain version
     wide = TJ.init_params(np.random.default_rng(0), TJ.JoinerConfig(8, 40, 1040, 70))
     wide = params_from_numpy(wide, cuda)
     st_wide = TGreedy.init_state(dp, cfg, wide, 2, 8)
-    with pytest.raises(ValueError, match="J, D <= 1024"):
-        run(dp, cfg, wide, st_wide, torch.zeros((2, 5, 1040), device=cuda), lens, off)
+    enc_wide = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 5, 1040)).astype(
+        np.float32)).to(cuda)
+    for f in ("tokens", "count", "hyp"):
+        assert torch.equal(getattr(run(dp, cfg, wide, st_wide, enc_wide, lens, off), f),
+                           getattr(TGreedy.greedy_frames_skip_reference(
+                               dp, cfg, wide, st_wide, enc_wide, lens, off), f)), f
     deep = TD.DecoderConfig(vocab_size=70, decoder_dim=40, context_size=9)
     deep_p = params_from_numpy(TD.init_params(np.random.default_rng(0), deep), cuda)
     st_deep = TGreedy.init_state(deep_p, deep, jp, 2, 8)
-    with pytest.raises(ValueError, match="context 1..8"):
-        run(deep_p, deep, jp, st_deep, enc, lens, off)
+    enc_deep = enc + torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 5, 36)).astype(np.float32)).to(cuda)
+    assert torch.equal(run(deep_p, deep, jp, st_deep, enc_deep, lens, off).hyp,
+                       TGreedy.greedy_frames_skip_reference(deep_p, deep, jp, st_deep, enc_deep,
+                                                            lens, off).hyp)
+    # what still raises: a joiner whose fixed parts leave no room in a block
+    huge = TJ.init_params(np.random.default_rng(0), TJ.JoinerConfig(8, 40, 4096, 70))
+    huge = params_from_numpy(huge, cuda)
+    st_huge = TGreedy.init_state(dp, cfg, huge, 2, 8)
+    with pytest.raises(ValueError, match="does not take these shapes"):
+        run(dp, cfg, huge, st_huge, torch.zeros((2, 5, 4096), device=cuda), lens, off)
     ops = TGreedy.greedy_operands(dp, cfg, jp)
     for field in ("tables", "dec_w", "dec_b", "out_w", "out_b"):
         moved = dataclasses.replace(ops, **{field: getattr(ops, field).cpu()})
         with pytest.raises(ValueError, match="enc_proj's device"):
             run(dp, cfg, jp, st, enc, lens, off, operands=moved)
+
+
+# -- the beam search kernel (csrc/rnnt_beam.cu) against its plain version
+
+# (K, vocab, J, D, context, lanes, frames, window, extra_skip_sos, max_tokens,
+# blank bias): blank runs (windows folded, the closed-form trips), a buffer
+# that fills, one beam, 8 and 16 beams (16 at a vocabulary of 5: candidates
+# at NEG_INF in the top K, ties by index), context 1 and 3, the flagship's
+# widths (J = D = 512, V = 500) and a vocabulary of 5,500 (the weights
+# streamed).  Every case has a lane of 0 frames.
+BEAM_KERNEL_CASES = [
+    pytest.param(4, 40, 20, 24, 2, 3, 40, 64, False, 64, 0.3, id="K4"),
+    pytest.param(2, 40, 20, 24, 2, 3, 40, 8, True, 6, -0.5, id="K2-sos-full-buffer-w8"),
+    pytest.param(2, 40, 20, 24, 2, 3, 40, 8, True, 64, 1.2, id="K2-sos-blank-runs-w8"),
+    pytest.param(1, 40, 20, 24, 2, 2, 30, 16, False, 64, 0.6, id="K1"),
+    pytest.param(8, 70, 36, 40, 1, 4, 50, 16, False, 64, 1.2, id="K8-ctx1"),
+    pytest.param(16, 5, 24, 24, 3, 2, 30, 64, True, 64, 0.0, id="K16-v5-ctx3"),
+    pytest.param(4, 500, 512, 512, 2, 4, 60, 64, False, 1024, 0.0, id="flagship"),
+    pytest.param(4, 5500, 512, 512, 2, 2, 30, 64, False, 1024, 0.0, id="vocab-5500"),
+]
+
+
+def _beam_kernel_models(device, k, v, j, d, ctx, bias, seed=21):
+    rng = np.random.default_rng(seed)
+    cfg = TD.DecoderConfig(vocab_size=v, decoder_dim=d, context_size=ctx)
+    dp = TD.init_params(rng, cfg)
+    jp = TJ.init_params(rng, TJ.JoinerConfig(16, d, j, v))
+    jp["output"]["b"][0] += bias
+    return params_from_numpy(dp, device), params_from_numpy(jp, device), cfg
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,v,j,d,ctx,b,t,window,sos,max_tokens,bias", BEAM_KERNEL_CASES)
+def test_beam_kernel_matches_plain(cuda, dtype, k, v, j, d, ctx, b, t, window, sos, max_tokens,
+                                   bias):
+    """Two chained calls (the streaming shape) from init_state, ragged lens
+    with an empty lane, per-lane frame_offset.  float32: every state field
+    and each frame's recorded choice equal to the plain version's on the
+    card, the scores and recorded scores to atol 1e-4 + rtol 1e-5 and the
+    decoder outputs to atol 1e-5 (summation order); bf16: the beam replay at
+    2 ulps.  The state it starts from is left as it was."""
+    dp, jp, cfg = _beam_kernel_models(cuda, k, v, j, d, ctx, bias)
+    rng = np.random.default_rng(k + v + t)
+    lens = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
+    lens[0], lens[1] = t, 0
+    offset = torch.from_numpy(rng.integers(0, 500, b)).to(cuda)
+    st = TBeam.init_state(dp, cfg, jp, b, k, max_tokens, dtype)
+    ops = TGreedy.greedy_operands(dp, cfg, jp, dtype)
+    valid = torch.arange(t, device=cuda)[None, :] < lens[:, None]
+    for call in range(2):
+        enc = torch.from_numpy(rng.standard_normal((b, t, 16)).astype(np.float32)).to(cuda)
+        proj = TJ.project_encoder(jp, enc, dtype)
+        kept = [x.clone() for x in dataclasses.astuple(st)]
+        before = TBeam.beam_frames_skip.launches
+        trace = TBeam.BeamTrace.empty(b, t, k, cuda)
+        got = TBeam.beam_frames_skip(dp, cfg, jp, st, proj, lens, offset, sos, dtype, window,
+                                     operands=ops, trace=trace)
+        torch.cuda.synchronize()
+        assert TBeam.beam_frames_skip.launches == before + 1
+        assert all(torch.equal(x, y) for x, y in zip(kept, dataclasses.astuple(st)))
+        if dtype is None:
+            plain = TBeam.BeamTrace.empty(b, t, k, cuda)
+            with exact_f32():
+                want = TBeam.beam_frames_skip_reference(dp, cfg, jp, st, proj, lens, offset, sos,
+                                                        dtype, window, plain)
+            for f in ("hyp", "tokens", "timestamps", "count"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (call, f)
+            torch.testing.assert_close(got.score, want.score, atol=1e-4, rtol=1e-5)
+            torch.testing.assert_close(got.dec_proj, want.dec_proj, atol=1e-5, rtol=0)
+            assert torch.equal(trace.steps[valid], plain.steps[valid]), call
+            torch.testing.assert_close(trace.values[valid], plain.values[valid], atol=1e-4,
+                                       rtol=1e-5)
+        else:
+            res = beam_replay(dp, cfg, jp, st, proj, lens, offset, got, trace, sos, dtype,
+                              window=window)
+            assert res.ok, (call, res.reason)
+        st, offset = got, offset + lens
+    assert int(got.count[0].max()) > 0 and int(got.count[1].max()) == 0
+    if max_tokens == 6:
+        assert int(got.count.max()) == 6
+
+
+def test_beam_kernel_plan_matches_the_host_mirror(cuda):
+    """k2t_rnnt_beam_plan (the card's shared-memory limit) against
+    rnnt_beam.plan_bytes, the host's mirror, over the regimes above."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for args in [(512, 512, 500, 2, 4), (512, 512, 500, 2, 8), (512, 512, 5500, 2, 4),
+                 (20, 24, 40, 2, 16), (1024, 1024, 500, 2, 4), (36, 40, 70, 1, 8)]:
+        for dtype in (None, torch.bfloat16):
+            got = TBeam.kernel_plan(*args, dtype)
+            want = TBeam.plan_bytes(*args, dtype, limit=limit)
+            assert got["smem_bytes"] == want["smem_bytes"], (args, dtype, got, want)
+            assert (got["resident_ntiles"], got["resident_chunks"], got["stage_ntiles"],
+                    got["stage_chunks"], got["ring_stages"]) == (
+                want["res_w"], want["res_d"], want["sw"], want["sd"], want["depth"]), (args, dtype)
+
+
+def test_beam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    dp, jp, cfg = _beam_kernel_models(cuda, 4, 40, 20, 24, 2, 2.0)
+    st = TBeam.init_state(dp, cfg, jp, 2, 4, 8)
+    enc = torch.zeros((2, 5, 20), device=cuda)
+    lens, off = torch.tensor([5, 5], device=cuda), torch.zeros(2, dtype=torch.long, device=cuda)
+    run = TBeam.beam_frames_skip
+    with pytest.raises(ValueError, match="must be"):
+        run(dp, cfg, jp, st, enc.to(torch.bfloat16), lens, off)
+    with pytest.raises(ValueError, match="operands built for"):
+        run(dp, cfg, jp, st, enc, lens, off,
+            operands=TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16))
+    with pytest.raises(ValueError, match="1..16 beams"):
+        run(dp, cfg, jp, TBeam.init_state(dp, cfg, jp, 2, 17, 8), enc, lens, off)
+    with pytest.raises(ValueError, match="trace"):
+        run(dp, cfg, jp, st, enc, lens, off, trace=TBeam.BeamTrace.empty(2, 4, 4, cuda))
+    ops = TGreedy.greedy_operands(dp, cfg, jp)
+    for field in ("tables", "out_w"):
+        moved = dataclasses.replace(ops, **{field: getattr(ops, field).cpu()})
+        with pytest.raises(ValueError, match="enc_proj's device"):
+            run(dp, cfg, jp, st, enc, lens, off, operands=moved)
+
+
+@pytest.mark.parametrize("hotwords", [False, True], ids=["beam", "beam-hotwords"])
+def test_begin_decode_and_begin_step_do_not_sync_under_beam_search(cuda, hotwords):
+    """On the zipformer2 pin dir at bf16 under modified_beam_search (K=4),
+    with and without hotwords: begin_decode and begin_step return without a
+    host sync; end_decode gives what get_results gives."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    kw = dict(decoding_method="modified_beam_search", max_active_paths=4, device="cuda",
+              hotwords=["tok6tok25"] if hotwords else None)
+    rec = OfflineRecognizer(bundle, **kw)
+    streams = [rec.create_offline_stream() for _ in range(3)]
+    for i, s in enumerate(streams):
+        s.add_samples(_pcm(6400 - 1000 * i))
+    want = [r.text for r in rec.get_results(streams)]  # warm: the build, the handles
+    pending = []
+    assert _host_syncs(lambda: pending.append(rec.begin_decode(streams))) == []
+    assert [r.text for r in rec.end_decode(pending[0])] == want
+    online = OnlineRecognizer(bundle, max_lanes=2, **kw)
+    stream = online.create_online_stream()
+    stream.add_samples(_pcm(32000))
+    online.get_results([stream])
+    assert stream._ready()
+    pending = []
+    assert _host_syncs(lambda: pending.append(online.begin_step([stream]))) == []
+    online.end_step(pending[0])
 
 
 # K1 at zipformer v1's shapes (ZipformerConfig(): 8 heads, q head 24 = 192/8,
