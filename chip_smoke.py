@@ -36,16 +36,21 @@ Phases (any failure exits non-zero; none is caught):
      -Xptxas -v's registers and spills; its time, the plain loop's and the
      bound from these inputs' frames and emissions, and the replaced
      one-block-per-lane kernel's times from PERF.md beside them;
-  3d. the beam search kernel (rnnt_beam: one cluster of 8 blocks per lane,
-     K beams, the trips of the plain version) against its plain version:
-     offline 16 lanes x 766 frames at K=4 in float32 (every state field and
-     each frame's recorded choice equal; scores to atol 1e-4 + rtol 1e-5) and
-     bf16 (the beam replay at 2 ulps), a streaming step of 16 lanes (steps
-     chained, frame_offset, extra_skip_sos), one frame in six emitting, K=8
-     and a vocabulary of 5,500 (the weights streamed); the plans, held equal
-     to the host mirror, with registers and spills; each case's time, its
-     device time, the plain loop's (once: it syncs once per trip) and the
-     bound from these inputs' frames and emitting beams;
+  3d. the beam search kernel (rnnt_beam: P lanes on a cluster of 8 blocks,
+     K beams, the trips of the plain version, one exchange per frame) against
+     its plain version: offline 16 lanes x 766 frames at K=4 in float32
+     (every state field and each frame's recorded choice equal; scores to
+     atol 1e-4 + rtol 1e-5) and bf16 (the beam replay at 2 ulps), 15 lanes,
+     a streaming step of 16 lanes (steps chained, frame_offset,
+     extra_skip_sos), one frame in six emitting, K=8, a vocabulary of 5,500
+     (the weights streamed), ragged lanes that the kernel pairs by length, and in
+     float32 a vocabulary of 5 where the forbidden columns enter the top K;
+     each case's P, clusters, clusters at once and waves (16 lanes at K=4
+     must take one), microseconds per frame of a cluster and the emission
+     steps that took the second exchange; the plans, held equal to the host
+     mirror, with registers and spills; each case's time, its device time,
+     the plain loop's (once: it syncs once per trip) and the bound from these
+     inputs' frames and emitting beams, the replaced kernel's times beside;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -295,12 +300,13 @@ MUTATIONS = [
     ("beam extra_skip_sos ignored", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
      "(a.skip_sos && v == 1)", "(false && v == 1)", "phase_beam"),
     ("beam timestamps without frame_offset", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
-     "a.timestamps[dst + pos] = offset + t;", "a.timestamps[dst + pos] = t;", "phase_beam"),
+     "a.timestamps[dst + pos] = s.offset[p] + t;", "a.timestamps[dst + pos] = t;",
+     "phase_beam"),
     ("beam windows never folded", "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
-     "(t == trip_end - 1 ? 2 : 0)", "0", "phase_beam"),
+     "(t == te - 1 ? 2 : 0)", "0", "phase_beam"),
     ("beam log-sum-exp without the last rank's share",
      "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
-     "for (int r = 0; r < kCL; ++r) S +=", "for (int r = 0; r < kCL - 1; ++r) S +=",
+     "for (int q = 0; q < kCL; ++q) S +=", "for (int q = 0; q < kCL - 1; ++q) S +=",
      "phase_beam"),
 ]
 
@@ -1081,10 +1087,20 @@ def phase_greedy(bw):
 
 # [3d] the beam search kernel (rnnt_beam): BEAM_K beams per lane at the
 # offline and streaming main paths' shapes, also at BEAM_WIDE_K beams, with
-# one frame in six emitting, and at GREEDY_BIG_VOCAB (the weights streamed)
+# one frame in six emitting, at GREEDY_BIG_VOCAB (the weights streamed), with
+# 15 lanes beside the 16 (one wave either way), with ragged lanes in an order
+# that the kernel pairs by length, and at a vocabulary of BEAM_SMALL_V
+# under extra_skip_sos (allowed columns {blank, 3, 4}: fewer than BEAM_K, so
+# the forbidden ones enter the top K)
 BEAM_WIDE_K = 8
 BEAM_MAX_TOKENS = 1024  # OfflineRecognizer's default buffer
 BEAM_FIELDS = ("hyp", "tokens", "timestamps", "count")
+BEAM_SMALL_V, BEAM_SMALL_V_T = 5, 200
+# the kernel of one cluster per lane that this design replaced, at the same
+# cases (PERF.md §6, NVIDIA H100 80GB HBM3 at 700.00 W)
+BEAM_REPLACED = ("offline bf16 26.37 ms (device 25.82), float32 50.54 (50.01), streaming "
+                 "step 0.396 (0.292), one frame in six 20.51 (20.15), K=8 46.26 (45.77), "
+                 "V=5,500 91.33 (91.13)")
 
 
 def _beam_bytes_ops(ops, b, k, u, frames, emits):
@@ -1106,26 +1122,50 @@ def _beam_bytes_ops(ops, b, k, u, frames, emits):
 
 
 def _beam_plans(cases) -> dict:
-    """[3d]'s first line: each case's plan on this card (rnnt_beam.kernel_plan),
-    held equal to the host mirror (rnnt_beam.plan_bytes), and the registers
-    and spills.  Returns the plans by case."""
+    """[3d]'s first line: each case's launch shape (rnnt_beam.kernel_lanes:
+    the lanes a cluster, P, that the wrapper chooses, the clusters, the
+    clusters at once at that P and the waves) and its plan on this card
+    (rnnt_beam.kernel_plan at P), held equal to the host mirror
+    (rnnt_beam.plan_bytes), and the registers and spills.  Returns the plans
+    by case."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     plans, parts = {}, []
-    for name, dtype, j, d, v, c, k in cases:
-        p = rnnt_beam.kernel_plan(j, d, v, c, k, dtype)
-        mirror = rnnt_beam.plan_bytes(j, d, v, c, k, dtype, limit=limit)
+    for name, dtype, j, d, v, c, k, b in cases:
+        shape = rnnt_beam.kernel_lanes(b, j, d, v, c, k, dtype)
+        p = rnnt_beam.kernel_plan(j, d, v, c, k, dtype, shape["lanes"])
+        mirror = rnnt_beam.plan_bytes(j, d, v, c, k, dtype, limit=limit, lanes=shape["lanes"])
         if (p["smem_bytes"], p["resident_ntiles"], p["resident_chunks"]) != (
                 mirror["smem_bytes"], mirror["res_w"], mirror["res_d"]):
             raise AssertionError(f"rnnt_beam plan {name}: card {p} vs host mirror {mirror}")
         dt = "float32" if dtype is None else "bf16"
-        plans[f"{name} {dt}"] = p
-        parts.append(f"{name} {dt} (K={k} J={j} D={d} V={v}): {p['smem_bytes']} B/block, W_out "
+        plans[f"{name} {dt}"] = dict(p, **shape)
+        parts.append(f"{name} {dt} (B={b} K={k} J={j} D={d} V={v}): P={shape['lanes']} "
+                     f"({shape['clusters']} clusters, {shape['clusters_at_once']} at once, "
+                     f"{shape['waves']} wave(s)), {p['smem_bytes']} B/block, W_out "
                      f"{p['resident_ntiles']}/{p['ntiles_per_rank']} n-tiles resident, "
                      f"decoder_proj {p['resident_chunks']}/{p['chunks_per_rank']} chunks, "
-                     f"rings of {p['ring_stages']}, {p['max_active_clusters']} clusters at once")
-    log(f"[3d] rnnt_beam: one cluster of {rnnt_greedy.CLUSTER} blocks x 512 threads per lane "
+                     f"rings of {p['ring_stages']}")
+    log(f"[3d] rnnt_beam: clusters of {rnnt_greedy.CLUSTER} blocks x 512 threads, P lanes each "
         f"| " + " | ".join(parts) + f" | host mirror equal | ptxas -v: {_ptxas('rnnt_beam_kernel')}")
     return plans
+
+
+def _small_vocab_models(enc_dim):
+    """A decoder and joiner of Zipformer2Config's widths (512) with a
+    vocabulary of BEAM_SMALL_V and context 2, from numpy seed 0, on the
+    card."""
+    rng = np.random.default_rng(0)
+    cfg = DecoderConfig(vocab_size=BEAM_SMALL_V, decoder_dim=512, context_size=2)
+    dec = decoder_mod.init_params(rng, cfg)
+    join = joiner_mod.init_params(rng, joiner_mod.JoinerConfig(enc_dim, 512, 512, BEAM_SMALL_V))
+    return params_from_numpy(dec, "cuda"), params_from_numpy(join, "cuda"), cfg
+
+
+def _paired_lens(b, t):
+    """Ragged lanes (``_greedy_lens``) in an order that puts a long lane
+    beside a short one: 0, b-1, 1, b-2, ..."""
+    order = [i // 2 if i % 2 == 0 else b - 1 - i // 2 for i in range(b)]
+    return _greedy_lens(b, t)[torch.tensor(order, device="cuda")]
 
 
 def _beam_compare(case, dtype, dec, cfg, join, st, enc, lens, offset, sos, got, trace, window):
@@ -1196,12 +1236,18 @@ def phase_beam(bw):
     (vocab 500, decoder and joiner 512 wide, context 2) and random encoder
     frames through its encoder projection: offline, 16 lanes x GREEDY_T
     frames from frame 0 at BEAM_K beams in both dtypes (the main path's
-    batch, the headline); streaming, 16 lanes x one window's encoder frames,
-    frame_offset per lane, extra_skip_sos, GREEDY_STEPS steps chained; and in
-    bf16 offline with the blank bias raised until about GREEDY_RATE of the
-    greedy search's frames emit, at BEAM_WIDE_K beams, and at a
-    GREEDY_BIG_VOCAB vocabulary (its weights stream).  The plain version
-    runs once per case (it syncs once per trip).  Returns (rows, plans)."""
+    batch, the headline) and 15 lanes in bf16; streaming, 16 lanes x one
+    window's encoder frames, frame_offset per lane, extra_skip_sos,
+    GREEDY_STEPS steps chained; in bf16 offline with the blank bias raised
+    until about GREEDY_RATE of the greedy search's frames emit, at
+    BEAM_WIDE_K beams, at a GREEDY_BIG_VOCAB vocabulary (its weights
+    stream) and with ragged lanes (``_paired_lens``); and in float32 at a
+    BEAM_SMALL_V vocabulary under extra_skip_sos, where the forbidden
+    columns enter the top K.  Each case prints its P, clusters, clusters at
+    once and waves, the microseconds per frame of a cluster (device time
+    over waves x the longest lane's frames) and the emission steps that took
+    the kernel's second exchange.  The plain version runs once per case (it
+    syncs once per trip).  Returns (rows, plans)."""
     bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
                                 seed=0, device="cuda")
     dec, join, cfg = bundle.decoder, bundle.joiner, bundle.decoder_cfg
@@ -1211,27 +1257,30 @@ def phase_beam(bw):
     b, bf16 = FLAGSHIP_B, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(12)
     rows = []
-    plans = _beam_plans([("flagship", dt, j_dim, d_dim, 500, 2, BEAM_K) for dt in (None, bf16)]
-                        + [(f"K{BEAM_WIDE_K}", bf16, j_dim, d_dim, 500, 2, BEAM_WIDE_K),
-                           ("vocab-5500", bf16, j_dim, d_dim, GREEDY_BIG_VOCAB, 2, BEAM_K)])
+    plans = _beam_plans([("flagship", dt, j_dim, d_dim, 500, 2, BEAM_K, b) for dt in (None, bf16)]
+                        + [("15-lanes", bf16, j_dim, d_dim, 500, 2, BEAM_K, b - 1),
+                           (f"K{BEAM_WIDE_K}", bf16, j_dim, d_dim, 500, 2, BEAM_WIDE_K, b),
+                           ("vocab-5500", bf16, j_dim, d_dim, GREEDY_BIG_VOCAB, 2, BEAM_K, b),
+                           (f"vocab-{BEAM_SMALL_V}", None, j_dim, d_dim, BEAM_SMALL_V, 2, BEAM_K,
+                            b)])
 
-    def frames(t, dtype, joiner=join):
-        x = torch.randn((b, t, enc_dim), generator=g, device="cuda")
+    def frames(t, dtype, joiner=join, lanes=b):
+        x = torch.randn((lanes, t, enc_dim), generator=g, device="cuda")
         with torch.inference_mode():
             return joiner_mod.project_encoder(joiner, x, dtype)
 
-    def run(case, dtype, k, dec, cfg, join, make, t, sos, steps):
+    def run(case, dtype, k, dec, cfg, join, make, t, sos, steps, lanes=b, lens_of=None):
         ops = rnnt_greedy.greedy_operands(dec, cfg, join, dtype)
-        st = rnnt_beam.init_state(dec, cfg, join, b, k, BEAM_MAX_TOKENS, dtype)
-        offset = (torch.arange(b, device="cuda") * 997) if steps > 1 else torch.zeros(
-            b, dtype=torch.int64, device="cuda")
-        worst, differing, emits, lane_frames = 0.0, 0, 0, 0
+        st = rnnt_beam.init_state(dec, cfg, join, lanes, k, BEAM_MAX_TOKENS, dtype)
+        offset = (torch.arange(lanes, device="cuda") * 997) if steps > 1 else torch.zeros(
+            lanes, dtype=torch.int64, device="cuda")
+        worst, differing, emits, lane_frames, second, emit_steps = 0.0, 0, 0, 0, 0, 0
         for step in range(steps):
-            enc = make(t, dtype)
-            lens = torch.full((b,), t, device="cuda")
+            enc = make(t, dtype, join, lanes)
+            lens = torch.full((lanes,), t, device="cuda") if lens_of is None else lens_of(lanes, t)
             if steps > 1:  # streaming: lanes that skip a step, or take part of a window
-                lens = torch.roll(_greedy_lens(b, t), step)
-            trace = rnnt_beam.BeamTrace.empty(b, t, k, "cuda")
+                lens = torch.roll(_greedy_lens(lanes, t), step)
+            trace = rnnt_beam.BeamTrace.empty(lanes, t, k, "cuda")
             with exact_f32(), torch.inference_mode():
                 got = rnnt_beam.beam_frames_skip(dec, cfg, join, st, enc, lens, offset, sos,
                                                  dtype, operands=ops, trace=trace)
@@ -1240,9 +1289,19 @@ def phase_beam(bw):
                                           lens, offset, sos, got, trace, 64)
             parent, stored, kind, token = trace.fields()
             valid = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[..., None]
-            emits += int((valid & (kind == rnnt_beam.STEP_EMIT) & (token != cfg.blank_id)).sum())
+            emitting = valid & (kind == rnnt_beam.STEP_EMIT)
+            emits += int((emitting & (token != cfg.blank_id)).sum())
+            emit_steps += int(emitting[..., 0].sum())
+            second += int(trace.second.sum())
             lane_frames += int(lens.clamp(max=t).sum())
             worst, differing = max(worst, err), differing + diff
+            if case.startswith(f"offline-v{BEAM_SMALL_V}-"):
+                forbidden = int((emitting & ((token == 1) | (token == 2))).sum())
+                if not forbidden:
+                    raise AssertionError(f"rnnt_beam {case}: no forbidden column entered the "
+                                         f"top K")
+                log(f"[3d] rnnt_beam {case}: {forbidden} new beams took a forbidden column "
+                    f"(<sos/eos> or <unk>, at NEG_INF)")
             if step == steps - 1:
                 def kernel(st=st, enc=enc, lens=lens, offset=offset):
                     return rnnt_beam.beam_frames_skip(dec, cfg, join, st, enc, lens, offset, sos,
@@ -1260,16 +1319,24 @@ def phase_beam(bw):
                     dev_ms = device_ms(kernel, reps=5)
                     plain_ms = cuda_ms(plain, reps=1, warm=0)
                 peak_dtype = torch.float32 if dtype is None else dtype
-                bound_ms, bound_by = bound(*_beam_bytes_ops(ops, b, k, BEAM_MAX_TOKENS,
+                bound_ms, bound_by = bound(*_beam_bytes_ops(ops, lanes, k, BEAM_MAX_TOKENS,
                                                             last_frames, last_emits),
                                            peak_dtype, bw)
-                row = {"case": case, "dtype": str(peak_dtype).split(".")[-1], "B": b, "T": t,
+                c_, v_, d_ = ops.tables.shape
+                shape = rnnt_beam.kernel_lanes(lanes, ops.joiner_dim, d_, v_, c_, k, dtype)
+                longest = int(lens.clamp(max=t).max())
+                us_frame = dev_ms * 1e3 / (shape["waves"] * max(longest, 1))
+                row = {"case": case, "dtype": str(peak_dtype).split(".")[-1], "B": lanes, "T": t,
                        "K": k, "J": ops.joiner_dim, "V": ops.vocab, "frames": last_frames,
                        "emitting_beams": last_emits, "max_abs_err": worst,
                        "differing_steps": differing, "ms": ms, "device_ms": dev_ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "lanes_per_cluster": shape["lanes"], "clusters": shape["clusters"],
+                       "clusters_at_once": shape["clusters_at_once"], "waves": shape["waves"],
+                       "us_per_cluster_frame": us_frame, "emission_steps": emit_steps,
+                       "second_exchange_steps": second}
                 rows.append(row)
-                log(f"[3d] rnnt_beam {case:16s} {row['dtype']:8s} B={b} T={t} K={k} "
+                log(f"[3d] rnnt_beam {case:16s} {row['dtype']:8s} B={lanes} T={t} K={k} "
                     f"J={row['J']} V={row['V']}: {lane_frames} lane-frames, {emits} emitting "
                     f"beam-steps in {steps} call(s), "
                     + (f"every field equal, max score err {worst:.2e}" if dtype is None else
@@ -1277,6 +1344,11 @@ def phase_beam(bw):
                        f"than the plain top K")
                     + (f", {differing} lane(s) parted at a near-tie" if dtype is None and
                        differing else "")
+                    + f" | P={shape['lanes']}, {shape['clusters']} clusters, "
+                    f"{shape['clusters_at_once']} at once, {shape['waves']} wave(s), "
+                    f"{us_frame:.2f} us per frame of a cluster | second exchange on {second} of "
+                    f"{emit_steps} emission steps ({second / max(emit_steps, 1):.3%}; "
+                    f"{second / max(lane_frames, 1):.3%} of lane-frames)"
                     + f" | kernel {ms:.4f} ms (device {dev_ms:.4f}) | plain {plain_ms:.2f} ms "
                     f"| bound {bound_ms:.5f} ms ({bound_by}) | {bound_ms / ms:.2%} of bound "
                     f"({bound_ms / dev_ms:.2%} of device time)")
@@ -1284,6 +1356,7 @@ def phase_beam(bw):
 
     for dtype in (None, bf16):
         run("offline", dtype, BEAM_K, dec, cfg, join, frames, GREEDY_T, False, 1)
+    run("offline-15lanes", bf16, BEAM_K, dec, cfg, join, frames, GREEDY_T, False, 1, lanes=b - 1)
     run("streaming", bf16, BEAM_K, dec, cfg, join, frames, chunk, True, GREEDY_STEPS)
     full = torch.full((b,), GREEDY_T, device="cuda")
     with torch.inference_mode():
@@ -1293,13 +1366,36 @@ def phase_beam(bw):
         f"{rate:.4f} per frame)")
     run("offline-1in6", bf16, BEAM_K, dec, cfg, rate_join, frames, GREEDY_T, False, 1)
     run(f"offline-K{BEAM_WIDE_K}", bf16, BEAM_WIDE_K, dec, cfg, join, frames, GREEDY_T, False, 1)
-    del bundle
+    run("offline-ragged", bf16, BEAM_K, dec, cfg, join, frames, GREEDY_T, False, 1,
+        lens_of=_paired_lens)
+    lens = _paired_lens(b, GREEDY_T).tolist()
+    by_len = sorted(lens, reverse=True)
+    pairs = rnnt_beam.kernel_lanes(b, j_dim, d_dim, 500, 2, BEAM_K, bf16)["lanes"]
+    log(f"[3d] rnnt_beam offline-ragged: lanes of {min(lens)}-{max(lens)} frames; with P={pairs} "
+        f"the clusters run {sum(max(by_len[i:i + pairs]) for i in range(0, b, pairs))} frames "
+        f"in all paired by length (the kernel ranks the lanes), "
+        f"{sum(max(lens[i:i + pairs]) for i in range(0, b, pairs))} in the caller's order")
+    sdec, sjoin, scfg = _small_vocab_models(enc_dim)
+    run(f"offline-v{BEAM_SMALL_V}-sos", None, BEAM_K, sdec, scfg, sjoin, frames, BEAM_SMALL_V_T,
+        True, 1)
+    del sdec, sjoin, bundle
     big = ModelBundle.random("zipformer2", Zipformer2Config(causal=True),
                              vocab_size=GREEDY_BIG_VOCAB, seed=0, device="cuda")
-    run("offline-v5500", bf16, BEAM_K, big.decoder, big.decoder_cfg, big.joiner,
-        lambda t, dtype: frames(t, dtype, big.joiner), GREEDY_T, False, 1)
+    run("offline-v5500", bf16, BEAM_K, big.decoder, big.decoder_cfg, big.joiner, frames,
+        GREEDY_T, False, 1)
     del big
     torch.cuda.empty_cache()
+
+    def pick(case):
+        return next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
+
+    one, fifteen = pick("offline"), pick("offline-15lanes")
+    if one["waves"] != 1:
+        raise AssertionError(f"rnnt_beam: {b} lanes at K={BEAM_K} take {one['waves']} waves")
+    log(f"[3d] rnnt_beam one wave: {b} lanes at P={one['lanes_per_cluster']} "
+        f"({one['clusters']} clusters) {one['device_ms']:.4f} ms of device time, {b - 1} lanes "
+        f"at P={fifteen['lanes_per_cluster']} ({fifteen['clusters']} clusters) "
+        f"{fifteen['device_ms']:.4f}; the replaced kernel (PERF.md §6): {BEAM_REPLACED}")
     return rows, plans
 
 
@@ -2641,7 +2737,9 @@ def beam_kernel_line(rows, plans) -> dict:
         "streaming": {f"{k}_per_step": step[k] for k in keys},
         "plans": plans,
         "per": f"one modified beam search of a 16 x 30 s batch (B=16, T=766, K={BEAM_K}, "
-               "J=512, V=500, bf16, random weights; one cluster of 8 blocks per lane); "
+               "J=512, V=500, bf16, random weights; P lanes on each cluster of 8 blocks, "
+               f"P={head['lanes_per_cluster']} here: {head['clusters']} clusters, "
+               f"{head['waves']} wave(s)); "
                "streaming: one step of 16 lanes (T = one window's encoder frames); launches: "
                "one per offline batch and per streaming step of every transducer beam path "
                "(launches_by_path); library_ms null: no PyTorch call runs a beam search",

@@ -130,6 +130,27 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
                : "memory");
 }
 
+// The asynchronous remote stores: the value lands at `addr` (a cluster
+// address, mapa) and completes its bytes as a transaction on the mbarrier at
+// `bar` (a cluster address in the same block as addr); the receiver waits on
+// that mbarrier, not on a cluster barrier.
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, Cand c, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "r"(__float_as_uint(c.v)), "r"(c.i), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
 }

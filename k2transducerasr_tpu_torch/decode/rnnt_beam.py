@@ -20,10 +20,12 @@ plain version: the same trips as a Python loop with one host sync per trip
 both are tested against.
 
 The kernel takes the greedy kernel's operands (``rnnt_greedy.greedy_operands``:
-one copy of the weights serves both searches) and runs each lane on a
-cluster of ``rnnt_greedy.CLUSTER`` blocks.  It records each frame's choices
-(``BeamTrace``); ``k2transducerasr_tpu_torch.testing.beam_replay`` holds a
-bf16 search to the plain ops through them.
+one copy of the weights serves both searches) and runs P lanes on each
+cluster of ``rnnt_greedy.CLUSTER`` blocks (``lanes_per_cluster``: the fewest
+that let the batch run in one wave of clusters; the kernel pairs lanes of
+like lengths itself).  It records each frame's choices (``BeamTrace``);
+``k2transducerasr_tpu_torch.testing.beam_replay`` holds a bf16 search to the
+plain ops through them.
 
 Ordering: ``jax.lax.top_k`` puts equal values lower index first, and
 ``torch.topk`` orders ties arbitrarily.  Ties are common here (the dead
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -49,8 +52,11 @@ from k2transducerasr_tpu_torch.runtime.checkpoint import tree_map
 NEG_INF = -1e30
 _UNK = 2
 MAX_BEAMS = 16  # what the kernel takes (csrc/rnnt_beam.cu kMaxBeams): the rows of one tile
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# k2t_rnnt_beam: the pointers, the ints, the stream, then (second, lanes);
+# k2t_rnnt_beam_plan: the shapes, the dtype, out, then lanes
+_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int])
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
 # the kinds of a frame in a BeamTrace: no step, an emission step (the exact
 # per-frame step at a frame that may emit), a window's end (the fold)
 STEP_NONE, STEP_EMIT, STEP_FOLD = 0, 1, 2
@@ -98,15 +104,19 @@ class BeamTrace:
     the order before the frame, that new beam k continues; ``stored``: its
     token went into the buffer), ``values`` [B, T, K] float32 the beams'
     scores after the frame.  Frames at or past a lane's length are not
-    written."""
+    written.  ``second`` [B] int32 (or None): the kernel's count, per lane,
+    of the emission steps whose K best took its second exchange (a near-tie
+    at the cut; the plain version leaves it as it was)."""
 
     steps: torch.Tensor
     values: torch.Tensor
+    second: torch.Tensor | None = None
 
     @staticmethod
     def empty(b: int, t: int, k: int, device) -> "BeamTrace":
         return BeamTrace(torch.zeros((b, t, k), dtype=torch.int32, device=device),
-                         torch.zeros((b, t, k), dtype=torch.float32, device=device))
+                         torch.zeros((b, t, k), dtype=torch.float32, device=device),
+                         torch.zeros((b,), dtype=torch.int32, device=device))
 
     def fields(self):
         """(parent, stored, kind, token) [B, T, K] int64."""
@@ -313,9 +323,11 @@ def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_pro
     windows).  ``operands``: ``rnnt_greedy.greedy_operands(dec_params,
     dec_cfg, join_params, compute_dtype)``, built here when not given.
     ``trace``: a ``BeamTrace.empty(B, T, K, device)`` that receives each
-    frame's choices.  ``beam_frames_skip.launches`` counts the kernel's
-    launches (one per call, a grid of B clusters); ``beam_frames_skip.trips``
-    the plain version's trips."""
+    frame's choices.  The kernel runs P lanes on each cluster, P chosen by
+    ``lanes_per_cluster`` from B, K and the clusters the card runs at once.
+    ``beam_frames_skip.launches`` counts
+    the kernel's launches (one per call, a grid of ceil(B / P) clusters);
+    ``beam_frames_skip.trips`` the plain version's trips."""
     if enc_proj.device.type == "cpu":
         return beam_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
                                           enc_lens, frame_offset, extra_skip_sos, compute_dtype,
@@ -330,6 +342,64 @@ def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_pro
 
 beam_frames_skip.trips = 0
 beam_frames_skip.launches = 0
+
+
+def lanes_per_cluster(batch: int, beams: int, clusters_at_once) -> int:
+    """P, the lanes each cluster of the kernel carries: the fewest that let
+    all ``batch`` lanes run in one wave of clusters, at most 16 // ``beams``
+    (their P K beams are the rows of one joiner tile).  Where no P gives
+    one wave, the P with the fewest waves (the fewest lanes among equals).
+    ``clusters_at_once(p)``: the clusters that run at once with p lanes
+    each (the card's ``cudaOccupancyMaxActiveClusters`` at that plan), 0
+    where the plan does not fit; a larger P's plan never needs less shared
+    memory, so the search stops there."""
+    best = (None, 1)
+    for p in range(1, max(1, MAX_BEAMS // beams) + 1):
+        n = clusters_at_once(p)
+        if n < 1:
+            break
+        waves = -(-(-(-batch // p)) // n)
+        if best[0] is None or waves < best[0]:
+            best = (waves, p)
+        if waves == 1:
+            break
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_at_once(device_index: int, j: int, d: int, v: int, c: int, k: int, dtype_code: int,
+                      lanes: int) -> int:
+    """The kernel's clusters at once on this card at these shapes with
+    ``lanes`` lanes a cluster; 0 where its plan does not fit."""
+    out = (ctypes.c_longlong * len(rnnt_greedy.PLAN_KEYS))()
+    fn = cuda_build.function("rnnt_beam", "k2t_rnnt_beam_plan", _PLAN_ARGTYPES)
+    with torch.cuda.device(device_index):
+        err = fn(j, d, v, c, k, dtype_code, ctypes.addressof(out), lanes)
+    if err == cuda_build._INVALID_VALUE:
+        return 0
+    if err != 0:
+        raise RuntimeError(f"rnnt_beam plan failed: cudaError {err}")
+    return int(out[rnnt_greedy.PLAN_KEYS.index("max_active_clusters")])
+
+
+def kernel_lanes(batch: int, joiner_dim: int, decoder_dim: int, vocab: int, context: int,
+                 beams: int, compute_dtype=None, device=None) -> dict:
+    """The wrapper's launch shape on the card for ``batch`` lanes: ``lanes``
+    (P, ``lanes_per_cluster``), ``clusters``, ``clusters_at_once`` at that
+    P, and ``waves``.  Needs the card."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _kernel_lanes(batch, idx, joiner_dim, decoder_dim, vocab, context, beams,
+                         rnnt_greedy._DTYPE_CODE[compute_dtype])
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lanes(batch, device_index, j, d, v, c, k, dtype_code) -> dict:
+    at_once = functools.partial(_clusters_at_once, device_index, j, d, v, c, k, dtype_code)
+    p = lanes_per_cluster(batch, k, at_once)
+    clusters = -(-batch // p)
+    n = at_once(p)
+    return dict(lanes=p, clusters=clusters, clusters_at_once=n, waves=-(-clusters // max(n, 1)))
 
 
 def _launch_kernel(ops, dec_cfg, state: BeamState, enc_proj, enc_lens, frame_offset,
@@ -365,13 +435,17 @@ def _launch_kernel(ops, dec_cfg, state: BeamState, enc_proj, enc_lens, frame_off
     if any(not w.is_contiguous() or w.data_ptr() % 16 for w in (ops.out_w, ops.dec_w)):
         raise ValueError("beam kernel: out_w and dec_w must be contiguous and 16-byte aligned "
                          "(the blocks copy their shares in bulk)")
+    second = None if trace is None else trace.second
     if trace is not None and (tuple(trace.steps.shape) != (b, t_max, k)
                               or trace.steps.dtype != torch.int32
                               or tuple(trace.values.shape) != (b, t_max, k)
                               or trace.values.dtype != torch.float32
                               or not trace.steps.is_contiguous()
                               or not trace.values.is_contiguous()
-                              or trace.steps.device != dev or trace.values.device != dev):
+                              or trace.steps.device != dev or trace.values.device != dev
+                              or (second is not None and (
+                                  tuple(second.shape) != (b,) or second.dtype != torch.int32
+                                  or not second.is_contiguous() or second.device != dev))):
         raise ValueError(f"beam kernel: trace must be BeamTrace.empty({b}, {t_max}, {k}) on "
                          f"{dev}")
     if b == 0 or t_max == 0:
@@ -381,6 +455,12 @@ def _launch_kernel(ops, dec_cfg, state: BeamState, enc_proj, enc_lens, frame_off
         return torch.as_tensor(x, device=dev).to(torch.int64).expand(b).contiguous()
 
     enc, lens, offset = enc_proj.contiguous(), lane_ints(enc_lens), lane_ints(frame_offset)
+    code = rnnt_greedy._DTYPE_CODE[compute_dtype]
+    # P lanes a cluster; the kernel pairs lanes of like lengths itself
+    lanes = kernel_lanes(b, j, d, v, c, k, compute_dtype, dev)["lanes"]
+    if not 1 <= lanes <= MAX_BEAMS // k:
+        raise ValueError(f"beam kernel: lanes_per_cluster must be 1..{MAX_BEAMS // k} at "
+                         f"{k} beams, got {lanes}")
     src = [x.to(want).contiguous() for x, want in (
         (state.hyp, torch.int64), (state.dec_proj, dtype), (state.score, torch.float32),
         (state.count, torch.int64), (state.tokens, torch.int64),
@@ -399,40 +479,47 @@ def _launch_kernel(ops, dec_cfg, state: BeamState, enc_proj, enc_lens, frame_off
                                                out.tokens, out.timestamps)),
                       steps.data_ptr(), None if trace is None else trace.values.data_ptr(),
                       b, t_max, min(t_max, window), j, d, v, c, k, u, dec_cfg.blank_id,
-                      int(extra_skip_sos), rnnt_greedy._DTYPE_CODE[compute_dtype])
+                      int(extra_skip_sos), code,
+                      tail=(None if second is None else second.data_ptr(), lanes))
     beam_frames_skip.launches += 1
     return out
 
 
 # csrc/rnnt_beam.cu's fixed shared-memory parts per block (make_plan), for
 # plan_bytes; _BEAM_SMEM is sizeof(BeamSmem)
-_BEAM_SMEM = 1360
-_CAND, _KERNEL_WARPS, _G = 8, 16, 2
+_BEAM_SMEM = 1984
+_CAND, _KERNEL_WARPS, _G, _BEAM_BARS = 8, 16, 2, 6
 
 
 def plan_bytes(joiner_dim: int, decoder_dim: int, vocab: int, context: int, beams: int,
-               compute_dtype=None, limit: int = 232448) -> dict:
+               compute_dtype=None, limit: int = 232448, lanes: int = 1) -> dict:
     """csrc/rnnt_beam.cu's make_plan on the host: the shared memory of one
-    block of the kernel's cluster at these shapes and where the weights
-    live, for a per-block limit of ``limit`` bytes (an H100's: 227 KB).
-    Returns None where nothing fits (the kernel refuses the shapes)."""
+    block of the kernel's cluster at these shapes with ``lanes`` lanes a
+    cluster, and where the weights live, for a per-block limit of ``limit``
+    bytes (an H100's: 227 KB).  Returns None where nothing fits (the kernel
+    refuses the shapes)."""
     bf = compute_dtype is not None
     jp, vp = -(-joiner_dim // 16) * 16, -(-vocab // 8) * 8
-    cl, rows = rnnt_greedy.CLUSTER, 16
+    cl, tile_rows, rows = rnnt_greedy.CLUSTER, 16, lanes * beams
+    f32_rows = 4 if rows <= 4 else 8 if rows <= 8 else 16
     ntw, ntd = -(-(vp // 8) // cl), -(-(jp // 8) // cl)
     uw = jp // 16 * 256 if bf else jp * 32
     ud = decoder_dim * 8 * (2 if bf else 4)
-    at = 48  # the mbarriers
+    at = 48  # the weight rings' mbarriers
 
     def place(n):
         nonlocal at
         here, at = at, -(-(at + n) // 128) * 128
         return here
 
-    for n in (2 * beams * jp * 4, beams * -(-decoder_dim // 4) * 4 * 4, 2 * beams * context * 4,
-              _BEAM_SMEM, 2 * cl * rows * 16, 2 * cl * (rows + 1) * _CAND, rows * rows * _CAND,
-              beams * ntw * 8 * 4, _KERNEL_WARPS * _G * 32 * 16 if bf else 0, ntw * 8 * 4,
-              ntd * 8 * 4, rows * (jp + 8) * 2 if bf else beams * jp * 4):
+    tile = -(-(tile_rows * (jp + 8) * 2 if bf else f32_rows * jp * 4) // 128) * 128
+    scratch = _KERNEL_WARPS * _G * 32 * 16 if bf else 0
+    for n in (_BEAM_BARS * 8, lanes * 2 * beams * jp * (2 if bf else 4),
+              lanes * 2 * beams * context * 4, _BEAM_SMEM, 2 * cl * rows * 16,
+              2 * cl * rows * beams * _CAND, 2 * cl * lanes * beams * _CAND, rows * beams * _CAND,
+              _KERNEL_WARPS * tile_rows * _CAND, rows * ntw * 8 * 4, ntw * 8 * 4, ntd * 8 * 4,
+              max(tile + scratch, rows * -(-decoder_dim // 4) * 4 * 4,
+                  tile_rows * (decoder_dim + 8) * 2 if bf else 0)):
         place(n)
     fixed = at
 
@@ -471,14 +558,14 @@ def plan_bytes(joiner_dim: int, decoder_dim: int, vocab: int, context: int, beam
 
 
 def kernel_plan(joiner_dim: int, decoder_dim: int, vocab: int, context: int, beams: int,
-                compute_dtype=None) -> dict:
-    """What the kernel would use on the current card at these shapes (its C
-    entry ``k2t_rnnt_beam_plan``), with the keys of
-    ``rnnt_greedy.kernel_plan``.  Needs the card."""
-    out = (ctypes.c_longlong * 11)()
+                compute_dtype=None, lanes: int = 1) -> dict:
+    """What the kernel would use on the current card at these shapes with
+    ``lanes`` lanes a cluster (its C entry ``k2t_rnnt_beam_plan``), with the
+    keys of ``rnnt_greedy.kernel_plan``.  Needs the card."""
+    out = (ctypes.c_longlong * len(rnnt_greedy.PLAN_KEYS))()
     fn = cuda_build.function("rnnt_beam", "k2t_rnnt_beam_plan", _PLAN_ARGTYPES)
     err = fn(joiner_dim, decoder_dim, vocab, context, beams,
-             rnnt_greedy._DTYPE_CODE[compute_dtype], ctypes.addressof(out))
+             rnnt_greedy._DTYPE_CODE[compute_dtype], ctypes.addressof(out), lanes)
     if err != 0:
         raise RuntimeError(f"rnnt_beam plan failed: cudaError {err}")
     return dict(zip(rnnt_greedy.PLAN_KEYS, list(out)))

@@ -117,9 +117,10 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 _INVALID_VALUE = 1
 
 
-def launch(name: str, fn, device: torch.device, *args) -> None:
-    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream, with ``device`` as the current device, and raise if it returns
+def launch(name: str, fn, device: torch.device, *args, tail: tuple = ()) -> None:
+    """Call the C entry point ``fn(*args, stream, *tail)`` on ``device``'s
+    current stream (``tail``: arguments an entry point added after the
+    stream), with ``device`` as the current device, and raise if it returns
     a cudaError: ``ValueError`` for cudaErrorInvalidValue (shapes the kernel
     does not take), else ``RuntimeError``.  The raw stream handle and the
     device check are the cheap forms of ``current_stream()`` and
@@ -127,10 +128,10 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
     the queue is empty."""
     idx = device.index
     if idx == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx), *tail)
     else:
         with torch.cuda.device(device):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx), *tail)
     if err == _INVALID_VALUE:
         raise ValueError(f"{name} kernel does not take these shapes (cudaErrorInvalidValue: "
                          f"its shared-memory plan does not fit a block)")

@@ -15,6 +15,8 @@ outputs to atol 1e-5 (the folded tables' summation order).
 
 import dataclasses
 
+import hypothesis
+import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,11 +147,22 @@ def _meta_call(mutate):
     (lambda a: a.update(trace=TBeam.BeamTrace.empty(2, 4, 4, "meta")), "trace"),
     (lambda a: a.update(ops=dataclasses.replace(a["ops"], out_w=a["ops"].out_w.transpose(
         0, 1))), "contiguous"),
+    (lambda a: a.update(trace=dataclasses.replace(TBeam.BeamTrace.empty(2, 5, 4, "meta"),
+                                                  second=torch.zeros(3, dtype=torch.int32,
+                                                                     device="meta"))), "trace"),
 ], ids=["frames-dtype", "operands-dtype", "17-beams", "context", "score-dtype", "device",
-        "trace-shape", "layout"])
+        "trace-shape", "layout", "trace-second"])
 def test_wrapper_checks_the_kernels_operands(mutate, match):
     with pytest.raises(ValueError, match=match):
         _meta_call(mutate)
+
+
+def test_wrapper_refuses_more_lanes_than_the_tile_holds(monkeypatch):
+    """The P that the launch shape gives is checked: 5 lanes of 4 beams
+    are more rows than the tile's 16."""
+    monkeypatch.setattr(TBeam, "kernel_lanes", lambda *a, **kw: dict(lanes=5))
+    with pytest.raises(ValueError, match="lanes_per_cluster must be 1..4"):
+        _meta_call(lambda a: None)
 
 
 def _search(compute_dtype, extra_skip_sos, k=4, window=6, seed=4):
@@ -227,30 +240,40 @@ def _place(sizes):
     return at
 
 
+@pytest.mark.parametrize("lanes", [1, 2], ids=["P1", "P2"])
 @pytest.mark.parametrize("compute_dtype,beams,vocab", [(torch.bfloat16, 4, 500), (None, 4, 500),
                                                        (torch.bfloat16, 8, 500),
                                                        (torch.bfloat16, 4, 5500)],
                          ids=["bf16-K4", "f32-K4", "bf16-K8", "bf16-V5500"])
-def test_plan_bytes_at_the_flagship_shapes(compute_dtype, beams, vocab):
+def test_plan_bytes_at_the_flagship_shapes(compute_dtype, beams, vocab, lanes):
     """The host mirror of the kernel's plan at J = D = 512, context 2, on an
-    H100's 227 KB (232,448 bytes) per block: its fixed parts, part by part,
-    and where the weights go.  bf16 at K = 4 and 8 holds every weight share
-    resident (8 n-tiles and 8 chunks of 8 KB a rank); float32 (16 KB units)
-    and V = 5,500 (86 n-tiles a rank) stream."""
+    H100's 227 KB (232,448 bytes) per block, with ``lanes`` lanes a cluster
+    (P; the tile's rows R = P K): its fixed parts, part by part (the beam's
+    mbarriers, each lane's two buffers of decoder outputs in the compute
+    dtype, the contexts, the beam state, the exchange's partials and lists,
+    the second exchange's lists, the rows' best candidates, the warps' top-K
+    slots, the logits, the biases, and one region for the tile with the bf16 scratch or the
+    emitters' decoder outputs), and where the weights go.  bf16 at K = 4 and
+    8 holds every weight share resident (8 n-tiles and 8 chunks of 8 KB a
+    rank), at P = 2 too; float32 (16 KB units) and V = 5,500 (86 n-tiles a
+    rank) stream."""
     bf = compute_dtype is not None
-    p = TBeam.plan_bytes(512, 512, vocab, 2, beams, compute_dtype)
+    p = TBeam.plan_bytes(512, 512, vocab, 2, beams, compute_dtype, lanes=lanes)
     ntw = -(-(-(-vocab // 8)) // 8)
-    fixed = _place([2 * beams * 512 * 4, beams * 512 * 4, 2 * beams * 2 * 4, 1360,
-                    2 * 8 * 16 * 16, 2 * 8 * 17 * 8, 16 * 16 * 8, beams * ntw * 8 * 4,
-                    16 * 2 * 32 * 16 if bf else 0, ntw * 8 * 4, 8 * 8 * 4,
-                    16 * 520 * 2 if bf else beams * 512 * 4])
+    rows = lanes * beams
+    tile = 16 * 520 * 2 if bf else (4 if rows <= 4 else 8 if rows <= 8 else 16) * 512 * 4
+    fixed = _place([6 * 8, lanes * 2 * beams * 512 * (2 if bf else 4), lanes * 2 * beams * 2 * 4,
+                    1984, 2 * 8 * rows * 16, 2 * 8 * rows * beams * 8, 2 * 8 * lanes * beams * 8,
+                    rows * beams * 8, 16 * 16 * 8, rows * ntw * 8 * 4, ntw * 8 * 4, 8 * 8 * 4,
+                    max(-(-tile // 128) * 128 + (16 * 2 * 32 * 16 if bf else 0), rows * 512 * 4,
+                        16 * 520 * 2 if bf else 0)])
     assert p["fixed_bytes"] == fixed
     assert p["ntiles_per_rank"] == ntw and p["chunks_per_rank"] == 8
     unit = 8192 if bf else 16384
     if bf and vocab == 500:
         assert (p["res_w"], p["res_d"], p["sw"], p["sd"]) == (8, 8, 0, 0)
         assert p["smem_bytes"] == fixed + 16 * unit
-        assert beams != 4 or p["smem_bytes"] == 200192
+        assert beams != 4 or p["smem_bytes"] == {1: 181888, 2: 194816}[lanes]
     else:
         assert p["sw"] or p["sd"]
         assert p["smem_bytes"] <= 232448
@@ -259,3 +282,178 @@ def test_plan_bytes_at_the_flagship_shapes(compute_dtype, beams, vocab):
     # J = 4096 in float32: the decoder outputs' two buffers (128 KB) and the
     # tile (64 KB) leave no room for a stage of each weight
     assert TBeam.plan_bytes(4096, 512, 500, 2, 4, None) is None
+
+
+@pytest.mark.parametrize("batch,beams,at_once,want", [
+    (16, 4, {1: 15, 2: 15, 3: 14, 4: 14}, 2),   # the flagship: 8 clusters, one wave
+    (15, 4, {1: 15, 2: 15, 3: 14, 4: 14}, 1),   # one lane a cluster already fits
+    (1, 4, {1: 15, 2: 15, 3: 14, 4: 14}, 1),
+    (16, 16, {1: 15}, 1),                       # 16 beams fill the tile
+    (16, 8, {1: 15, 2: 15}, 2),
+    (64, 4, {1: 15, 2: 15, 3: 14, 4: 14}, 3),   # no P gives one wave: the fewest waves
+    (200, 1, {p: 15 for p in range(1, 17)}, 14),
+    (40, 4, {1: 15, 2: 0}, 1),                  # P = 2's plan does not fit
+], ids=["B16-K4", "B15-K4", "B1", "K16", "K8", "B64-K4", "B200-K1", "no-fit"])
+def test_lanes_per_cluster(batch, beams, at_once, want):
+    """P, the lanes a cluster carries: the fewest that run the batch in one
+    wave of clusters, at most 16 // K; else the fewest waves."""
+    assert TBeam.lanes_per_cluster(batch, beams, lambda p: at_once.get(p, 0)) == want
+
+
+# -- the kernel's one-exchange selection rule, mirrored on the host
+
+def _one_exchange(values, logits, forbid, k):
+    """The kernel's K best of the candidates ``values`` [rows, V] (rows in
+    the beams' sorted order, flat index i V + v; ``forbid`` [V] the columns
+    at NEG_INF), its way: each of the 8 ranks' column shares
+    (rnnt_greedy.rank_ranges) pushes, per row, its K best columns by
+    (logit descending, column ascending, the forbidden ones after every
+    allowed one); every rank takes each row's K best of the pushed by
+    (value, column), then the K best of the rows' by (value, flat index);
+    the frame is ambiguous where a rank's list for a row is full (the rank
+    has more than K columns) and its last value is not below the K-th
+    chosen, and then the second exchange (each rank's K best by (value,
+    flat index) over all its columns, merged) decides.  Returns (values,
+    flat indices, ambiguous, the first exchange's answer was right)."""
+    rows, v = values.shape
+    val = values.tolist()
+    cols = [range(lo * 8, min(hi * 8, v)) for lo, hi in TGreedy.rank_ranges(-(-v // 8))]
+
+    def by_logit(i, c):
+        return (bool(forbid[c]), 0.0 if forbid[c] else -float(logits[i, c]), c)
+
+    def by_value(i, c):
+        return (-val[i][c], i * v + c)
+
+    lists = {(q, i): sorted(cols[q], key=lambda c: by_logit(i, c))[:k]
+             for q in range(8) for i in range(rows)}
+    rows_best = [sorted((c for q in range(8) for c in lists[q, i]), key=lambda c: by_value(i, c))
+                 [:k] for i in range(rows)]
+    chosen = sorted(((i, c) for i in range(rows) for c in rows_best[i]),
+                    key=lambda ic: by_value(*ic))[:k]
+    v_k = val[chosen[-1][0]][chosen[-1][1]]
+    ambiguous = any(len(cols[q]) > k and not val[i][lists[q, i][-1]] < v_k
+                    for q in range(8) for i in range(rows))
+    fast = [i * v + c for i, c in chosen]
+    if ambiguous:
+        per_rank = [sorted(((i, c) for i in range(rows) for c in cols[q]),
+                           key=lambda ic: by_value(*ic))[:k] for q in range(8)]
+        chosen = sorted((ic for q in per_rank for ic in q), key=lambda ic: by_value(*ic))[:k]
+    flat = [i * v + c for i, c in chosen]
+    return [val[i][c] for i, c in chosen], flat, ambiguous, fast == flat
+
+
+def _candidates(base, logits, forbid):
+    """float32 values as the kernel computes them: base + ((logit - M) -
+    lse), base + NEG_INF at a forbidden column."""
+    lg = torch.from_numpy(np.asarray(logits, np.float32))
+    m = lg.max(dim=1, keepdim=True).values
+    lse = torch.log(torch.exp(lg - m).sum(dim=1, keepdim=True))
+    b = torch.from_numpy(np.asarray(base, np.float32))[:, None]
+    return torch.where(torch.from_numpy(forbid)[None, :], b + torch.tensor(TBeam.NEG_INF),
+                       b + ((lg - m) - lse))
+
+
+def _forbidden(v, skip_sos):
+    ids = np.arange(v)
+    return (ids == 2) | ((ids == 1) & skip_sos)
+
+
+def _check_rule(base, logits, k, skip_sos):
+    forbid = _forbidden(logits.shape[1], skip_sos)
+    values = _candidates(base, logits, forbid)
+    got_v, got_i, ambiguous, fast_ok = _one_exchange(values, logits, forbid, k)
+    want_v, want_i = TBeam._top_k(values.reshape(-1), k)
+    assert got_i == want_i.tolist()
+    assert got_v == want_v.tolist()
+    return ambiguous, fast_ok
+
+
+@hypothesis.settings(max_examples=40, deadline=None, derandomize=True)
+@hypothesis.given(seed=st.integers(0, 2**32 - 1), k=st.integers(1, 16), v=st.integers(3, 160),
+                  scale=st.sampled_from([1e-6, 1.0, 30.0]), offset=st.sampled_from([0.0, 4096.0]),
+                  dead=st.integers(0, 3), skip_sos=st.booleans())
+def test_one_exchange_rule_equals_the_full_top_k(seed, k, v, scale, offset, dead, skip_sos):
+    """Drawn beams and vocabularies (V from 3, so that fewer than 8 K and
+    fewer than K allowed columns occur), logits from near-equal to spread,
+    scores near 0 or near 4,096, dead beams at NEG_INF: the rule gives
+    _top_k's K best of the whole [K, V] exactly, fallback included."""
+    rng = np.random.default_rng(seed)
+    base = -offset - rng.uniform(0, 20, k)
+    base[k - min(dead, k - 1):] = TBeam.NEG_INF
+    _check_rule(base.astype(np.float32), (scale * rng.standard_normal((k, v))).astype(np.float32),
+                k, skip_sos)
+
+
+def _collapsed(k, v=500, cols=range(200, 206)):
+    """Scores near 4,096, and row 0's best logits in one rank's share
+    (columns 200-205, rank 3), each one float32 ulp above the last: their
+    values collapse into one (a score's ulp there is ~4.9e-4), so the list
+    by logit (the highest columns) is not the K best by (value, column)."""
+    rng = np.random.default_rng(7)
+    logits = rng.standard_normal((k, v)).astype(np.float32)
+    top = np.float32(8.0)
+    for c in cols:
+        logits[0, c] = top
+        top = np.nextafter(top, np.float32(9.0))
+    forbid = _forbidden(v, False)
+    for shift in np.arange(0, 4, 0.25):
+        base = np.full(k, -4095.0 - shift, np.float32)
+        base[1:] -= 30.0
+        vals = _candidates(base, logits, forbid)[0, list(cols)]
+        if bool((vals == vals[0]).all()):
+            return base, logits
+    raise AssertionError("no score collapses the six values")
+
+
+@pytest.mark.parametrize("k", [1, 4, 5])
+def test_one_exchange_rule_at_a_collapsed_cut(k):
+    """Where two logits give one value, a candidate a rank did not push can
+    belong in the K best: the check fires, the first exchange's answer is
+    wrong, and the second exchange gives the exact one."""
+    base, logits = _collapsed(k)
+    ambiguous, fast_ok = _check_rule(base, logits, k, False)
+    assert ambiguous and not fast_ok
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_one_exchange_rule_with_equal_logits_across_ranks(k):
+    """The same best logit in columns of four ranks, in every row: ties by
+    flat index across the ranks' lists."""
+    rng = np.random.default_rng(11)
+    logits = rng.standard_normal((k, 500)).astype(np.float32)
+    logits[:, [10, 100, 300, 450]] = 6.0
+    base = (-4096.0 - rng.uniform(0, 1, k)).astype(np.float32)
+    _check_rule(base, logits, k, False)
+
+
+@pytest.mark.parametrize("v,k,fires", [(5, 4, True), (8, 7, True), (5, 16, False),
+                                       (12, 16, False)])
+def test_one_exchange_rule_where_forbidden_columns_enter(v, k, fires):
+    """V < 8 K: ranks own few columns or none.  One live beam and the rest
+    at NEG_INF under extra_skip_sos, fewer allowed columns than K: the live
+    beam's forbidden columns (at base + NEG_INF) tie the dead beams' allowed
+    ones and enter the K best by flat index, exactly.  The check fires
+    where rank 0 holds more than K columns (its list of the live row ends
+    on a forbidden column at the cut); where every rank holds K or fewer,
+    every candidate was pushed and it stays quiet."""
+    rng = np.random.default_rng(v + k)
+    base = np.full(k, TBeam.NEG_INF, np.float32)
+    base[0] = -3.0
+    logits = rng.standard_normal((k, v)).astype(np.float32)
+    forbid = _forbidden(v, True)
+    values = _candidates(base, logits, forbid)
+    flat = TBeam._top_k(values.reshape(-1), k)[1]
+    assert bool(torch.isin(flat, torch.tensor([1, 2])).any())
+    ambiguous, _ = _check_rule(base, logits, k, True)
+    assert ambiguous == fires
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_one_exchange_rule_is_quiet_on_generic_frames(seed):
+    """Spread logits and distinct scores: one exchange decides."""
+    rng = np.random.default_rng(100 + seed)
+    base = (-rng.uniform(0, 200, 4)).astype(np.float32)
+    ambiguous, fast_ok = _check_rule(base, (2 * rng.standard_normal((4, 500))).astype(np.float32),
+                                     4, False)
+    assert not ambiguous and fast_ok

@@ -756,17 +756,37 @@ def test_greedy_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # that fills, one beam, 8 and 16 beams (16 at a vocabulary of 5: candidates
 # at NEG_INF in the top K, ties by index), context 1 and 3, the flagship's
 # widths (J = D = 512, V = 500) and a vocabulary of 5,500 (the weights
-# streamed).  Every case has a lane of 0 frames.
-BEAM_KERNEL_CASES = [
-    pytest.param(4, 40, 20, 24, 2, 3, 40, 64, False, 64, 0.3, id="K4"),
-    pytest.param(2, 40, 20, 24, 2, 3, 40, 8, True, 6, -0.5, id="K2-sos-full-buffer-w8"),
-    pytest.param(2, 40, 20, 24, 2, 3, 40, 8, True, 64, 1.2, id="K2-sos-blank-runs-w8"),
-    pytest.param(1, 40, 20, 24, 2, 2, 30, 16, False, 64, 0.6, id="K1"),
-    pytest.param(8, 70, 36, 40, 1, 4, 50, 16, False, 64, 1.2, id="K8-ctx1"),
-    pytest.param(16, 5, 24, 24, 3, 2, 30, 64, True, 64, 0.0, id="K16-v5-ctx3"),
-    pytest.param(4, 500, 512, 512, 2, 4, 60, 64, False, 1024, 0.0, id="flagship"),
-    pytest.param(4, 5500, 512, 512, 2, 2, 30, 64, False, 1024, 0.0, id="vocab-5500"),
+# streamed).  Every case has a lane of 0 frames.  Each runs with one lane a
+# cluster (P = 1) and, where P K <= 16, two (P = 2: lanes paired by length,
+# an odd lane alone in the last cluster); the flagship also with four (P =
+# 4: all 16 rows of the tile).
+_BEAM_KERNEL_SHAPES = [
+    ((4, 40, 20, 24, 2, 3, 40, 64, False, 64, 0.3), "K4"),
+    ((2, 40, 20, 24, 2, 3, 40, 8, True, 6, -0.5), "K2-sos-full-buffer-w8"),
+    ((2, 40, 20, 24, 2, 3, 40, 8, True, 64, 1.2), "K2-sos-blank-runs-w8"),
+    ((1, 40, 20, 24, 2, 2, 30, 16, False, 64, 0.6), "K1"),
+    ((8, 70, 36, 40, 1, 4, 50, 16, False, 64, 1.2), "K8-ctx1"),
+    ((16, 5, 24, 24, 3, 2, 30, 64, True, 64, 0.0), "K16-v5-ctx3"),
+    ((4, 500, 512, 512, 2, 4, 60, 64, False, 1024, 0.0), "flagship"),
+    ((4, 5500, 512, 512, 2, 2, 30, 64, False, 1024, 0.0), "vocab-5500"),
 ]
+BEAM_KERNEL_CASES = [
+    pytest.param(*shape, lanes, id=f"{name}-P{lanes}")
+    for shape, name in _BEAM_KERNEL_SHAPES
+    for lanes in ((1, 2, 4) if name == "flagship" else (1, 2) if shape[0] <= 8 else (1,))
+]
+
+
+@pytest.fixture
+def force_lanes(monkeypatch):
+    """``force_lanes(p)``: the beam wrapper launches p lanes a cluster for
+    the rest of the test (its choice of P replaced, its cached launch shapes
+    dropped on both sides)."""
+    def force(lanes):
+        monkeypatch.setattr(TBeam, "lanes_per_cluster", lambda batch, beams, at_once: lanes)
+        TBeam._kernel_lanes.cache_clear()
+    yield force
+    TBeam._kernel_lanes.cache_clear()
 
 
 def _beam_kernel_models(device, k, v, j, d, ctx, bias, seed=21):
@@ -779,16 +799,19 @@ def _beam_kernel_models(device, k, v, j, d, ctx, bias, seed=21):
 
 
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("k,v,j,d,ctx,b,t,window,sos,max_tokens,bias", BEAM_KERNEL_CASES)
-def test_beam_kernel_matches_plain(cuda, dtype, k, v, j, d, ctx, b, t, window, sos, max_tokens,
-                                   bias):
+@pytest.mark.parametrize("k,v,j,d,ctx,b,t,window,sos,max_tokens,bias,lanes", BEAM_KERNEL_CASES)
+def test_beam_kernel_matches_plain(cuda, force_lanes, dtype, k, v, j, d, ctx, b, t, window, sos,
+                                   max_tokens, bias, lanes):
     """Two chained calls (the streaming shape) from init_state, ragged lens
-    with an empty lane, per-lane frame_offset.  float32: every state field
-    and each frame's recorded choice equal to the plain version's on the
-    card, the scores and recorded scores to atol 1e-4 + rtol 1e-5 and the
-    decoder outputs to atol 1e-5 (summation order); bf16: the beam replay at
-    2 ulps.  The state it starts from is left as it was."""
+    with an empty lane, per-lane frame_offset, ``lanes`` lanes a cluster.
+    float32: every state field and each frame's recorded choice equal to
+    the plain version's on the card, the scores and recorded scores to atol
+    1e-4 + rtol 1e-5 and the decoder outputs to atol 1e-5 (summation
+    order); bf16: the beam replay at 2 ulps.  The second exchange's count
+    stays within each lane's emission steps.  The state it starts from is
+    left as it was."""
     dp, jp, cfg = _beam_kernel_models(cuda, k, v, j, d, ctx, bias)
+    force_lanes(lanes)
     rng = np.random.default_rng(k + v + t)
     lens = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
     lens[0], lens[1] = t, 0
@@ -806,6 +829,9 @@ def test_beam_kernel_matches_plain(cuda, dtype, k, v, j, d, ctx, b, t, window, s
                                      operands=ops, trace=trace)
         torch.cuda.synchronize()
         assert TBeam.beam_frames_skip.launches == before + 1
+        kind = trace.fields()[2]
+        emission_steps = ((kind == TBeam.STEP_EMIT)[..., 0] & valid).sum(1)
+        assert bool((trace.second >= 0).all() and (trace.second <= emission_steps).all())
         assert all(torch.equal(x, y) for x, y in zip(kept, dataclasses.astuple(st)))
         if dtype is None:
             plain = TBeam.BeamTrace.empty(b, t, k, cuda)
@@ -835,16 +861,18 @@ def test_beam_kernel_plan_matches_the_host_mirror(cuda):
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     for args in [(512, 512, 500, 2, 4), (512, 512, 500, 2, 8), (512, 512, 5500, 2, 4),
                  (20, 24, 40, 2, 16), (1024, 1024, 500, 2, 4), (36, 40, 70, 1, 8)]:
-        for dtype in (None, torch.bfloat16):
-            got = TBeam.kernel_plan(*args, dtype)
-            want = TBeam.plan_bytes(*args, dtype, limit=limit)
-            assert got["smem_bytes"] == want["smem_bytes"], (args, dtype, got, want)
+        for dtype, lanes in [(None, 1), (torch.bfloat16, 1), (None, 2), (torch.bfloat16, 2)]:
+            if lanes * args[4] > 16:
+                continue
+            got = TBeam.kernel_plan(*args, dtype, lanes)
+            want = TBeam.plan_bytes(*args, dtype, limit=limit, lanes=lanes)
+            assert got["smem_bytes"] == want["smem_bytes"], (args, dtype, lanes, got, want)
             assert (got["resident_ntiles"], got["resident_chunks"], got["stage_ntiles"],
                     got["stage_chunks"], got["ring_stages"]) == (
                 want["res_w"], want["res_d"], want["sw"], want["sd"], want["depth"]), (args, dtype)
 
 
-def test_beam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+def test_beam_wrapper_rejects_what_the_kernel_does_not_take(cuda, force_lanes):
     dp, jp, cfg = _beam_kernel_models(cuda, 4, 40, 20, 24, 2, 2.0)
     st = TBeam.init_state(dp, cfg, jp, 2, 4, 8)
     enc = torch.zeros((2, 5, 20), device=cuda)
@@ -864,6 +892,9 @@ def test_beam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         moved = dataclasses.replace(ops, **{field: getattr(ops, field).cpu()})
         with pytest.raises(ValueError, match="enc_proj's device"):
             run(dp, cfg, jp, st, enc, lens, off, operands=moved)
+    force_lanes(5)  # 5 lanes of 4 beams: more rows than the tile's 16
+    with pytest.raises(ValueError, match="lanes_per_cluster"):
+        run(dp, cfg, jp, st, enc, lens, off)
 
 
 @pytest.mark.parametrize("hotwords", [False, True], ids=["beam", "beam-hotwords"])

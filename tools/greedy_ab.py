@@ -3,14 +3,11 @@
     python3 tools/greedy_ab.py A.cu B.cu [--pairs N]
 
 A.cu and B.cu are versions of ``k2transducerasr_tpu_torch/csrc/rnnt_greedy.cu``
-(its C interface unchanged).  Each is built with ``nvcc`` and the flags of
-``ops/cuda_build.py``, its includes resolved against ``csrc/``, into the
-git-ignored ``_build/``, and swapped in under the wrapper
-(``decode/rnnt_greedy.greedy_frames_skip``) through ``cuda_build``'s table of
-loaded functions.  The cases are ``chip_smoke.py`` [3c]'s bf16 shapes: the
-decoder and joiner of ``Zipformer2Config(causal=True)`` from seed 0 (vocab
-500), random encoder frames from a ``torch.Generator`` seeded 11; 16 full
-lanes x 766 frames (two waves of clusters on an H100 SXM), 15 lanes (one
+(its C interface unchanged), built and swapped in under the wrapper
+(``decode/rnnt_greedy.greedy_frames_skip``) by ``tools/kernel_ab.py``.  The
+cases are ``chip_smoke.py`` [3c]'s bf16 shapes: the decoder and joiner of
+``Zipformer2Config(causal=True)`` from seed 0 (vocab 500), random encoder
+frames from a ``torch.Generator`` seeded 11; 16 full lanes x 766 frames (two waves of clusters on an H100 SXM), 15 lanes (one
 wave), and a streaming step of 16 lanes x 16 frames.  Per case the builds run
 in the order A B B A, N times (default 4); each run is the median of 10 calls
 timed by CUDA events after 2 warm calls.  Both builds must give the same
@@ -21,11 +18,8 @@ case with every time and the medians.  Needs one card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import os
 import statistics
-import subprocess
 import sys
 
 import torch
@@ -36,41 +30,11 @@ from k2transducerasr_tpu_torch import ModelBundle  # noqa: E402
 from k2transducerasr_tpu_torch.decode import rnnt_greedy  # noqa: E402
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod  # noqa: E402
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config  # noqa: E402
-from k2transducerasr_tpu_torch.ops import cuda_build  # noqa: E402
+from kernel_ab import build, card, median_ms, restore, use  # noqa: E402
 
 CASES = (("offline, 16 full lanes", 16, 766), ("offline, 15 lanes (one wave)", 15, 766),
          ("streaming step, 16 x 16", 16, 16))
 FIELDS = ("hyp", "dec_proj", "tokens", "timestamps", "count", "trailing_blanks")
-KEY = ("rnnt_greedy", "k2t_rnnt_greedy")
-
-
-def load(source: str):
-    """Build ``source`` (once per content) and return its k2t_rnnt_greedy."""
-    with open(source, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(cuda_build.BUILD_DIR, f"librnnt_greedy_ab_{tag}.so")
-    if not os.path.exists(out):
-        os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC, "-o",
-                        out, source], check=True)
-    fn = ctypes.CDLL(out).k2t_rnnt_greedy
-    fn.argtypes = rnnt_greedy._ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def median_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -82,10 +46,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("greedy_ab: needs an NVIDIA card", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"card: {smi}", flush=True)
-    fns = {"A": load(args.a), "B": load(args.b)}
+    print(f"card: {card()}", flush=True)
+    texts = {}
+    for label, path in (("A", args.a), ("B", args.b)):
+        with open(path) as f:
+            texts[label] = f.read()
+    fns = build("rnnt_greedy", texts, rnnt_greedy._ARGTYPES)
     bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
                                 seed=0, device="cuda")
     dec, join, cfg = bundle.decoder, bundle.joiner, bundle.decoder_cfg
@@ -107,7 +73,7 @@ def main() -> int:
 
             outs, times = {}, {"A": [], "B": []}
             for which in "ABBA" * args.pairs:
-                cuda_build._functions[KEY] = fns[which]
+                use("rnnt_greedy", fns[which])
                 outs[which] = call()
                 times[which].append(median_ms(call))
             same = all(torch.equal(getattr(outs["A"], f), getattr(outs["B"], f)) for f in FIELDS)
@@ -116,7 +82,7 @@ def main() -> int:
                   f"median {statistics.median(times['B']):.4f} ms | identical {same}", flush=True)
             if not same:
                 return 1
-    cuda_build._functions.pop(KEY, None)
+    restore("rnnt_greedy")
     return 0
 
 
