@@ -66,12 +66,20 @@ Phases (any failure exits non-zero; none is caught):
      timestamps identical; and zipformer2 under modified_beam_search: the
      best beam's tokens and timestamps identical, its score within 1e-3;
   6. each offline main path at full width: bf16, batches of 16 x 30 s
-     through begin_decode/end_decode, every kernel's launches counted from 0
-     (greedy search for each family, zipformer2-CTC, and zipformer2 under
-     modified_beam_search; LSTM launches neither attention kernel; every
-     greedy path one rnnt_greedy per batch, the beam path one rnnt_beam);
-     one greedy batch's search held to the tie-aware replay, each beam
-     batch's to the beam replay;
+     through begin_decode/end_decode, each batch one replay of the
+     recognizer's CUDA graph (runtime/program.py), every kernel's launches
+     counted from 0 through the replay's arithmetic (greedy search for each
+     family, zipformer2-CTC, and zipformer2 under modified_beam_search; LSTM
+     launches neither attention kernel; every greedy path one rnnt_greedy
+     per batch, the beam path one rnnt_beam); a second capture of the same
+     key dumped and its kernel nodes counted by name against one batch's
+     launches; the first batch's host ms (warm-up run, capture, replay), the
+     graph pool's bytes, one replay's device time and the device busy share
+     over 3 batches, the kernels in that profiler trace counted by name
+     against the counters; each timed batch
+     held bit for bit against eager _decode of the same batch; one greedy
+     batch's search held to the tie-aware replay, each beam batch's eager
+     search to the beam replay;
   6b. each streaming main path at full width (each family's causal config):
      bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
      per step; per-step latency, streaming RTF and the launches per step
@@ -80,10 +88,15 @@ Phases (any failure exits non-zero; none is caught):
      under torch.cuda.set_sync_debug_mode("error") (greedy and CTC,
      reference_pad_compat off and on; modified_beam_search with and without
      hotwords) and begin_step (the same methods, 16 lanes) raise nothing and
-     give the sequential run's tokens; then the
-     2-deep pipeline of bench.py over 7 batches against the same batches
-     one by one (audio-s/s each, begin_decode's host ms beside the batch
-     ms);
+     give the sequential run's tokens, the eager route's host ms beside;
+     then the 2-deep pipeline of bench.py over 7 batches against the same
+     batches one by one (audio-s/s each, begin_decode's host ms beside the
+     batch ms), through the graph and through eager _decode in turns;
+  6d. graph memory: zipformer2 greedy at full width, bf16, 16 rows: eager
+     _decode's peak allocated and reserved from an emptied cache, then the
+     graphs of three buckets (30, 20, 10 s) captured in turn, the pool's
+     reserved and allocated bytes and the memory outside it after each; a
+     dropped recognizer must leave none of its pool after empty_cache;
   8. int8 (accuracy="int8"): zipformer2 and conformer at full width, f32,
      card against CPU (the int8 weights bit for bit, the encoder within int8's
      own change from float32, tokens identical); their offline main paths
@@ -98,8 +111,9 @@ Phases (any failure exits non-zero; none is caught):
      dir, converted, loaded on the card: the source bundle's tokens;
  11. the CLI and the demos in this process (so the launches count): the
      zipformer2 pin dir with the pin signal as a wav, offline (-batch multi)
-     and online, must print the pinned transcripts; ``convert`` on [10]'s
-     ONNX dir must exit 0;
+     and online, must print the pinned transcripts, each offline decode
+     through the graph and equal to eager _decode bit for bit; ``convert``
+     on [10]'s ONNX dir must exit 0;
  12. data and tensor parallelism on the one card: two ranks of this script
      (``--parallel-rank``) in a gloo group passing CUDA tensors (NCCL
      refuses two ranks on one device); TP on mesh 1x2 (zipformer2 and
@@ -125,6 +139,7 @@ import gc
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -150,6 +165,8 @@ from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
+from k2transducerasr_tpu_torch.runtime.offline import PendingDecode
+from k2transducerasr_tpu_torch.runtime.program import CudaGraphs, DecodeProgram
 from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1477,6 +1494,93 @@ def beam_replays(tag, name, rec, calls):
         f"otherwise than the plain top K, worst overshoot {worst:.2f} bands)")
 
 
+def eager_begin(rec, streams):
+    """begin_decode as it was before the program: the upload and eager
+    _decode, each op launched from Python, and no readback started (the
+    handle's host buffers are the device tensors, which end_decode copies
+    back when it reads them, behind whatever the stream holds by then)."""
+    samples, counts = rec.pcm_batch(streams)
+    with torch.inference_mode(), rec._precision():
+        out = rec._decode(samples, counts)
+    return PendingDecode(streams, out, None)
+
+
+@contextlib.contextmanager
+def graph_audit():
+    """Within: every DecodeProgram call must run a captured graph (a replay;
+    the first call of a shape captures first), and its outputs are held bit
+    for bit against eager ``fn`` on the same inputs (under the call's own
+    inference mode and precision; the eager run's launches are not
+    counted).  Yields a list with one (key, captured here) per call."""
+    calls = []
+    call = DecodeProgram.__call__
+
+    def audited(self, samples, counts):
+        key = tuple(samples.shape)
+        new = key not in self.entries
+        out = call(self, samples, counts)
+        if self.entries[key].graph is None:
+            raise AssertionError(f"decode program {key}: no graph on the card")
+        saved = read_counts()
+        eager = self.fn(samples, counts)
+        for name, fn in KERNELS.items():
+            fn.launches = saved[name]
+        if len(out) != len(eager) or not all(
+                g.dtype == e.dtype and torch.equal(g, e) for g, e in zip(out, eager)):
+            raise AssertionError(f"decode program {key}: the graph's outputs differ from eager "
+                                 f"_decode's")
+        calls.append((key, new))
+        return out
+
+    DecodeProgram.__call__ = audited
+    try:
+        yield calls
+    finally:
+        DecodeProgram.__call__ = call
+
+
+@contextlib.contextmanager
+def graph_dump():
+    """Within: every graph a DecodeProgram captures is kept as a
+    ``cudaGraph_t`` in debug mode (``keep_graph=True``), so that
+    graph_kernel_nodes can dump it; yields the list of them.  Only for a
+    capture whose nodes are counted: a recognizer's own graphs, the ones
+    the timed batches replay, are captured as in production."""
+    graphs = []
+    capture = CudaGraphs.capture
+
+    def kept(self, fn, inputs):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            outputs = fn(*inputs)
+        graphs.append(graph)
+        return graph, outputs
+
+    CudaGraphs.capture = kept
+    try:
+        yield graphs
+    finally:
+        CudaGraphs.capture = capture
+
+
+def graph_kernel_nodes(graph) -> tuple[dict, int]:
+    """A captured graph's kernel nodes named after each of KERNELS (a node
+    whose kernel's name holds it), and all its nodes, from
+    cudaGraphDebugDotPrint's file (one record per node).  The graph must
+    have been captured under graph_dump."""
+    import warnings
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # PyTorch warns that debug_dump runs
+            graph.debug_dump(path)
+        with open(path) as f:
+            nodes = re.split(r'\n(?="graph_\d+_node_\d+"\[)', f.read())[1:]
+    return {name: sum(name in n for n in nodes) for name in KERNELS}, len(nodes)
+
+
 def phase_golden(family):
     spec = FAMILIES[family]
     bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
@@ -1558,8 +1662,9 @@ def phase_beam_full_width_vs_cpu(family="zipformer2"):
         streams = streams_for(rec, pcm)
         reset_counts()
         pending = rec.begin_decode(streams)
-        nbest = rec._nbest_results(streams, pending[4])[0]
-        outs[dev] = (rec.end_decode(pending)[0], nbest, float(pending[4][3][0, 0]))
+        best = rec.end_decode(pending)[0]
+        outs[dev] = (best, rec._nbest_results(streams, pending.host)[0],
+                     float(pending.host[3][0, 0]))
         if dev == "cuda":
             family_launches(f"{family}_card_vs_cpu_beam", FAMILIES[family], read_counts(), BEAM)
         log(f"[5] {family} beam full width f32 on {dev}: {len(outs[dev][0].tokens)} tokens, "
@@ -1669,35 +1774,61 @@ def phase_full_width_vs_cpu(family, cfg=None, name=None, tag="[5]"):
 
 
 def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
-    """An offline main path (a CTC family always decodes CTC greedy): one
-    warm-up batch, then ``n_batches`` timed, the launches counted from 0
-    over them; under beam search each timed batch is held to the beam
-    replay.
-    ``accuracy="int8"``: the encoder's linears in int8 ([8])."""
+    """An offline main path (a CTC family always decodes CTC greedy) through
+    begin_decode's CUDA graph: the first batch captures it (its host ms with
+    the warm-up run, the capture and the replay); a second capture of the
+    same key, in a program of its own under graph_dump, has its kernel
+    nodes counted by name against one batch's launches; then ``n_batches``
+    timed, the launches counted from 0 over them (the replay adds what the
+    capture recorded); each timed batch again through the graph, held bit
+    for bit against eager _decode of the same batch (graph_audit), whose
+    beam search is held to the beam replay; the device's busy share over 3
+    batches, with the kernels the profiler traced held against the counts,
+    and one replay's device time.
+    ``accuracy="int8"``: the encoder's linears in int8 ([8]).  Returns
+    (the family kernel's launches, the path's numbers)."""
     spec = FAMILIES[family]
     bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
     rec = OfflineRecognizer(bundle, decoding_method=method, max_active_paths=BEAM_K,
                             accuracy=accuracy, device="cuda")  # bf16 compute
     name = f"{family}/{rec.decoding_method}" + (f"/{accuracy}" if accuracy else "")
+    tag = "[8]" if accuracy else "[6]"
     n = 30 * 16000
     batches = [streams_for(rec, [synth_pcm(n, k * FLAGSHIP_B + i) for i in range(FLAGSHIP_B)])
                for k in range(n_batches + 1)]
-    rec.get_results(batches[0])  # warm-up (cuBLAS/cuDNN handles, allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.get_results(batches[0])  # the shape's capture: a warm-up run, the capture, a replay
+    first_ms = (time.perf_counter() - t0) * 1e3
+    (key, entry), = rec.program.entries.items()
+    search = search_kernel(spec, rec.decoding_method)
+    per_batch = counts_of(**{spec["kernel"] or "none": spec["per_batch"],
+                             search or "none": 1})
+    with graph_dump() as dumped, torch.inference_mode(), rec._precision():
+        DecodeProgram(rec._decode, rec.device)(*entry.inputs)
+    nodes, n_nodes = graph_kernel_nodes(dumped[0])
+    del dumped
+    gc.collect()
+    torch.cuda.empty_cache()  # the dumped graph's pool
+    log(f"{tag} {name} graph of key (rows, samples) {key}: captured with its first batch in "
+        f"{first_ms:.1f} ms (warm-up run, capture, replay); launches per replay "
+        f"{dict(zip(KERNELS, entry.launches))}; a second capture of the key, dumped: "
+        f"{n_nodes} nodes, kernel nodes {nodes}")
+    if nodes != per_batch or dict(zip(KERNELS, entry.launches)) != per_batch:
+        raise AssertionError(f"{name}: the graph holds kernel nodes {nodes} and records "
+                             f"{entry.launches}, expected one batch's {per_batch}")
     reset_peak_memory()
 
     reset_counts()
     t0 = time.time()
     results = []
-    with beam_capture() as searches:  # each beam search's inputs and choices, for the replay
-        for k in range(1, n_batches + 1):
-            results.extend(rec.end_decode(rec.begin_decode(batches[k])))
-        torch.cuda.synchronize()
+    for k in range(1, n_batches + 1):
+        results.extend(rec.end_decode(rec.begin_decode(batches[k])))
+    torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
 
-    search = search_kernel(spec, rec.decoding_method)
-    want = counts_of(**{spec["kernel"] or "none": spec["per_batch"] * n_batches,
-                        search or "none": n_batches})
+    want = {k: v * n_batches for k, v in per_batch.items()}
     if counts != want:
         raise AssertionError(f"{name} main path launched {counts}, expected {want}")
     if search:
@@ -1705,7 +1836,28 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
+    pool = rec.program.pool_bytes() / 2**30
     toks = [len(r.tokens) for r in results]
+
+    # each timed batch again: the graph's outputs against eager _decode (and,
+    # under beam search, eager's search against the plain ops)
+    with beam_capture() as searches, graph_audit() as audited:
+        again = [r for k in range(1, n_batches + 1)
+                 for r in rec.end_decode(rec.begin_decode(batches[k]))]
+    if [(r.tokens, r.timestamps) for r in again] != [(r.tokens, r.timestamps) for r in results]:
+        raise AssertionError(f"{name}: a batch decoded again gave other tokens")
+    if len(audited) != n_batches or any(new for _, new in audited):
+        raise AssertionError(f"{name}: {audited} calls of the program, expected {n_batches} "
+                             f"replays")
+    reset_counts()
+    busy, traced = device_trace(lambda: rec.end_decode(rec.begin_decode(batches[1])), reps=3)
+    replayed = read_counts()
+    if busy is not None and traced != replayed:
+        raise AssertionError(f"{name}: the profiler traced kernels {traced} over 3 replays, the "
+                             f"counters say {replayed}")
+    samples, sample_counts = rec.pcm_batch(batches[1])
+    with torch.inference_mode(), rec._precision():
+        replay_ms = device_ms(lambda: rec.program(samples, sample_counts), reps=3)
 
     # one more batch split into stages (not part of the counted run)
     torch.cuda.synchronize()
@@ -1725,24 +1877,35 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     prep_ms, enc_ms, full_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
     if min(toks) == 0 or max(toks) > rec.max_tokens:
         raise AssertionError(f"{name}: implausible token counts {min(toks)}..{max(toks)}")
-    if pending[4] is not None:  # beam: the n-best sorted, finite scores
-        score = pending[4][3]
+    if len(pending.host) == 4:  # beam: the n-best sorted, finite scores
+        score = pending.host[3]
         if not bool(torch.isfinite(score).all()) or bool((score[:, 1:] > score[:, :-1]).any()):
             raise AssertionError(f"{name}: n-best scores not finite or not sorted")
-    tag = "[8]" if accuracy else "[6]"
     if search == "rnnt_greedy" and not accuracy:
         greedy_replay(name, rec, enc, lens)
     if searches:
         beam_replays(tag, name, rec, searches)
-    log(f"{tag} {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s: "
-        f"{ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak {peak:.2f} GiB, "
-        f"launches {counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
-        f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), "
-        f"enc out {tuple(enc.shape)}")
+    log(f"{tag} {name} main path bf16, {n_batches} batches x {FLAGSHIP_B} x 30 s, each one "
+        f"graph replay: {ms_batch:.1f} ms/batch, {audio_rate:.1f} audio-s/s, peak "
+        f"{peak:.2f} GiB allocated with the graph held, its pool {pool:.3f} GiB, launches "
+        f"{counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
+        f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), enc out "
+        f"{tuple(enc.shape)}")
+    log(f"{tag} {name} graph vs eager _decode: {len(audited)} batches bit for bit; one "
+        f"replay's device time {replay_ms:.2f} ms (calls queued behind a spin); device busy "
+        + ("not measured (the profiler recorded no device activity), nor the traced kernels"
+           if busy is None else
+           f"{busy:.1%} of 3 profiled batches' wall time (the profiler's host cost included); "
+           f"kernels in the trace by name {traced}, equal to the counters"))
     log(f"{tag} {name} stage split (host clock, one batch): host prep and upload (pcm_batch) "
-        f"{prep_ms:.1f} ms, fbank+encoder {enc_ms:.1f} ms; whole decode {full_ms:.1f} ms -> "
-        f"search + readback ~{full_ms - prep_ms - enc_ms:.1f} ms")
-    return counts.get(spec["kernel"], 0)
+        f"{prep_ms:.1f} ms, eager fbank+encoder {enc_ms:.1f} ms; whole decode (graph) "
+        f"{full_ms:.1f} ms")
+    row = {"path": name, "ms_per_batch": ms_batch, "audio_s_per_s": audio_rate,
+           "first_batch_ms": first_ms, "replay_device_ms": replay_ms,
+           "device_busy_share": busy, "traced_kernels": traced, "peak_gib": peak,
+           "graph_pool_gib": pool, "graph_nodes": n_nodes, "kernel_nodes": nodes,
+           "prep_ms": prep_ms, "eager_encoder_ms": enc_ms}
+    return counts.get(spec["kernel"], 0), row
 
 
 def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accuracy=None):
@@ -1767,7 +1930,7 @@ def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accu
         s.add_samples(synth_pcm(n, 300 + i))
         streams.append(s)
     rec.get_results(streams)  # warm-up (cuBLAS/cuDNN handles, allocator)
-    busy = device_busy_share(lambda: rec.get_results(streams), reps=3)
+    busy, _ = device_trace(lambda: rec.get_results(streams), reps=3)
     reset_peak_memory()
 
     reset_counts()
@@ -1844,11 +2007,14 @@ def _no_sync(what, fn):
 
 def phase_no_wait() -> dict:
     """[6c] zipformer2 and zipformer2-CTC at full width, 16 x 30 s, bf16:
-    begin_decode (reference_pad_compat off and on) and begin_step (16 lanes)
+    begin_decode (one graph replay, the shape captured by a first
+    get_results; reference_pad_compat off and on) and begin_step (16 lanes)
     under set_sync_debug_mode("error"), each giving the tokens of the same
-    work done with waits; then the 2-deep pipeline of bench.py:385-395 over
-    NO_WAIT_BATCHES batches against the same batches one by one.  Returns
-    the pipeline's numbers."""
+    work done with waits, with the eager route's host ms beside; then the
+    2-deep pipeline of bench.py:385-395 over NO_WAIT_BATCHES batches against
+    the same batches one by one, through the graph and through the eager
+    route in turns (eager, graph, graph, eager).  Returns the pipeline's
+    numbers."""
     n = 30 * 16000
     pipeline_rec = None
     for family in ("zipformer2", "zipformer2ctc"):
@@ -1863,9 +2029,12 @@ def phase_no_wait() -> dict:
             t0 = time.perf_counter()
             got = [(r.tokens, r.timestamps) for r in rec.end_decode(pending)]
             wait = (time.perf_counter() - t0) * 1e3
+            _, eager = _no_sync(f"{family} eager route", lambda: eager_begin(rec, batch))
+            torch.cuda.synchronize()
             log(f"[6c] {family}/{rec.decoding_method} begin_decode, reference_pad_compat={compat}:"
-                f" no host sync; host {host:.1f} ms, then end_decode waited {wait:.1f} ms; tokens "
-                f"equal to the run with waits: {got == want}")
+                f" no host sync; host {host:.1f} ms (the eager route {eager:.1f}), then "
+                f"end_decode waited {wait:.1f} ms; tokens equal to the run with waits: "
+                f"{got == want}")
             if got != want:
                 raise AssertionError(f"[6c] {family} begin_decode (compat {compat}) gave other "
                                      f"tokens than get_results")
@@ -1902,39 +2071,143 @@ def phase_no_wait() -> dict:
                                  for i in range(FLAGSHIP_B)]) for k in range(NO_WAIT_BATCHES)]
     audio = NO_WAIT_BATCHES * FLAGSHIP_B * 30.0
     rec.get_results(batches[0])
+    routes = {"eager": lambda bt: eager_begin(rec, bt), "graph": rec.begin_decode}
+    runs = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):  # in turns, on one card
+        runs[route].append(_pipeline(rec, batches, routes[route]))
+    same = len({repr(r[mode]) for rs in runs.values() for r in rs for mode in ("seq", "pipe")}) == 1
+    out = {"batches": NO_WAIT_BATCHES, "graphs_held": len(rec.program),
+           "graph_pool_gib": rec.program.pool_bytes() / 2**30, "beam": beam}
+    for route, rs in runs.items():
+        seq_s = statistics.mean(r["seq_s"] for r in rs)
+        pipe_s = statistics.mean(r["pipe_s"] for r in rs)
+        out[route] = dict(sequential_audio_s_per_s=audio / seq_s,
+                          pipelined_audio_s_per_s=audio / pipe_s,
+                          sequential_batch_ms=seq_s / NO_WAIT_BATCHES * 1e3,
+                          pipelined_batch_ms=pipe_s / NO_WAIT_BATCHES * 1e3,
+                          begin_decode_host_ms=statistics.mean(
+                              h for r in rs for h in r["host"]) * 1e3,
+                          runs=[{k: r[k] for k in ("seq_s", "pipe_s")} for r in rs])
+        how = "one graph replay" if route == "graph" else "eager _decode"
+        log(f"[6c] zipformer2/greedy_search pipeline, {route} route ({how} per batch), "
+            f"{NO_WAIT_BATCHES} batches x {FLAGSHIP_B} x 30 s bf16, mean of {len(rs)} runs: "
+            f"sequential {out[route]['sequential_audio_s_per_s']:.1f} audio-s/s "
+            f"({out[route]['sequential_batch_ms']:.1f} ms/batch), 2-deep pipelined "
+            f"{out[route]['pipelined_audio_s_per_s']:.1f} audio-s/s "
+            f"({out[route]['pipelined_batch_ms']:.1f} ms/batch); begin_decode host "
+            f"{out[route]['begin_decode_host_ms']:.1f} ms per batch")
+    log(f"[6c] zipformer2/greedy_search: {out['graphs_held']} graph held, its pool "
+        f"{out['graph_pool_gib']:.3f} GiB; tokens equal across routes, sequential and "
+        f"pipelined: {same}")
+    if not same:
+        raise AssertionError("[6c] the pipelined or eager batches gave other tokens than the "
+                             "sequential graph replays")
+    return out
+
+
+GRAPH_MEMORY_SECONDS = (30, 20, 10)  # [6d]: one bucket each, 16 utterances a batch
+
+
+def _pool_segments(pool) -> tuple[int, int]:
+    """(bytes reserved, bytes allocated) in the segments of a graph pool."""
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(pool)]
+    return sum(seg["total_size"] for seg in segs), sum(seg["allocated_size"] for seg in segs)
+
+
+def phase_graph_memory() -> dict:
+    """[6d] What a recognizer's graphs hold on the card: zipformer2 greedy at
+    full width, bf16, 16 rows.  Eager _decode of a 30 s batch from an
+    emptied cache: its peak allocated and its peak reserved above what was
+    alive before.  Then the graphs of the 30, 20 and 10 s buckets captured
+    in turn (each with its warm-up run on the program's side stream): after
+    each, the pool's reserved bytes, the bytes allocated in it (the static
+    outputs) and what the allocator reserves outside the pool above the
+    start (the warm-up runs' blocks, cached for the side stream).  Last the
+    recognizer dropped with the cycle collector off: its pool's segments
+    left after empty_cache, which must be none."""
+    spec = FAMILIES["zipformer2"]
+    bundle = ModelBundle.random("zipformer2", spec["cfg"](), vocab_size=500, seed=0,
+                                device="cuda")
+    rec = OfflineRecognizer(bundle, device="cuda")
+    batches = {sec: streams_for(rec, [synth_pcm(sec * 16000, 1000 + sec + i)
+                                      for i in range(FLAGSHIP_B)])
+               for sec in GRAPH_MEMORY_SECONDS}
+    gib = 2.0**-30
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_alloc, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    samples, counts = rec.pcm_batch(batches[GRAPH_MEMORY_SECONDS[0]])
+    with torch.inference_mode(), rec._precision():
+        rec._decode(samples, counts)
+    torch.cuda.synchronize()
+    out = {"eager_peak_allocated_gib": (torch.cuda.max_memory_allocated() - base_alloc) * gib,
+           "eager_peak_reserved_gib": (torch.cuda.max_memory_reserved() - base_res) * gib,
+           "graphs": []}
+    del samples, counts
+    torch.cuda.empty_cache()
+    log(f"[6d] zipformer2/greedy_search eager _decode of 16 x {GRAPH_MEMORY_SECONDS[0]} s from "
+        f"an emptied cache: peak allocated {out['eager_peak_allocated_gib']:.3f} GiB, peak "
+        f"reserved {out['eager_peak_reserved_gib']:.3f} GiB above what was alive")
+    pool = rec.program.graphs.pool
+    for sec in GRAPH_MEMORY_SECONDS:
+        t0 = time.perf_counter()
+        rec.get_results(batches[sec])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        reserved, live = _pool_segments(pool)
+        row = {"seconds": sec, "key": list(rec.program.entries)[-1], "first_batch_ms": ms,
+               "pool_gib": reserved * gib, "pool_allocated_gib": live * gib,
+               "outside_pool_gib": (torch.cuda.memory_reserved() - base_res - reserved) * gib}
+        out["graphs"].append(row)
+        log(f"[6d] {len(rec.program)} graph(s) after the {sec} s bucket (key {row['key']}, "
+            f"first batch {ms:.1f} ms): pool {row['pool_gib']:.3f} GiB reserved, "
+            f"{row['pool_allocated_gib']:.4f} GiB of it allocated (the static outputs); "
+            f"reserved outside the pool above the start {row['outside_pool_gib']:.3f} GiB")
+    gc.disable()
+    try:
+        del rec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left, _ = _pool_segments(pool)
+        after = (torch.cuda.memory_reserved() - base_res) * gib
+    finally:
+        gc.enable()
+    out.update(pool_left_after_drop_gib=left * gib, reserved_after_drop_gib=after)
+    log(f"[6d] recognizer dropped, cycle collector off, empty_cache: its pool's segments left "
+        f"{left * gib:.3f} GiB; reserved above the start {after:.3f} GiB")
+    if left:
+        raise AssertionError("[6d] a dropped recognizer's graph pool stayed on the card")
+    return out
+
+
+def _pipeline(rec, batches, begin) -> dict:
+    """The batches one by one (begin, then end_decode), then 2-deep as
+    bench.py drives them (batch k+1 begun before batch k is ended): the wall
+    seconds of each, begin's host seconds per pipelined batch and the tokens."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    seq = [rec.get_results(bt) for bt in batches]
+    seq = [rec.end_decode(begin(bt)) for bt in batches]
     seq_s = time.perf_counter() - t0
     host = []
     t0 = time.perf_counter()
     t1 = time.perf_counter()
-    pending = rec.begin_decode(batches[0])
+    pending = begin(batches[0])
     host.append(time.perf_counter() - t1)
     pipe = []
-    for k in range(1, NO_WAIT_BATCHES):
+    for k in range(1, len(batches)):
         t1 = time.perf_counter()
-        nxt = rec.begin_decode(batches[k])
+        nxt = begin(batches[k])
         host.append(time.perf_counter() - t1)
         pipe.append(rec.end_decode(pending))
         pending = nxt
     pipe.append(rec.end_decode(pending))
     pipe_s = time.perf_counter() - t0
-    same = [[r.tokens for r in b] for b in seq] == [[r.tokens for r in b] for b in pipe]
-    out = dict(sequential_audio_s_per_s=audio / seq_s, pipelined_audio_s_per_s=audio / pipe_s,
-               sequential_batch_ms=seq_s / NO_WAIT_BATCHES * 1e3,
-               pipelined_batch_ms=pipe_s / NO_WAIT_BATCHES * 1e3,
-               begin_decode_host_ms=statistics.mean(host) * 1e3, batches=NO_WAIT_BATCHES,
-               beam=beam)
-    log(f"[6c] zipformer2/greedy_search pipeline, {NO_WAIT_BATCHES} batches x {FLAGSHIP_B} x 30 s "
-        f"bf16: sequential {out['sequential_audio_s_per_s']:.1f} audio-s/s "
-        f"({out['sequential_batch_ms']:.1f} ms/batch), 2-deep pipelined "
-        f"{out['pipelined_audio_s_per_s']:.1f} audio-s/s ({out['pipelined_batch_ms']:.1f} "
-        f"ms/batch); begin_decode host {out['begin_decode_host_ms']:.1f} ms per batch; tokens "
-        f"equal: {same}")
-    if not same:
-        raise AssertionError("[6c] the pipelined batches gave other tokens than the sequential")
-    return out
+    return {"seq_s": seq_s, "pipe_s": pipe_s, "host": host,
+            "seq": [[r.tokens for r in b] for b in seq],
+            "pipe": [[r.tokens for r in b] for b in pipe]}
 
 
 NO_WAIT_HOTWORDS = ["tok7tok7"]  # any text: the n-best is read back and ranked on the host
@@ -1957,12 +2230,15 @@ def _no_wait_beam(bundle, n) -> dict:
         got = [(r.tokens, r.timestamps) for r in rec.end_decode(pending)]
         wait = (time.perf_counter() - t0) * 1e3
         family_launches(f"no_wait_{what}", FAMILIES["zipformer2"], read_counts(), BEAM)
-        log(f"[6c] {what} begin_decode: no host sync; host {host:.1f} ms, then end_decode "
-            f"waited {wait:.1f} ms; tokens equal to the run with waits: {got == want}")
+        _, eager = _no_sync(f"{what} eager route", lambda: eager_begin(rec, batch))
+        torch.cuda.synchronize()
+        log(f"[6c] {what} begin_decode: no host sync; host {host:.1f} ms (the eager route "
+            f"{eager:.1f}), then end_decode waited {wait:.1f} ms; tokens equal to the run with "
+            f"waits: {got == want}")
         if got != want:
             raise AssertionError(f"[6c] {what} begin_decode gave other tokens than get_results")
-        out["hotwords" if hotwords else "plain"] = dict(begin_decode_host_ms=host,
-                                                        end_decode_wait_ms=wait)
+        out["hotwords" if hotwords else "plain"] = dict(
+            begin_decode_host_ms=host, eager_begin_host_ms=eager, end_decode_wait_ms=wait)
     return out
 
 
@@ -2006,12 +2282,13 @@ def _no_wait_beam_steps(sbundle) -> dict:
     return out
 
 
-def device_busy_share(fn, reps: int) -> float | None:
-    """Sum of the device's kernel and copy times over the wall time of
-    ``reps`` calls of fn() under a profiler trace: the share of the window
-    the card was busy (a lower bound: tracing adds host time).  None when
-    the profiler recorded no device activity (CUPTI tracing is not
-    available on every machine): not measured."""
+def device_trace(fn, reps: int) -> tuple[float | None, dict]:
+    """``reps`` calls of fn() under a profiler trace: the sum of the
+    device's kernel and copy times over the window's wall time, the share
+    of it the card was busy (a lower bound: tracing adds host time), and the
+    device events named after each of KERNELS (a kernel whose name holds
+    it).  The share is None when the profiler recorded no device activity
+    (CUPTI tracing is not available on every machine): not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2022,9 +2299,10 @@ def device_busy_share(fn, reps: int) -> float | None:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / 1e6 / wall if busy_us else None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    kernels = {name: sum(name in e.name for e in events) for name in KERNELS}
+    return (busy_us / 1e6 / wall if busy_us else None), kernels
 
 
 def stream_stage_split(rec, reps: int = 5) -> dict:
@@ -2263,8 +2541,8 @@ def phase_convert(tmp):
     tokens) from a full-width Zipformer2Config() random bundle of the port,
     written to ``tmp/onnx`` (kept for [11]), converted by convert_model_dir
     and loaded on the card: a 5 s utterance decodes to the source bundle's
-    tokens (f32), with 16 K1 launches.  Returns those launches and the host
-    seconds."""
+    tokens (f32), with 16 K1 launches (a decode after the one that captured
+    the shape's graph).  Returns those launches and the host seconds."""
     from k2transducerasr_tpu_torch.convert.importer import convert_model_dir, export_model_dir
 
     src = ModelBundle.random("zipformer2", Zipformer2Config(), vocab_size=500, seed=0,
@@ -2285,6 +2563,7 @@ def phase_convert(tmp):
     res = []
     for bundle in (src, conv):
         rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
+        rec.get_results(streams_for(rec, pcm))  # captures the shape's graph
         reset_counts()
         res.append(rec.get_results(streams_for(rec, pcm))[0])
         counts = read_counts()
@@ -2328,7 +2607,9 @@ def phase_cli(tmp) -> dict:
     runs them (bf16, the CLI's compute): ``-type offline -batch multi`` and
     ``-type online`` on the zipformer2 pin dir with the pin signal as a wav
     must print the pinned transcripts, the demos the same, and ``convert`` on
-    [10]'s synthetic ONNX dir must exit 0.  Returns each run's K1 launches."""
+    [10]'s synthetic ONNX dir must exit 0.  Each offline decode must run
+    through the recognizer's CUDA graph, held bit for bit against eager
+    _decode (graph_audit).  Returns each run's K1 launches."""
     from k2transducerasr_tpu_torch.cli.main import main as cli_main
     from k2transducerasr_tpu_torch.examples import offline_demo, online_demo
 
@@ -2346,16 +2627,21 @@ def phase_cli(tmp) -> dict:
     for name, fn, argv, pin in runs:
         reset_counts()
         t0 = time.perf_counter()
-        rc, lines = _captured(fn, argv)
+        with graph_audit() as audited:
+            rc, lines = _captured(fn, argv)
         secs = time.perf_counter() - t0
         counts = read_counts()
         # the online demo prints each partial after a carriage return
         # (splitlines splits there): its final text is the line before the
         # report's three lines and "end!"
         text = lines[-5] if name == "demo_online" else lines[1]
-        log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}")
+        log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}"
+            + (f"; {len(audited)} decode(s) through the graph, equal to eager _decode bit for bit"
+               if audited else ""))
         if rc not in (0, None) or text != pin:
             raise AssertionError(f"[11] {name} printed {lines!r}; expected {pin!r}")
+        if name.endswith("_offline") and not audited:
+            raise AssertionError(f"[11] {name} decoded without the recognizer's graph")
         launches[name] = family_launches(name, spec, counts)
     t0 = time.perf_counter()
     rc, lines = _captured(cli_main, ["convert", os.path.join(tmp, "onnx"),
@@ -2804,14 +3090,22 @@ def main() -> int:
         phase_full_width_vs_cpu(family)
         phase_streaming_vs_cpu(family)
     phase_beam_full_width_vs_cpu("zipformer2")
-    launches = {family: phase_main_path(family) for family in FAMILIES}
-    launches_beam = phase_main_path("zipformer2", BEAM)
+    offline = []
+
+    def main_path(*args, **kw):
+        n, row = phase_main_path(*args, **kw)
+        offline.append(row)
+        return n
+
+    launches = {family: main_path(family) for family in FAMILIES}
+    launches_beam = main_path("zipformer2", BEAM)
     streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
     streaming_beam = phase_streaming_main_path("zipformer2", BEAM)
     no_wait = phase_no_wait()
+    graph_memory = phase_graph_memory()
     for family in INT8_FAMILIES:
         phase_int8_vs_cpu(family)
-    launches_int8 = {family: phase_main_path(family, accuracy="int8") for family in INT8_FAMILIES}
+    launches_int8 = {family: main_path(family, accuracy="int8") for family in INT8_FAMILIES}
     streaming_int8 = phase_streaming_main_path("zipformer2", accuracy="int8")
     int_mm = phase_int_mm(bw)
     ingest_launches = phase_ingest()
@@ -2819,8 +3113,10 @@ def main() -> int:
         converted_launches, convert_s = phase_convert(tmp)
         cli_launches = phase_cli(tmp)
         par_launches = phase_parallel(tmp)
-    print(json.dumps({"streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
-                      "int_mm": int_mm, "convert_host_s": convert_s, "no_wait": no_wait}),
+    print(json.dumps({"offline": offline,
+                      "streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
+                      "int_mm": int_mm, "convert_host_s": convert_s, "no_wait": no_wait,
+                      "graph_memory": graph_memory}),
           flush=True)
 
     def paths(family):

@@ -326,8 +326,10 @@ def beam_frames_skip(dec_params, dec_cfg, join_params, state: BeamState, enc_pro
     frame's choices.  The kernel runs P lanes on each cluster, P chosen by
     ``lanes_per_cluster`` from B, K and the clusters the card runs at once.
     ``beam_frames_skip.launches`` counts
-    the kernel's launches (one per call, a grid of ceil(B / P) clusters);
-    ``beam_frames_skip.trips`` the plain version's trips."""
+    the kernel's launches (one per call, a grid of ceil(B / P) clusters; a
+    CUDA graph's replay adds the launches its capture recorded,
+    ``runtime/program.py``); ``beam_frames_skip.trips`` the plain version's
+    trips."""
     if enc_proj.device.type == "cpu":
         return beam_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
                                           enc_lens, frame_offset, extra_skip_sos, compute_dtype,

@@ -196,7 +196,8 @@ def greedy_frames_skip(dec_params, dec_cfg, join_params, state: GreedyState, enc
     not read it.  ``operands``: ``greedy_operands(dec_params, dec_cfg,
     join_params, compute_dtype)``, built here when not given.
     ``greedy_frames_skip.launches`` counts the kernel's launches: one per
-    call, a grid of B clusters of ``CLUSTER`` blocks."""
+    call, a grid of B clusters of ``CLUSTER`` blocks; a CUDA graph's replay
+    adds the launches its capture recorded (``runtime/program.py``)."""
     if enc_proj.device.type == "cpu":
         return greedy_frames_skip_reference(dec_params, dec_cfg, join_params, state, enc_proj,
                                             enc_lens, frame_offset, extra_skip_sos,

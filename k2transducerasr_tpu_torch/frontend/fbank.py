@@ -230,14 +230,16 @@ def dither_noise(shape, cfg: FbankConfig, device,
 
 def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
                   n_valid: torch.Tensor | None = None, tables=None,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  noise: torch.Tensor | None = None) -> torch.Tensor:
     """samples: [B, N] float32 -> feats [B, num_frames, num_mel_bins].
 
     n_valid: [B] true sample counts — used when snip_edges=False (frame
     centring reflects at the true signal boundaries).  tables: (dft, mel)
     tensors on the samples' device, as ``fbank_matrices`` gives them.
     generator: the source of the dither noise (cfg.dither > 0,
-    ``dither_noise``)."""
+    ``dither_noise``); noise: the dither noise itself, [B, num_frames,
+    frame_length], drawn in place of one from ``generator``."""
     if tables is None:
         tables = tuple(torch.from_numpy(m).to(samples.device) for m in fbank_matrices(cfg))
     dft, mel = tables
@@ -249,7 +251,9 @@ def fbank_compute(samples: torch.Tensor, cfg: FbankConfig, num_frames: int,
             n_valid = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64)
         frames = _reflected_frames(x, cfg, num_frames, n_valid)
     if cfg.dither > 0.0:
-        frames = frames + dither_noise(frames.shape, cfg, frames.device, generator)
+        if noise is None:
+            noise = dither_noise(frames.shape, cfg, frames.device, generator)
+        frames = frames + noise
     with exact_f32():
         spec = torch.matmul(frames, dft)
         n_bins = dft.shape[1] // 2

@@ -21,7 +21,9 @@ T == S).  Invalid query rows therefore differ from a query+key mask
 
 ``relpos_attn_probs.launches`` and ``relpos_attn_ctx.launches`` count kernel
 launches (the CPU path does not count), so a run can show that the main path
-went through the kernels.
+went through the kernels.  A CUDA graph's replay runs no Python: the graph's
+program (``runtime/program.py``) adds the launches it captured to these
+counts at each replay, and takes back those its capture made.
 
 Two bodies per kernel, chosen by the operands' dtype inside one C entry
 point: bf16 inputs run on the tensor cores around one shared score tile

@@ -58,3 +58,13 @@ def upload(x: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
     if not t.is_pinned():
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def readback(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` that no later work writes: from the card pinned
+    and non-blocking, in stream order (the caller records an event after it
+    and waits on that event before reading); on the CPU a clone."""
+    if t.device.type == "cuda":
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+    return t.clone()

@@ -20,18 +20,27 @@ multiple of the mesh's data groups and data group ``r`` decodes its ``r``-th
 block of rows; the ranks of one group compute those rows together with the
 encoder's weights split over them (tensor parallelism, ``ops/layers.py``).
 The token buffers are then gathered over ``data``.
+
+Without a mesh ``begin_decode`` runs ``_decode`` through a
+``runtime/program.DecodeProgram``: on the card one CUDA graph per (rows,
+bucketed samples), captured at the first batch of that shape and replayed
+with one launch per batch, as the JAX runtime compiles one program per
+(batch, frame bucket).  Under a mesh ``_decode`` runs eagerly: its
+collectives (gloo) cannot be captured.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.frontend.fbank import (
+    dither_noise,
     fbank_compute,
     fbank_matrices,
     num_frames_for,
@@ -41,7 +50,14 @@ from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, all_reduce_max, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, host_zeros, resolve_device, upload
+from k2transducerasr_tpu_torch.runtime.device import (
+    exact_f32,
+    host_zeros,
+    readback,
+    resolve_device,
+    upload,
+)
+from k2transducerasr_tpu_torch.runtime.program import DecodeProgram
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
 
@@ -57,6 +73,16 @@ class OfflineRecognizerResult:
     @property
     def text_len(self) -> int:
         return len(self.text)
+
+
+class PendingDecode(NamedTuple):
+    """A batch ``begin_decode`` queued: its streams, the host copies of
+    ``_decode``'s outputs (filled once ``event`` has passed) and the event
+    (None on the CPU, where the copies are done)."""
+
+    streams: list
+    host: tuple
+    event: object
 
 
 class OfflineStream:
@@ -168,6 +194,10 @@ class OfflineRecognizer:
         if dev.type == "cuda" and decoding_method in ("greedy_search", "modified_beam_search"):
             self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
                                                            bundle.joiner, compute_dtype)
+        # the dither noise per (rows, frames), drawn once (features)
+        self._dither: dict[tuple[int, int], torch.Tensor] = {}
+        # one CUDA graph per (rows, samples) on the card; None under a mesh
+        self.program = None if mesh is not None else DecodeProgram(self._decode, dev)
 
     # -- public API ---------------------------------------------------------
 
@@ -215,36 +245,54 @@ class OfflineRecognizer:
                 counts[i] = min(n_samples[lane], need)
         return upload(batch_t, self.device), upload(counts_t, self.device)
 
-    def begin_decode(self, streams: list[OfflineStream]):
-        """Queue the device work for a batch and return a pending handle: the
-        best hypothesis's token buffers and, under beam search, the ordered
-        n-best buffers (``rnnt_beam.nbest_beams``).  On the card it returns
-        without waiting for the device under every search method (the upload
-        is pinned and non-blocking, the greedy and the beam search one
-        kernel launch each), so a serving loop can prepare batch k+1 while
-        batch k runs.  Everything stays on the device until ``end_decode``,
-        the one place that waits, which reads the n-best back only when
-        hotwords need it."""
+    def begin_decode(self, streams: list[OfflineStream]) -> PendingDecode:
+        """Queue the device work for a batch and return a pending handle
+        (``PendingDecode``) without waiting for the device.  On the card the
+        whole program is one replay of the batch shape's CUDA graph
+        (``program``; the first batch of a shape captures it, which waits
+        for the card), and the readback of what ``end_decode`` reads (the
+        best hypothesis, or under beam search the ordered n-best) starts
+        right after it into pinned memory.  The upload is pinned and
+        non-blocking too, so a serving loop can prepare batch k+1 while
+        batch k runs, and ``end_decode`` of batch k waits for batch k alone.
+
+        One stream per recognizer: the graphs share their static inputs and
+        memory, so every ``begin_decode`` of a recognizer on the card must
+        run on the stream of its first (another raises); calls from several
+        threads on that stream are serialised."""
         samples, sample_counts = self.pcm_batch(streams)
         with torch.inference_mode(), self._precision():
-            tokens, timestamps, count, nbest = self._decode(samples, sample_counts)
-            if self._n_data > 1:  # every data group's rows, in order
-                tokens, timestamps, count = (self._all_rows(t) for t in (tokens, timestamps, count))
-                nbest = None if nbest is None else tuple(self._all_rows(t) for t in nbest)
-        return streams, tokens, timestamps, count, nbest
+            if self.program is not None:
+                out = self.program(samples, sample_counts)
+            else:  # under a mesh: eager
+                out = self._decode(samples, sample_counts)
+                if self._n_data > 1:  # every data group's rows, in order
+                    out = tuple(self._all_rows(t) for t in out)
+            host = tuple(readback(t) for t in out)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return PendingDecode(streams, host, event)
 
-    def end_decode(self, pending) -> list[OfflineRecognizerResult]:
-        """Read back a ``begin_decode`` handle's tokens and build results.
-        With ``hotwords`` each stream's result is the n-best hypothesis that
-        ``apply_hotwords`` prefers."""
-        streams, tokens, timestamps, count, nbest = pending
+    def end_decode(self, pending: PendingDecode) -> list[OfflineRecognizerResult]:
+        """Wait for a ``begin_decode`` handle's readback and build results.
+        Under beam search each stream's result is its best hypothesis, or
+        with ``hotwords`` the n-best hypothesis that ``apply_hotwords``
+        prefers."""
+        streams = pending.streams
+        if pending.event is not None:
+            pending.event.synchronize()
         if self.hotwords:
             results = []
-            for cands in self._nbest_results(streams, nbest):
+            for cands in self._nbest_results(streams, pending.host):
                 texts = [c.text for c in cands]
                 results.append(cands[texts.index(apply_hotwords(texts, self.hotwords))])
         else:
-            rows = rnnt_greedy.extract_results(tokens, timestamps, count)[:len(streams)]
+            host = pending.host
+            if self.decoding_method == "modified_beam_search":  # the n-best's first
+                host = tuple(t[:, 0] for t in host[:3])
+            rows = rnnt_greedy.extract_results(*host)[:len(streams)]
             results = [self._result(toks, stamps) for toks, stamps in rows]
         for stream, res in zip(streams, results):
             stream.result = res
@@ -258,15 +306,19 @@ class OfflineRecognizer:
         if self.decoding_method != "modified_beam_search":
             raise ValueError("get_nbest_results requires modified_beam_search")
         pending = self.begin_decode(streams)
-        return self._nbest_results(streams, pending[4])
+        if pending.event is not None:
+            pending.event.synchronize()
+        return self._nbest_results(streams, pending.host)
 
     def _result(self, toks: list[int], stamps: list[int]) -> OfflineRecognizerResult:
         table = self.bundle.tokens
         return OfflineRecognizerResult(text=tokens_to_text(toks, table),
                                        tokens=[table.get(t) for t in toks], timestamps=stamps)
 
-    def _nbest_results(self, streams, nbest) -> list[list[OfflineRecognizerResult]]:
-        toks, stamps, counts = (t.cpu() for t in nbest[:3])
+    def _nbest_results(self, streams, host) -> list[list[OfflineRecognizerResult]]:
+        """The n-best hypotheses of each stream from the host copies of
+        ``rnnt_beam.nbest_beams``' buffers."""
+        toks, stamps, counts = host[:3]
         return [[self._result(toks[i, j, :n].tolist(), stamps[i, j, :n].tolist())
                  for j, n in enumerate(counts[i].tolist())]
                 for i in range(len(streams))]
@@ -286,7 +338,8 @@ class OfflineRecognizer:
         fcfg = self.bundle.frontend_cfg
         x = samples.float() * (1.0 / 32768.0)
         t_pad = (x.shape[1] - fcfg.frame_length) // fcfg.frame_shift + 1
-        feats = fbank_compute(x, fcfg, t_pad, n_valid=sample_counts, tables=self._fbank_tables)
+        feats = fbank_compute(x, fcfg, t_pad, n_valid=sample_counts, tables=self._fbank_tables,
+                              noise=self._dither_noise(x.shape[0], t_pad))
         feat_lens = num_frames_tensor(sample_counts, fcfg)
         if self.reference_pad_compat:
             longest = feat_lens.max()
@@ -295,15 +348,32 @@ class OfflineRecognizer:
             feats, feat_lens = apply_reference_pad(feats, feat_lens, longest=longest)
         return feats, feat_lens
 
+    def _dither_noise(self, rows: int, frames: int) -> torch.Tensor | None:
+        """fbank's own dither draw for a batch of this shape (``dither_noise``:
+        a fresh generator seeded 0 each time), drawn at the shape's first
+        batch and kept: a graph cannot draw from an unregistered generator,
+        and reading the kept noise gives every batch the eager route's
+        features.  None without dither."""
+        fcfg = self.bundle.frontend_cfg
+        if fcfg.dither <= 0.0:
+            return None
+        key = (rows, frames)
+        if key not in self._dither:
+            self._dither[key] = dither_noise((rows, frames, fcfg.frame_length), fcfg, self.device)
+        return self._dither[key]
+
     def encode(self, samples: torch.Tensor, sample_counts: torch.Tensor):
         """fbank and encoder: -> (enc_out [B, T', D], enc_lens [B])."""
         with torch.inference_mode(), self._precision():
             feats, feat_lens = self.features(samples, sample_counts)
             return self.encoder(feats, feat_lens, self.compute_dtype)
 
-    def _decode(self, samples, sample_counts):
-        """-> (tokens, timestamps, count) of each lane's best hypothesis and
-        the ordered n-best buffers (None but under beam search)."""
+    def _decode(self, samples, sample_counts) -> tuple:
+        """-> what ``end_decode`` reads: each lane's (tokens, timestamps,
+        count), or under beam search the ordered n-best buffers (tokens,
+        timestamps, count, score; ``rnnt_beam.nbest_beams``).  The function
+        ``program`` captures; called directly it runs eagerly (the reference
+        a graph is held to)."""
         b = self.bundle
         cd = self.compute_dtype
         batch = samples.shape[0]
@@ -313,7 +383,7 @@ class OfflineRecognizer:
             lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
             state = ctc_greedy.init_state(batch, self.max_tokens, device=self.device)
             final = ctc_greedy.ctc_frames(state, lp, enc_lens, zero)
-            return final.tokens, final.timestamps, final.count, None
+            return final.tokens, final.timestamps, final.count
         enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
         if self.decoding_method == "modified_beam_search":
             state = rnnt_beam.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
@@ -321,10 +391,10 @@ class OfflineRecognizer:
             final = rnnt_beam.beam_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
                                                enc_proj, enc_lens, zero, False, cd,
                                                operands=self._search_ops)
-            return (*rnnt_beam.best_beam(final), rnnt_beam.nbest_beams(final))
+            return rnnt_beam.nbest_beams(final)
         state = rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                        self.max_tokens, cd)
         final = rnnt_greedy.greedy_frames_skip(b.decoder, b.decoder_cfg, b.joiner, state,
                                                enc_proj, enc_lens, zero, False, cd,
                                                operands=self._search_ops)
-        return final.tokens, final.timestamps, final.count, None
+        return final.tokens, final.timestamps, final.count

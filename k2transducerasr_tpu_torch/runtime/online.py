@@ -57,7 +57,7 @@ from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, resolve_device, upload
+from k2transducerasr_tpu_torch.runtime.device import exact_f32, readback, resolve_device, upload
 from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
 from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
@@ -316,7 +316,7 @@ class OnlineRecognizer:
             bufs = (st.tokens, st.timestamps, st.count)
         if self.enable_endpoint and self.decoding_method != "modified_beam_search":
             bufs = bufs + (st.trailing_blanks, self._frame_count)
-        host = tuple(_readback(t) for t in self._all_lanes(bufs))
+        host = tuple(readback(t) for t in self._all_lanes(bufs))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -517,12 +517,3 @@ class OnlineRecognizer:
             new_dec = search(*args, operands=self._search_ops)
         tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
         self._frame_count.index_add_(0, lanes_t, lens)
-
-
-def _readback(t: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``t`` that no later step writes: pinned and
-    non-blocking from the card (the caller records an event after it)."""
-    if t.device.type == "cuda":
-        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return out.copy_(t, non_blocking=True)
-    return t.clone()

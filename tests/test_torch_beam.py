@@ -459,10 +459,10 @@ def test_bf16_beam_invariants(bundles, family):
     s = off.create_offline_stream()
     s.add_samples(_pcm(6400))
     pending = off.begin_decode([s])
-    score = pending[4][3]
-    assert bool(torch.isfinite(score).all()) and bool((score[:, 1:] <= score[:, :-1]).all())
-    first = off._nbest_results([s], pending[4])[0][0]
     best = off.end_decode(pending)[0]
+    score = pending.host[3]
+    assert bool(torch.isfinite(score).all()) and bool((score[:, 1:] <= score[:, :-1]).all())
+    first = off._nbest_results([s], pending.host)[0][0]
     assert (best.text, best.timestamps) == (first.text, first.timestamps) and best.text
     on = OnlineRecognizer(tb, max_lanes=2, device="cpu", **kw)
     st = on.create_online_stream()

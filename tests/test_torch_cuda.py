@@ -676,6 +676,17 @@ def test_greedy_frames_skip_does_not_sync(cuda):
     assert _host_syncs(lambda: TGreedy.greedy_operands(dp, cfg, jp, torch.bfloat16)) == []
 
 
+def _replayed(rec, fn):
+    """fn(), a begin_decode of a batch shape ``rec.program`` has captured:
+    it adds no graph and runs the shape's one graph (a replay: no wrapper
+    counts a launch but the program)."""
+    entries = dict(rec.program.entries)
+    assert entries and all(e.graph is not None for e in entries.values())
+    fn()
+    assert list(rec.program.entries) == list(entries)
+    assert all(rec.program.entries[k] is e for k, e in entries.items())
+
+
 @pytest.mark.parametrize("family,compat", [("zipformer2", False), ("zipformer2", True),
                                            ("zipformer2ctc", False), ("zipformer2ctc", True)],
                          ids=["greedy", "greedy-compat", "ctc", "ctc-compat"])
@@ -688,9 +699,10 @@ def test_begin_decode_and_begin_step_do_not_sync(cuda, family, compat):
     streams = [rec.create_offline_stream() for _ in range(3)]
     for i, s in enumerate(streams):
         s.add_samples(_pcm(6400 - 1000 * i))
-    rec.get_results(streams)  # warm: the build, the libraries' handles
+    rec.get_results(streams)  # warm: the build, the handles, the graph's capture
     pending = []
-    assert _host_syncs(lambda: pending.append(rec.begin_decode(streams))) == []
+    assert _host_syncs(lambda: _replayed(rec, lambda: pending.append(rec.begin_decode(streams))))\
+        == []
     assert [r.text for r in rec.end_decode(pending[0])] == [
         r.text for r in rec.get_results(streams)]
     if compat:
@@ -909,9 +921,10 @@ def test_begin_decode_and_begin_step_do_not_sync_under_beam_search(cuda, hotword
     streams = [rec.create_offline_stream() for _ in range(3)]
     for i, s in enumerate(streams):
         s.add_samples(_pcm(6400 - 1000 * i))
-    want = [r.text for r in rec.get_results(streams)]  # warm: the build, the handles
+    want = [r.text for r in rec.get_results(streams)]  # warm: the build, the handles, capture
     pending = []
-    assert _host_syncs(lambda: pending.append(rec.begin_decode(streams))) == []
+    assert _host_syncs(lambda: _replayed(rec, lambda: pending.append(rec.begin_decode(streams))))\
+        == []
     assert [r.text for r in rec.end_decode(pending[0])] == want
     online = OnlineRecognizer(bundle, max_lanes=2, **kw)
     stream = online.create_online_stream()
@@ -971,6 +984,7 @@ def test_zipformer_v1_and_lstm_pins_on_the_card(cuda, family):
     rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
     s = rec.create_offline_stream()
     s.add_samples(_pcm(6400))
+    rec.get_result(s)  # captures the batch shape's graph (a warm-up run, then a replay)
     before = (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches)
     res = rec.get_result(s)
     assert (AC.relpos_attn_probs.launches - before[0], AC.relpos_attn_ctx.launches) == (
@@ -1151,6 +1165,7 @@ def test_converted_dir_decodes_on_the_card(cuda, tmp_path):
         rec = OfflineRecognizer(bundle, compute_dtype=None, device="cuda")
         s = rec.create_offline_stream()
         s.add_samples(_pcm(6400))
+        rec.get_result(s)  # captures the batch shape's graph
         before = AC.relpos_attn_probs.launches
         res.append(rec.get_result(s))
         assert AC.relpos_attn_probs.launches - before == sum(cfg.num_encoder_layers)
@@ -1207,3 +1222,165 @@ def test_cli_device_flag_on_the_card(cuda, tmp_path, capsys):
                      str(tmp_path / "pin.wav"), "-device", device]) == 0
         outs.append(capsys.readouterr().out.splitlines()[:2])
     assert outs[0] == outs[1]
+
+
+# -- the offline recognizer's CUDA graphs (runtime/program.py) ----------------
+
+GREEDY, BEAM, CTC = "greedy_search", "modified_beam_search", "greedy_search_ctc"
+# (family, method, hotwords): every family and search method on its pin dir
+GRAPH_CASES = [("zipformer2", GREEDY, None), ("conformer", GREEDY, None),
+               ("zipformer", GREEDY, None), ("lstm", GREEDY, None),
+               ("zipformer2ctc", CTC, None), ("zipformer2", BEAM, None),
+               ("conformer", BEAM, None), ("zipformer", BEAM, None), ("lstm", BEAM, None),
+               ("zipformer2", BEAM, ["tok25tok25"])]
+# under int8 (accuracy="int8", bf16): each family whose bundle quantizes
+INT8_GRAPH_CASES = [("zipformer2", GREEDY), ("conformer", GREEDY), ("zipformer", GREEDY),
+                    ("lstm", GREEDY), ("zipformer2", BEAM)]
+
+
+def _counts():
+    return (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches,
+            TGreedy.greedy_frames_skip.launches, TBeam.beam_frames_skip.launches)
+
+
+def _eager(rec, streams):
+    """The batch through eager _decode (the graph's reference) and each
+    kernel's launches in that run."""
+    samples, counts = rec.pcm_batch(streams)
+    before = _counts()
+    with torch.inference_mode(), rec._precision():
+        out = rec._decode(samples, counts)
+    return [t.cpu() for t in out], tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _assert_graph_equals_eager(rec, streams):
+    """begin_decode of the batch (first the capture's replay, then a plain
+    replay) reads back eager _decode's tokens, timestamps and counts, or its
+    n-best, bit for bit, and a replay adds eager's launches to the counts."""
+    want, launches = _eager(rec, streams)
+    for _ in range(2):
+        before = _counts()
+        pending = rec.begin_decode(streams)
+        pending.event.synchronize()
+        assert len(pending.host) == len(want)
+        for g, w in zip(pending.host, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == launches
+    (entry,) = rec.program.entries.values()
+    assert entry.graph is not None and entry.launches == launches
+    return rec.end_decode(rec.begin_decode(streams))
+
+
+def _ragged(rec, lens=(6400, 4100, 5300)):
+    streams = []
+    for i, n in enumerate(lens):
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(n, 9 + i))
+        streams.append(s)
+    return streams
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("family,method,hotwords", GRAPH_CASES,
+                         ids=[f"{f}-{m}" + ("-hotwords" if h else "") for f, m, h in GRAPH_CASES])
+def test_graph_equals_eager_decode(cuda, family, method, hotwords, compute_dtype):
+    """Every family and search method, bf16 and float32: the graph's
+    replay equals eager _decode on the same batch, bit for bit."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, decoding_method=method, compute_dtype=compute_dtype,
+                            max_active_paths=4, hotwords=hotwords, device="cuda")
+    results = _assert_graph_equals_eager(rec, _ragged(rec))
+    assert any(r.tokens for r in results)
+
+
+@pytest.mark.parametrize("family,method", INT8_GRAPH_CASES,
+                         ids=[f"{f}-{m}" for f, m in INT8_GRAPH_CASES])
+def test_graph_equals_eager_decode_under_int8(cuda, family, method):
+    rec = OfflineRecognizer(_int8_bundle(family, "cuda"), decoding_method=method,
+                            max_active_paths=4, accuracy="int8", device="cuda")
+    assert any(k.endswith(".w_q8") for k in rec.encoder.state_dict())
+    _assert_graph_equals_eager(rec, _ragged(rec))
+
+
+@pytest.mark.parametrize("method", [GREEDY, BEAM])
+def test_two_buckets_alternating_in_a_pipeline_equal_eager(cuda, method):
+    """The memory policy (one pool for all of a recognizer's graphs, each
+    replay's outputs cloned): batches of two buckets, 2-deep, in the order
+    A, B, A, B: every handle equals eager _decode of its batch, though the
+    other bucket's graph replayed after it was queued."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, decoding_method=method, max_active_paths=4,
+                            frame_bucket=16, device="cuda")
+    # 48-frame and 64-frame buckets at frame_bucket=16
+    batches = [_ragged(rec, lens) for lens in ((6400, 5000), (9000, 8200), (6300, 5500),
+                                               (8800, 9100))]
+    want = [_eager(rec, b)[0] for b in batches]
+    pending = [rec.begin_decode(batches[0])]
+    for k in range(1, len(batches) + 1):
+        if k < len(batches):
+            pending.append(rec.begin_decode(batches[k]))
+        pending[k - 1].event.synchronize()
+        got = pending[k - 1].host
+        assert all(torch.equal(g, w) for g, w in zip(got, want[k - 1])), f"batch {k - 1}"
+    assert len(rec.program) == 2 and rec.program.pool_bytes() > 0
+
+
+def test_begin_decode_on_a_second_stream_raises(cuda):
+    """The graphs serve one caller stream, the one the first batch ran on:
+    a begin_decode on another raises, and the first stream still decodes."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, device="cuda")
+    streams = _ragged(rec)
+    want = [r.tokens for r in rec.get_results(streams)]
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="one caller stream"):
+            rec.begin_decode(streams)
+    assert [r.tokens for r in rec.get_results(streams)] == want
+
+
+def test_dropping_a_recognizer_releases_its_graph_pool(cuda):
+    """With the cycle collector off, dropping a recognizer destroys its
+    graphs: after empty_cache no segment of their pool is left."""
+    import gc
+
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, frame_bucket=16, device="cuda")
+    rec.get_results(_ragged(rec))
+    rec.get_results(_ragged(rec, (9000, 8200)))
+    pool = tuple(rec.program.graphs.pool)
+    assert len(rec.program) == 2 and rec.program.pool_bytes() > 0
+
+    def pool_segments():
+        return [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == pool]
+
+    gc.disable()
+    try:
+        del rec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert pool_segments() == []
+    finally:
+        gc.enable()
+
+
+def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):
+    """A host read planted in _decode: the warm-up runs it, the capture
+    refuses it, and begin_decode raises with no graph kept and no result.
+    (Last in the file: a refused capture is left to PyTorch to end.)"""
+    from k2transducerasr_tpu_torch.runtime import offline as offline_mod
+
+    decode = offline_mod.OfflineRecognizer._decode
+
+    def planted(self, samples, sample_counts):
+        out = decode(self, samples, sample_counts)
+        out[2].sum().item()  # waits for the card: not capturable
+        return out
+
+    monkeypatch.setattr(offline_mod.OfflineRecognizer, "_decode", planted)
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OfflineRecognizer(bundle, device="cuda")
+    streams = _ragged(rec)
+    with pytest.raises(RuntimeError):
+        rec.begin_decode(streams)
+    assert len(rec.program) == 0
