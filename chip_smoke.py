@@ -81,14 +81,28 @@ Phases (any failure exits non-zero; none is caught):
      batch's search held to the tie-aware replay, each beam batch's eager
      search to the beam replay;
   6b. each streaming main path at full width (each family's causal config):
-     bf16, 16 lanes x 30 s through OnlineRecognizer.get_results, one window
-     per step; per-step latency, streaming RTF and the launches per step
-     (the same methods as phase 6; each beam step held to the beam replay);
+     bf16, 16 lanes x 30 s through OnlineRecognizer.begin_step/end_step,
+     one window per step, each step one replay of the recognizer's CUDA
+     graph over the whole lane pool; per-step latency (p50, p95), streaming
+     RTF, begin_step's host ms and the launches per step (the same methods
+     as phase 6); the first step's ms (warm-up on the idle pool, capture,
+     replay), a second capture of the key dumped and its kernel nodes
+     counted against one step's launches, the graph pool's and the lane
+     pool's bytes, one replay's device time with 16 and with 2 lanes ready,
+     a step with 2 of 16 streams ready beside all 16, the device busy share
+     and the kernels the profiler traced; the step split (fbank, encoder,
+     freeze + search); the graph against the eager step function on a
+     second recognizer, bit for bit on every pool leaf and the tokens after
+     every step, half the lanes idle in every other step (idle lanes
+     untouched), each beam step held to the beam replay; zipformer2 greedy
+     also at windows_per_step=2, its tokens those of one window a step;
   6c. no wait: zipformer2 at full width, 16 x 30 s, bf16: begin_decode
      under torch.cuda.set_sync_debug_mode("error") (greedy and CTC,
      reference_pad_compat off and on; modified_beam_search with and without
-     hotwords) and begin_step (the same methods, 16 lanes) raise nothing and
-     give the sequential run's tokens, the eager route's host ms beside;
+     hotwords) and begin_step (the same methods, 16 lanes, each step a
+     graph replay) raise nothing and give the sequential run's tokens, the
+     eager route's host ms beside (for begin_step: the same step run
+     eagerly, its results equal);
      then the 2-deep pipeline of bench.py over 7 batches against the same
      batches one by one (audio-s/s each, begin_decode's host ms beside the
      batch ms), through the graph and through eager _decode in turns;
@@ -101,7 +115,7 @@ Phases (any failure exits non-zero; none is caught):
      card against CPU (the int8 weights bit for bit, the encoder within int8's
      own change from float32, tokens identical); their offline main paths
      (bf16, 16 x 30 s, 2 batches, launches counted) and zipformer2's streaming
-     main path (16 lanes) under int8; torch._int_mm against a bf16 matmul at
+     main path (16 lanes, as 6b) under int8; torch._int_mm against a bf16 matmul at
      the flagship's largest linear shapes;
   9. ingest: a 5 s 44.1 kHz stereo wav through the native read_wav and
      resampling against the numpy route (the same tokens from the
@@ -111,8 +125,9 @@ Phases (any failure exits non-zero; none is caught):
      dir, converted, loaded on the card: the source bundle's tokens;
  11. the CLI and the demos in this process (so the launches count): the
      zipformer2 pin dir with the pin signal as a wav, offline (-batch multi)
-     and online, must print the pinned transcripts, each offline decode
-     through the graph and equal to eager _decode bit for bit; ``convert``
+     and online, must print the pinned transcripts, each offline decode and
+     each streaming step through its graph and equal to the eager run bit
+     for bit; ``convert``
      on [10]'s ONNX dir must exit 0;
  12. data and tensor parallelism on the one card: two ranks of this script
      (``--parallel-rank``) in a gloo group passing CUDA tensors (NCCL
@@ -1460,7 +1475,10 @@ def beam_capture():
         trace = rnnt_beam.BeamTrace.empty(b, t, state.score.shape[1], enc_proj.device)
         out = launch(dec, cfg, join, state, enc_proj, enc_lens, offset, sos, cd, window,
                      operands=operands, trace=trace)
-        calls.append((state, enc_proj, enc_lens, offset, sos, cd, window, out, trace))
+        # copies: an online step then writes its result into the lane pool,
+        # which holds the state and the frame offsets it was given
+        calls.append((tree_map(torch.clone, state), enc_proj, enc_lens, offset.clone(), sos, cd,
+                      window, out, trace))
         return out
 
     # the wrapper counts its launches on its own attributes, looked up by
@@ -1508,29 +1526,41 @@ def eager_begin(rec, streams):
 @contextlib.contextmanager
 def graph_audit():
     """Within: every DecodeProgram call must run a captured graph (a replay;
-    the first call of a shape captures first), and its outputs are held bit
+    the first call of a shape captures first), and what it made is held bit
     for bit against eager ``fn`` on the same inputs (under the call's own
     inference mode and precision; the eager run's launches are not
-    counted).  Yields a list with one (key, captured here) per call."""
+    counted): offline the outputs of ``_decode``; online, where ``fn`` is
+    the step that writes the lane pool in place, every pool leaf after the
+    replay against the eager step run from the pool as it was before.
+    Yields a list with one (key, captured here) per call."""
     calls = []
     call = DecodeProgram.__call__
 
     def audited(self, samples, counts):
         key = tuple(samples.shape)
         new = key not in self.entries
+        rec = getattr(self.fn, "__self__", None)
+        online = isinstance(rec, OnlineRecognizer)
+        start = [t.clone() for t in pool_leaves(rec)] if online else None
         out = call(self, samples, counts)
         if self.entries[key].graph is None:
-            raise AssertionError(f"decode program {key}: no graph on the card")
+            raise AssertionError(f"program {key}: no graph on the card")
         saved = read_counts()
-        eager = self.fn(samples, counts)
+        if online:
+            out = tuple(t.clone() for t in pool_leaves(rec))
+            for t, t0 in zip(pool_leaves(rec), start):
+                t.copy_(t0)
+        eager = self.fn(samples.to(self.device), counts.to(self.device))
+        if online:
+            eager = tuple(pool_leaves(rec))
         for name, fn in KERNELS.items():
             fn.launches = saved[name]
         if len(out) != len(eager) or not all(
                 g.dtype == e.dtype and torch.equal(g, e) for g, e in zip(out, eager)):
-            raise AssertionError(f"decode program {key}: the graph's outputs differ from eager "
-                                 f"_decode's")
+            raise AssertionError(f"program {key}: what the graph made differs from eager "
+                                 f"{'step' if online else '_decode'}'s")
         calls.append((key, new))
-        return out
+        return () if online else out
 
     DecodeProgram.__call__ = audited
     try:
@@ -1908,80 +1938,245 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     return counts.get(spec["kernel"], 0), row
 
 
-def phase_streaming_main_path(family, method="greedy_search", seconds=30.0, accuracy=None):
+def pool_leaves(rec) -> list:
+    """Every leaf of an online recognizer's lane pool (``_pool``), as it
+    lies."""
+    leaves = []
+    tree_map(leaves.append, rec._pool())
+    return leaves
+
+
+def online_windows(rec, lanes_ready, seed) -> tuple:
+    """A whole pool's step inputs on the card: one window of synth_pcm on the
+    first ``lanes_ready`` lanes (count 1), zeros and count 0 on the rest."""
+    windows = np.zeros((rec.max_lanes, 1, rec.window_samples), np.int16)
+    for i in range(lanes_ready):
+        windows[i, 0] = np.clip(synth_pcm(rec.window_samples, seed + i) * 32768.0, -32768,
+                                32767).astype(np.int16)
+    wcount = (np.arange(rec.max_lanes) < lanes_ready).astype(np.int64)
+    return torch.from_numpy(windows).cuda(), torch.from_numpy(wcount).cuda()
+
+
+def step_graph_vs_eager(tag, name, bundle, wps=1, **kw) -> dict:
+    """The step graph against the eager step: two recognizers of one bundle
+    at STREAM_LANES lanes (the second's program taken away, so begin_step
+    runs the same step function eagerly) take the same streams (4 s each)
+    until none has a window; every other step passes only the even lanes'
+    streams, so half the lanes idle.  After every step (the first, the
+    capture's, included) the graph's pool must equal the eager step's bit
+    for bit on every leaf, and the partial tokens and timestamps too; the
+    lanes that took no window must have kept every leaf bit for bit.  Under
+    beam search each eager step's search is held to the beam replay.
+    Returns the steps, the half-idle steps and the final tokens."""
+    recs = [OnlineRecognizer(bundle, max_lanes=STREAM_LANES, max_active_paths=BEAM_K,
+                             windows_per_step=wps, device="cuda", **kw) for _ in range(2)]
+    graph, eager = recs
+    eager.program = None
+    pcms = [synth_pcm(4 * 16000, 500 + i) for i in range(STREAM_LANES)]
+    pairs = []
+    for rec in recs:
+        pairs.append([rec.create_online_stream() for _ in pcms])
+        for s, x in zip(pairs[-1], pcms):
+            s.add_samples(x)
+    steps = half = 0
+    calls = []
+    while any(s._ready() for s in pairs[0]):
+        picks = [ss if steps % 2 == 0 else ss[::2] for ss in pairs]
+        stepping = {s.lane for s in picks[0] if s._ready()}
+        idle = sorted(set(range(STREAM_LANES)) - stepping)
+        before = [t[idle].clone() for t in pool_leaves(graph)]
+        res = []
+        for rec, streams in zip(recs, picks):
+            record = rec is eager and rec.decoding_method == BEAM
+            with beam_capture() if record else contextlib.nullcontext([]) as found:
+                res.append([(r.tokens, r.timestamps) for r in rec.get_results(streams)])
+            calls.extend(found)
+        if res[0] != res[1]:
+            raise AssertionError(f"{tag} {name} step {steps}: the graph's results differ from "
+                                 f"the eager step's")
+        for i, (g, e, old) in enumerate(zip(pool_leaves(graph), pool_leaves(eager), before)):
+            if g.dtype != e.dtype or not torch.equal(g, e):
+                raise AssertionError(f"{tag} {name} step {steps}: pool leaf {i} of the graph "
+                                     f"differs from the eager step's")
+            if idle and not torch.equal(g[idle], old):
+                raise AssertionError(f"{tag} {name} step {steps}: pool leaf {i} of an idle lane "
+                                     f"moved")
+        half += len(stepping) <= STREAM_LANES // 2
+        steps += 1
+    if len(graph.program) != 1 or not half:
+        raise AssertionError(f"{tag} {name}: {len(graph.program)} graphs, {half} half-idle steps")
+    if calls:
+        beam_replays(tag, f"{name}/streaming eager", eager, calls)
+    final = [(r.tokens, r.timestamps) for r in graph.get_results(pairs[0])]
+    if not any(t for t, _ in final):
+        raise AssertionError(f"{tag} {name}: no tokens")
+    return {"steps": steps, "half_idle_steps": half, "tokens": final}
+
+
+def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30.0,
+                              accuracy=None):
     """The streaming main path as benchmarks/streaming_latency.py drives the
     JAX recognizer: the causal flagship config at bf16, STREAM_LANES lanes
-    of ``seconds`` of audio each buffered up front, get_results over every
-    lane until none has a window; one warm-up step, then each step timed on
-    the host clock (get_results ends in the readback).  Every kernel's
-    launches are counted from 0 over the timed steps.  ``accuracy="int8"``:
-    the encoder's linears in int8 ([8])."""
+    of ``seconds`` of audio each buffered up front, begin_step + end_step
+    over every lane until none has a window, each step one replay of the
+    recognizer's CUDA graph.  The first step captures it (its host ms: the
+    warm-up on the idle pool, the capture, the replay); a second capture of
+    the key, dumped, has its kernel nodes counted by name against one
+    step's launches; the device's busy share over 3 steps, with the kernels
+    the profiler traced held against the counts; then every step timed on
+    the host clock (begin_step's host ms apart), the launches counted from
+    0; one replay's device time with all lanes ready and with 2 of them;
+    the step with 2 of 16 streams ready against all 16 on the host clock;
+    the path's stage split from ``splits`` (phase_stage_splits); and the graph held against the eager step bit for bit
+    (step_graph_vs_eager), for zipformer2 greedy also at windows_per_step=2,
+    whose tokens must equal one window a step's.  ``accuracy="int8"``: the
+    encoder's linears in int8 ([8])."""
     spec = FAMILIES[family]
+    tag = "[8]" if accuracy else "[6b]"
     bundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
                                 device="cuda")
     rec = OnlineRecognizer(bundle, decoding_method=method, max_lanes=STREAM_LANES,
                            max_active_paths=BEAM_K, accuracy=accuracy,
                            device="cuda")  # bf16 compute
-    name = f"{family}/{rec.decoding_method}" + (f"/{accuracy}" if accuracy else "")
+    name = path_name(rec)
     n = int(16000 * seconds)
     streams = []
     for i in range(STREAM_LANES):
         s = rec.create_online_stream()
         s.add_samples(synth_pcm(n, 300 + i))
         streams.append(s)
-    rec.get_results(streams)  # warm-up (cuBLAS/cuDNN handles, allocator)
-    busy, _ = device_trace(lambda: rec.get_results(streams), reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.get_results(streams)  # the capture: a warm-up on the idle pool, the capture, a replay
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    (key, entry), = rec.program.entries.items()
+    search = search_kernel(spec, rec.decoding_method)
+    per_step = counts_of(**{spec["kernel"] or "none": spec["per_batch"], search or "none": 1})
+    with graph_dump() as dumped, torch.inference_mode(), rec._precision():
+        CudaGraphs(rec.device).capture(rec._step, entry.inputs)  # runs nothing
+    nodes, n_nodes = graph_kernel_nodes(dumped[0])
+    del dumped
+    gc.collect()
+    torch.cuda.empty_cache()
+    if nodes != per_step or dict(zip(KERNELS, entry.launches)) != per_step:
+        raise AssertionError(f"{name} streaming: the graph holds kernel nodes {nodes} and "
+                             f"records {entry.launches}, expected one step's {per_step}")
+    reset_counts()
+    busy, traced = device_trace(lambda: rec.get_results(streams), reps=3)
+    if busy is not None and traced != {k: 3 * v for k, v in per_step.items()}:
+        raise AssertionError(f"{name} streaming: the profiler traced kernels {traced} over 3 "
+                             f"replays, the counters say {read_counts()}")
     reset_peak_memory()
 
     reset_counts()
-    lat = []
+    lat, host, wait, text = [], [], [], []
     t_start = time.perf_counter()
-    with beam_capture() as searches:  # each beam search's inputs and choices, for the replay
-        while any(s._ready() for s in streams):
-            t0 = time.perf_counter()
-            results = rec.get_results(streams)
-            lat.append(time.perf_counter() - t0)
+    while any(s._ready() for s in streams):
+        t0 = time.perf_counter()
+        pending = rec.begin_step(streams)
+        t1 = time.perf_counter()
+        pending[2].synchronize()  # what end_step waits on first
+        t2 = time.perf_counter()
+        results = rec.end_step(pending)
+        t3 = time.perf_counter()
+        lat.append(t3 - t0)
+        host.append(t1 - t0)
+        wait.append(t2 - t1)
+        text.append(t3 - t2)
     wall = time.perf_counter() - t_start
     counts = read_counts()
-
     steps = len(lat)
-    per_step = spec["per_batch"]  # one call per layer
-    search = search_kernel(spec, rec.decoding_method)
-    # every lane steps every time: one search launch per step
-    want = counts_of(**{spec["kernel"] or "none": per_step * steps, search or "none": steps})
+    want = {k: v * steps for k, v in per_step.items()}
     if counts != want:
         raise AssertionError(f"{name} streaming main path launched {counts} in {steps} steps, "
                              f"expected {want}")
     if search:
         SEARCH_PATHS[search][f"{name}/streaming"] = counts[search]
-    if searches:
-        beam_replays("[8]" if accuracy else "[6b]", f"{name}/streaming", rec, searches)
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
     toks = [len(r.tokens) for r in results]
     if min(toks) == 0 or max(toks) > rec.max_tokens:
         raise AssertionError(f"{name} streaming: implausible token counts {toks}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # one replay's device time, every lane ready and 2 of them (not counted)
+    with torch.inference_mode(), rec._precision():
+        full, two = online_windows(rec, STREAM_LANES, 450), online_windows(rec, 2, 450)
+        replay_ms = device_ms(lambda: rec.program(*full), reps=3)
+        replay_two_ms = device_ms(lambda: rec.program(*two), reps=3)
+    # a step with 2 of the 16 streams ready against all 16, host clock
+    step_ms = {}
+    for ready in (STREAM_LANES, 2, STREAM_LANES, 2):
+        for s in streams[:ready]:
+            s.add_samples(synth_pcm(rec.window_samples + 2 * rec.hop_samples, 470))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.get_results(streams[:ready])
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms.setdefault(ready, []).extend(times)
+    step_ms = {k: statistics.median(v) for k, v in step_ms.items()}
+    stages = splits[name]
+
+    check = step_graph_vs_eager(tag, name, bundle, decoding_method=method, accuracy=accuracy)
+    two_windows = None
+    if family == "zipformer2" and method == GREEDY and not accuracy:
+        two_windows = step_graph_vs_eager(tag, name + " windows_per_step=2", bundle, wps=2,
+                                          decoding_method=method)
+        if two_windows["tokens"] != check["tokens"]:
+            raise AssertionError(f"{tag} {name}: windows_per_step=2 gave other tokens than 1")
     row = {"family": family, "method": rec.decoding_method, "accuracy": accuracy,
            "lanes": STREAM_LANES, "steps": steps, "p50_ms": p50, "p95_ms": p95,
            "hop_ms": hop_s * 1e3, "rtf": p50 / 1e3 / hop_s,
            "audio_s_per_s": STREAM_LANES * hop_s * steps / wall,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": counts.get(spec["kernel"], 0), "launches_per_step": per_step,
-           "device_busy_share": busy, "stages_ms": stream_stage_split(rec)}
-    tag = "[8]" if accuracy else "[6b]"
+           "begin_step_host_ms": float(np.median(host)) * 1e3,
+           "end_step_wait_ms": float(np.median(wait)) * 1e3,
+           "end_step_results_ms": float(np.median(text)) * 1e3,
+           "capture_ms": capture_ms, "graph_key": list(key), "graph_nodes": n_nodes,
+           "kernel_nodes": nodes, "graph_pool_gib": rec.program.pool_bytes() / 2**30,
+           "lane_pool_mib": sum(t.nbytes for t in pool_leaves(rec)) / 2**20, "replay_device_ms": replay_ms,
+           "replay_2_of_16_device_ms": replay_two_ms, "step_16_of_16_ms": step_ms[STREAM_LANES],
+           "step_2_of_16_ms": step_ms[2], "peak_gib": peak,
+           "launches": counts.get(spec["kernel"], 0), "launches_per_step": spec["per_batch"],
+           "device_busy_share": busy, "traced_kernels": traced, "stages_ms": stages,
+           "graph_vs_eager_steps": check["steps"], "half_idle_steps": check["half_idle_steps"],
+           "windows_per_step_2_steps": two_windows and two_windows["steps"]}
     log(f"{tag} {name} streaming main path bf16, {STREAM_LANES} lanes x {seconds:.0f} s, "
-        f"{steps} timed steps: p50 {p50:.2f} ms, p95 {p95:.2f} ms per step (hop "
-        f"{hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, {row['audio_s_per_s']:.1f} audio-s/s, "
-        f"peak {row['peak_gib']:.2f} GiB, launches {counts} ({per_step}/step of "
+        f"{steps} timed steps, each one graph replay: p50 {p50:.2f} ms, p95 {p95:.2f} ms per "
+        f"step (hop {hop_s * 1e3:.0f} ms), RTF {row['rtf']:.4f}, "
+        f"{row['audio_s_per_s']:.1f} audio-s/s; medians: begin_step host "
+        f"{row['begin_step_host_ms']:.2f} ms, then the wait for the card "
+        f"{row['end_step_wait_ms']:.2f}, then end_step's results (text) "
+        f"{row['end_step_results_ms']:.2f}; peak {peak:.2f} GiB, launches {counts} "
+        f"({spec['per_batch']}/step of "
         f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
-    st = row["stages_ms"]
-    log(f"{tag} {name} step split (host clock with device syncs, median of 5, all "
-        f"{STREAM_LANES} lanes): lane gather {st['gather']:.2f} ms, fbank {st['fbank']:.2f}, "
-        f"encoder streaming_step {st['encoder']:.2f}, lane scatter {st['scatter']:.2f} -> "
-        f"search + readback ~{p50 - sum(st.values()):.2f} of the p50 step; device busy "
-        + ("not measured (the profiler recorded no device activity)" if busy is None else
-           f"{busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included)"))
+    log(f"{tag} {name} step graph of key (lanes, windows, samples) {key}: first step (warm-up "
+        f"on the idle pool, capture, replay) {capture_ms:.1f} ms; a second capture, dumped: "
+        f"{n_nodes} nodes, kernel nodes {nodes}; graph pool {row['graph_pool_gib']:.3f} GiB, "
+        f"lane pool {row['lane_pool_mib']:.2f} MiB; one replay's device time {replay_ms:.3f} ms "
+        f"with {STREAM_LANES} lanes ready, {replay_two_ms:.3f} with 2; a step on the host clock "
+        f"{step_ms[STREAM_LANES]:.2f} ms with {STREAM_LANES} streams ready, {step_ms[2]:.2f} "
+        f"with 2; device busy "
+        + ("not measured (the profiler recorded no device activity), nor the traced kernels"
+           if busy is None else
+           f"{busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included); "
+           f"kernels in the trace by name {traced}, equal to the counters"))
+    log(f"{tag} {name} step split (device time of the kernels in each of _step's scopes, "
+        f"one eager step of all {STREAM_LANES} lanes under the profiler, another process): "
+        + ("not measured (the trace lacks kernels the step launched)" if stages["other"] is None
+           else ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+           + f", sum {sum(stages.values()):.3f} beside one replay's {replay_ms:.3f}")
+        + f"; the graph against "
+        f"the eager step: {check['steps']} steps ({check['half_idle_steps']} with half the lanes "
+        f"idle) bit for bit on every pool leaf and on the tokens"
+        + ("" if two_windows is None else
+           f"; windows_per_step=2: {two_windows['steps']} steps bit for bit against its eager "
+           f"step, the tokens of one window a step"))
+    del rec, streams
+    gc.collect()
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2017,6 +2212,7 @@ def phase_no_wait() -> dict:
     numbers."""
     n = 30 * 16000
     pipeline_rec = None
+    step_host = {}
     for family in ("zipformer2", "zipformer2ctc"):
         spec = FAMILIES[family]
         bundle = ModelBundle.random(family, spec["cfg"](), vocab_size=500, seed=0, device="cuda")
@@ -2045,26 +2241,39 @@ def phase_no_wait() -> dict:
         del bundle
         sbundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
                                      device="cuda")
-        online = OnlineRecognizer(sbundle, max_lanes=STREAM_LANES, device="cuda")
-        streams = []
-        for i in range(STREAM_LANES):
-            s = online.create_online_stream()
-            s.add_samples(synth_pcm(4 * 16000, 700 + i))
-            streams.append(s)
-        online.get_results(streams)  # warm
-        steps, host = [], []
-        while all(s._ready() for s in streams):
-            pending, ms = _no_sync(f"{family} begin_step", lambda: online.begin_step(streams))
-            online.end_step(pending)
-            steps.append(ms)
-        log(f"[6c] {family}/{online.decoding_method} begin_step, {STREAM_LANES} lanes: "
-            f"{len(steps)} steps with no host sync, host {statistics.median(steps):.2f} ms per "
-            f"step (median)")
-        if not steps:
-            raise AssertionError(f"[6c] {family}: no streaming step ran")
+        # the graph route and the eager route (the same step, its program
+        # taken away), step by step in turns on the same streams
+        recs = [OnlineRecognizer(sbundle, max_lanes=STREAM_LANES, device="cuda")
+                for _ in range(2)]
+        recs[1].program = None
+        pairs = []
+        for online in recs:
+            pairs.append([online.create_online_stream() for _ in range(STREAM_LANES)])
+            for i, s in enumerate(pairs[-1]):
+                s.add_samples(synth_pcm(4 * 16000, 700 + i))
+            online.get_results(pairs[-1])  # warm; the graph's capture
+        host = {"graph": [], "eager": []}
+        while all(s._ready() for s in pairs[0]):
+            got = []
+            for route, online, streams in zip(host, recs, pairs):
+                pending, ms = _no_sync(f"{family} begin_step ({route} route)",
+                                       lambda: online.begin_step(streams))
+                got.append([(r.tokens, r.timestamps) for r in online.end_step(pending)])
+                host[route].append(ms)
+            if got[0] != got[1]:
+                raise AssertionError(f"[6c] {family}: the graph's step gave other results than "
+                                     f"the eager step's")
+        steps = {route: statistics.median(ms) for route, ms in host.items() if ms}
+        log(f"[6c] {family}/{recs[0].decoding_method} begin_step, {STREAM_LANES} lanes: "
+            f"{len(host['graph'])} steps with no host sync, each one graph replay, host "
+            f"{steps.get('graph', 0):.2f} ms per step (median; the eager route "
+            f"{steps.get('eager', 0):.2f}), the same results")
+        if not host["graph"] or len(recs[0].program) != 1:
+            raise AssertionError(f"[6c] {family}: no streaming step ran, or not one graph")
+        step_host[family] = steps
         if family == "zipformer2":
             beam.update(_no_wait_beam_steps(sbundle))
-        del online, sbundle
+        del recs, pairs, sbundle
 
     rec = pipeline_rec
     batches = [streams_for(rec, [synth_pcm(n, 800 + k * FLAGSHIP_B + i)
@@ -2077,7 +2286,8 @@ def phase_no_wait() -> dict:
         runs[route].append(_pipeline(rec, batches, routes[route]))
     same = len({repr(r[mode]) for rs in runs.values() for r in rs for mode in ("seq", "pipe")}) == 1
     out = {"batches": NO_WAIT_BATCHES, "graphs_held": len(rec.program),
-           "graph_pool_gib": rec.program.pool_bytes() / 2**30, "beam": beam}
+           "graph_pool_gib": rec.program.pool_bytes() / 2**30, "beam": beam,
+           "begin_step_host_ms": step_host}
     for route, rs in runs.items():
         seq_s = statistics.mean(r["seq_s"] for r in rs)
         pipe_s = statistics.mean(r["pipe_s"] for r in rs)
@@ -2244,41 +2454,51 @@ def _no_wait_beam(bundle, n) -> dict:
 
 def _no_wait_beam_steps(sbundle) -> dict:
     """[6c] begin_step under modified_beam_search (K=4, 16 lanes), without
-    and with hotwords, under set_sync_debug_mode("error"); each run's
-    partial results equal those of the same steps taken with end_step's
-    waits in between.  Returns the median host ms per step."""
+    and with hotwords, under set_sync_debug_mode("error"), through the graph
+    and through the eager route (the same step, the program taken away);
+    each run's partial results equal those of the same steps taken through
+    the graph with end_step's waits in between.  Returns the median host ms
+    per step of each route."""
     out = {}
     for hotwords in (None, NO_WAIT_HOTWORDS):
         what = f"zipformer2/{BEAM}" + ("/hotwords" if hotwords else "")
-        texts, host = {}, []
-        for no_wait in (False, True):
+        texts, host = {}, {"graph": [], "eager": []}
+        for route in ("waits", "graph", "eager"):
             online = OnlineRecognizer(sbundle, decoding_method=BEAM, max_active_paths=BEAM_K,
                                       hotwords=hotwords, max_lanes=STREAM_LANES, device="cuda")
+            if route == "eager":
+                online.program = None
             streams = []
             for i in range(STREAM_LANES):
                 s = online.create_online_stream()
                 s.add_samples(synth_pcm(4 * 16000, 700 + i))
                 streams.append(s)
-            online.get_results(streams)  # warm
+            online.get_results(streams)  # warm; the graph's capture
             reset_counts()
             steps = []
             while all(s._ready() for s in streams):
-                if no_wait:
-                    pending, ms = _no_sync(f"{what} begin_step",
+                if route in host:
+                    pending, ms = _no_sync(f"{what} begin_step ({route} route)",
                                            lambda: online.begin_step(streams))
-                    host.append(ms)
+                    host[route].append(ms)
                 else:
                     pending = online.begin_step(streams)
                 steps.append([r.text for r in online.end_step(pending)])
-            family_launches(f"no_wait_{what}/streaming" + ("" if no_wait else "/with_waits"),
+            family_launches(f"no_wait_{what}/streaming" + ("" if route == "graph" else
+                                                           f"/{route}"),
                             FAMILIES["zipformer2"], read_counts(), BEAM)
-            texts[no_wait] = steps
-        log(f"[6c] {what} begin_step, {STREAM_LANES} lanes: {len(host)} steps with no host "
-            f"sync, host {statistics.median(host):.2f} ms per step (median); partial results "
-            f"equal to the steps with waits: {texts[True] == texts[False]}")
-        if not host or texts[True] != texts[False]:
+            texts[route] = steps
+        same = texts["graph"] == texts["waits"] == texts["eager"]
+        med = {route: statistics.median(ms) for route, ms in host.items() if ms}
+        log(f"[6c] {what} begin_step, {STREAM_LANES} lanes: {len(host['graph'])} steps with no "
+            f"host sync, host {med.get('graph', 0):.2f} ms per step through the graph (median; "
+            f"the eager route {med.get('eager', 0):.2f}); partial results equal to the steps "
+            f"with waits and to the eager route's: {same}")
+        if not host["graph"] or not same:
             raise AssertionError(f"[6c] {what}: no step ran, or begin_step gave other results")
-        out[f"begin_step_host_ms{'_hotwords' if hotwords else ''}"] = statistics.median(host)
+        sfx = "_hotwords" if hotwords else ""
+        out[f"begin_step_host_ms{sfx}"] = med["graph"]
+        out[f"eager_begin_step_host_ms{sfx}"] = med["eager"]
     return out
 
 
@@ -2305,35 +2525,114 @@ def device_trace(fn, reps: int) -> tuple[float | None, dict]:
     return (busy_us / 1e6 / wall if busy_us else None), kernels
 
 
-def stream_stage_split(rec, reps: int = 5) -> dict:
-    """One streaming step's stages on every lane, each timed alone on the
-    host clock between device syncs (median of ``reps``): the lane-state
-    gather, fbank, the encoder's streaming_step, the write-back.  Uses the
-    drained pool's state; not part of any counted run."""
-    b, cfg = rec.bundle, rec.bundle.encoder_cfg
-    lanes = torch.arange(rec.max_lanes, device="cuda")
-    pcm = np.stack([synth_pcm(rec.window_samples, 400 + i) for i in range(rec.max_lanes)])
-    x = torch.from_numpy(pcm).cuda()
+STEP_STAGES = ("fbank", "encoder", "freeze", "search")  # _step's scopes, online.step.<stage>
 
-    def timed(fn):
-        times, out = [], None
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return out, statistics.median(times)
 
-    with torch.inference_mode():
-        state, gather = timed(lambda: tree_map(lambda a: a.index_select(0, lanes), rec._enc_state))
-        feats, fbank = timed(lambda: fbank_compute(x, b.frontend_cfg, cfg.chunk_input_len,
-                                                   tables=rec._fbank_tables))
-        (_, new), encoder = timed(lambda: rec._enc.streaming_step(rec.encoder, cfg, state, feats,
-                                                                  rec.compute_dtype))
-        _, scatter = timed(lambda: tree_map(lambda p, v: p.index_copy_(0, lanes, v.to(p.dtype)),
-                                            rec._enc_state, new))
-    return {"gather": gather, "fbank": fbank, "encoder": encoder, "scatter": scatter}
+def stream_stage_split(rec, per_step: dict) -> dict:
+    """One step of the whole pool (every lane stepping) split by _step's own
+    profiler scopes (online.step.<stage>, STEP_STAGES): the step run eagerly
+    under the profiler with the card synchronised at each scope's entry and
+    exit, so that a scope's kernels both launch and run inside its host
+    range, and the device time of the device events (kernels, copies) that
+    start inside each range, in ms; "other" is the rest of the traced
+    device time.  Time ranges, not the profiler's launch links: the
+    hand-written kernels launch through their own, statically linked, CUDA
+    runtime, and the profiler traces them with no link to their op.  A replay runs no Python, so its
+    kernels carry no scope; the eager step runs the same kernels (a replay
+    adds none), not the same gaps.  The values are None (not measured) when
+    the trace does not hold each of KERNELS as often as one step launches
+    it (``per_step``).  The pool and the launch counts are put back: not
+    part of any counted run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from k2transducerasr_tpu_torch.runtime import online as online_mod
+
+    @contextlib.contextmanager
+    def synced(name):
+        torch.cuda.synchronize()
+        with record_function(name):
+            yield
+            torch.cuda.synchronize()
+
+    windows, wcount = online_windows(rec, rec.max_lanes, 400)
+    pool = [t.clone() for t in pool_leaves(rec)]
+    saved = read_counts()
+    online_mod.record_function = synced
+    try:
+        with torch.inference_mode(), rec._precision():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rec._step(windows, wcount)
+                torch.cuda.synchronize()
+    finally:
+        online_mod.record_function = record_function
+    for t, t0 in zip(pool_leaves(rec), pool):
+        t.copy_(t0)
+    for name, fn in KERNELS.items():
+        fn.launches = saved[name]
+    events = prof.events()
+    scopes = [(e.name.removeprefix("online.step."), e.time_range) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("online.step.")]
+    stages = dict.fromkeys(STEP_STAGES + ("other",), 0.0)
+    device = [e for e in events
+              if e.device_type == DeviceType.CUDA and not e.name.startswith("online.step.")]
+    for e in device:
+        stage = next((name for name, r in scopes if r.start <= e.time_range.start <= r.end),
+                     "other")
+        stages[stage] += e.time_range.elapsed_us() / 1e3
+    if {k: sum(k in e.name for e in device) for k in KERNELS} != per_step:
+        return dict.fromkeys(stages)
+    return stages
+
+
+# the streaming main paths (family, method, accuracy) that [6b] and [8] drive
+STREAM_PATHS = [(f, GREEDY, None) for f in FAMILIES] + [("zipformer2", BEAM, None),
+                                                        ("zipformer2", GREEDY, "int8")]
+
+
+def path_name(rec) -> str:
+    return f"{rec.bundle.model_type}/{rec.decoding_method}" + (
+        f"/{rec.accuracy}" if rec.accuracy else "")
+
+
+def stage_splits() -> int:
+    """``--stage-splits``: stream_stage_split of every streaming main path
+    (STREAM_PATHS at [6b]'s size, the graph captured first, as [6b] has it
+    when it splits), printed as one JSON object {path: stages} on the last
+    line."""
+    out = {}
+    for family, method, accuracy in STREAM_PATHS:
+        spec = FAMILIES[family]
+        bundle = ModelBundle.random(family, spec["stream_cfg"](), vocab_size=500, seed=0,
+                                    device="cuda")
+        rec = OnlineRecognizer(bundle, decoding_method=method, max_lanes=STREAM_LANES,
+                               max_active_paths=BEAM_K, accuracy=accuracy, device="cuda")
+        streams = [rec.create_online_stream() for _ in range(STREAM_LANES)]
+        for i, s in enumerate(streams):
+            s.add_samples(synth_pcm(4 * 16000, 300 + i))
+        rec.get_results(streams)  # the capture
+        search = search_kernel(spec, rec.decoding_method)
+        out[path_name(rec)] = stream_stage_split(rec, counts_of(
+            **{spec["kernel"] or "none": spec["per_batch"], search or "none": 1}))
+        del rec, streams, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_stage_splits() -> dict:
+    """[6b]'s stage splits, from ``--stage-splits`` in a process of its own
+    that has run no profiler before: in this one, after the earlier phases'
+    traces, an eager step's trace lacked fbank's kernels and the search
+    kernel (seen on an H100), while a fresh process traces every kernel."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stage-splits"],
+                          capture_output=True, text=True, timeout=600, check=False)
+    if proc.returncode:
+        raise AssertionError(f"[6b] --stage-splits exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 # [8] int8 against the CPU.  The quantization is exact: w_q8 and w_scale of
@@ -2607,9 +2906,10 @@ def phase_cli(tmp) -> dict:
     runs them (bf16, the CLI's compute): ``-type offline -batch multi`` and
     ``-type online`` on the zipformer2 pin dir with the pin signal as a wav
     must print the pinned transcripts, the demos the same, and ``convert`` on
-    [10]'s synthetic ONNX dir must exit 0.  Each offline decode must run
-    through the recognizer's CUDA graph, held bit for bit against eager
-    _decode (graph_audit).  Returns each run's K1 launches."""
+    [10]'s synthetic ONNX dir must exit 0.  Each offline decode and each
+    streaming step must run through the recognizer's CUDA graph, held bit
+    for bit against the eager run (graph_audit).  Returns each run's K1
+    launches."""
     from k2transducerasr_tpu_torch.cli.main import main as cli_main
     from k2transducerasr_tpu_torch.examples import offline_demo, online_demo
 
@@ -2635,13 +2935,13 @@ def phase_cli(tmp) -> dict:
         # (splitlines splits there): its final text is the line before the
         # report's three lines and "end!"
         text = lines[-5] if name == "demo_online" else lines[1]
-        log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}"
-            + (f"; {len(audited)} decode(s) through the graph, equal to eager _decode bit for bit"
-               if audited else ""))
+        how = "decode(s)" if name.endswith("_offline") else "step(s)"
+        log(f"[11] {name}: exit {rc}, printed {text!r}, {secs:.2f} s host, launches {counts}; "
+            f"{len(audited)} {how} through the graph, equal to the eager run bit for bit")
         if rc not in (0, None) or text != pin:
             raise AssertionError(f"[11] {name} printed {lines!r}; expected {pin!r}")
-        if name.endswith("_offline") and not audited:
-            raise AssertionError(f"[11] {name} decoded without the recognizer's graph")
+        if not audited:
+            raise AssertionError(f"[11] {name} ran without the recognizer's graph")
         launches[name] = family_launches(name, spec, counts)
     t0 = time.perf_counter()
     rc, lines = _captured(cli_main, ["convert", os.path.join(tmp, "onnx"),
@@ -3071,6 +3371,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--mutation-check"]:
         return mutation_check()
+    if sys.argv[1:] == ["--stage-splits"]:  # [6b]'s splits, in a process of their own
+        return stage_splits()
     if sys.argv[1:2] == ["--parallel-rank"]:  # one rank of [12]
         return parallel_rank(sys.argv[2], int(sys.argv[3]))
     t_start = time.time()
@@ -3099,14 +3401,15 @@ def main() -> int:
 
     launches = {family: main_path(family) for family in FAMILIES}
     launches_beam = main_path("zipformer2", BEAM)
-    streaming = {family: phase_streaming_main_path(family) for family in FAMILIES}
-    streaming_beam = phase_streaming_main_path("zipformer2", BEAM)
+    splits = phase_stage_splits()
+    streaming = {family: phase_streaming_main_path(family, splits) for family in FAMILIES}
+    streaming_beam = phase_streaming_main_path("zipformer2", splits, BEAM)
     no_wait = phase_no_wait()
     graph_memory = phase_graph_memory()
     for family in INT8_FAMILIES:
         phase_int8_vs_cpu(family)
     launches_int8 = {family: main_path(family, accuracy="int8") for family in INT8_FAMILIES}
-    streaming_int8 = phase_streaming_main_path("zipformer2", accuracy="int8")
+    streaming_int8 = phase_streaming_main_path("zipformer2", splits, accuracy="int8")
     int_mm = phase_int_mm(bw)
     ingest_launches = phase_ingest()
     with tempfile.TemporaryDirectory() as tmp:

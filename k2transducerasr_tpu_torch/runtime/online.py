@@ -6,13 +6,33 @@ and the decode state of its method (``GreedyState``, ``BeamState`` or
 ``CtcState``), each leaf ``[max_lanes, ...]``, plus each lane's count of
 encoder frames decoded.  A stream is a host sample buffer and a lane.  Each
 step takes one window (``windows_per_step`` of them at most) from every
-ready stream and runs, on those lanes only: int16 window -> fbank -> encoder
-``streaming_step`` -> one of blank-skipping greedy search, blank-skipping
-modified beam search (joiner projection first) or CTC greedy (CTC head
-first).  The lanes' state is gathered with ``index_select``, stepped and
-written back with ``index_copy_``, so an idle lane's caches and counters do
-not move.  (The reference runs every lane and freezes the idle ones with a
-per-lane select, because ``jit`` wants one shape.)
+ready stream and runs, as the reference's one compiled step does, on EVERY
+lane of the pool: int16 windows ``[L, W, n]`` and counts ``wcount [L]`` ->
+fbank -> encoder ``streaming_step`` -> one of blank-skipping greedy search,
+blank-skipping modified beam search (joiner projection first) or CTC greedy
+(CTC head first).  Window slot k steps the lanes with ``wcount > k``: every
+lane runs, and each state leaf keeps its old value on the others
+(``_freeze``, the reference's ``_where_lane``); a lane with no window
+decodes zero frames, which leaves its decode state as it was.  Every write
+goes into the pool's leaves in place, so they never move.
+
+Without a mesh ``begin_step`` runs the step through a
+``runtime/program.DecodeProgram`` keyed by ``(L, W, n)``: on the card one
+CUDA graph per recognizer, captured at the first step and replayed with one
+launch per step, from one caller stream.  Its warm-up run (before the
+capture) steps an idle pool, every ``wcount`` 0, which changes nothing, so
+the first step is not applied twice.  Under a mesh the same step runs
+eagerly on the rank's own lanes: its collectives (gloo) cannot be captured.
+With dither, the step's noise is drawn once, here (``fbank.dither_noise``,
+seeded 0, the eager draw of every call), and read by each window slot: a
+graph cannot draw from an unregistered generator.  ``_step`` marks its
+stages with ``torch.profiler.record_function`` (``online.step.fbank``,
+``.encoder``, ``.freeze``, ``.search``), which a profiler of an eager step
+reads (a replay runs no Python, so its kernels carry no scope).
+
+A recognizer serves one thread: its streams' buffers, its lane list and its
+pool are shared, and a step's readback is queued after the replay outside
+the program's lock.
 
 A stream is ready when a whole window is buffered; ``input_finished``
 zero-pads the tail so the last partial window flushes.  Online greedy and
@@ -33,8 +53,8 @@ call ``begin_step`` for chunk k+1 before ``end_step`` for chunk k.
 the process group, SPMD: each rank makes the same calls with the same
 streams, so lanes are handed out in the same order everywhere.  Data group
 ``r`` owns the ``r``-th contiguous block of ``max_lanes / n_data`` lanes and
-holds the state of those lanes only; a step computes only its own lanes'
-windows (its ranks together, with the encoder's weights split over them),
+holds the state of those lanes only; a step runs on all of its own lanes
+(its ranks together, with the encoder's weights split over them),
 and the readback gathers every lane's buffers over ``data`` in one
 collective.  ``snapshot_stream`` broadcasts the owner's state to every rank.
 """
@@ -47,19 +67,27 @@ import dataclasses
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from k2transducerasr_tpu_torch import native
 from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
-from k2transducerasr_tpu_torch.frontend.fbank import fbank_compute, fbank_matrices
+from k2transducerasr_tpu_torch.frontend.fbank import dither_noise, fbank_compute, fbank_matrices
 from k2transducerasr_tpu_torch.models import ctc as ctc_mod
 from k2transducerasr_tpu_torch.models import joiner as joiner_mod
 from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.parallel.sharding import all_gather_dim, mesh_coords
 from k2transducerasr_tpu_torch.runtime.bundle import ModelBundle
 from k2transducerasr_tpu_torch.runtime.checkpoint import state_from_numpy, state_to_numpy, tree_map
-from k2transducerasr_tpu_torch.runtime.device import exact_f32, readback, resolve_device, upload
+from k2transducerasr_tpu_torch.runtime.device import (
+    exact_f32,
+    host_zeros,
+    readback,
+    resolve_device,
+    upload,
+)
 from k2transducerasr_tpu_torch.runtime.endpoint import EndpointConfig, is_endpoint
 from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
+from k2transducerasr_tpu_torch.runtime.program import DecodeProgram
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
 
@@ -218,6 +246,9 @@ class OnlineRecognizer:
         self.window_samples = (self._feat_window - 1) * fcfg.frame_shift + fcfg.frame_length
         self.hop_samples = enc_cfg.decode_chunk_len * fcfg.frame_shift
         self._fbank_tables = tuple(torch.from_numpy(m).to(dev) for m in fbank_matrices(fcfg))
+        # fbank's own dither draw for a window slot of the pool, drawn once
+        self._dither = None if fcfg.dither <= 0.0 else dither_noise(
+            (self._pool_lanes, self._feat_window, fcfg.frame_length), fcfg, dev)
         # the search kernels' operands (greedy and beam share them), built once
         # (decode/rnnt_greedy.py::greedy_operands)
         self._search_ops = None
@@ -227,12 +258,17 @@ class OnlineRecognizer:
 
         self._free_lanes = list(range(max_lanes))
         self._streams: dict[int, OnlineStream] = {}
-        # the lane pool (this data group's lanes)
+        # the lane pool (this data group's lanes): bound here once and only
+        # ever written in place, since a captured step holds its addresses
         self._enc_state = self._enc.init_state(enc_cfg, self._pool_lanes, dev)
         self._dec_state = self._init_dec_state(self._pool_lanes)
         self._frame_count = torch.zeros((self._pool_lanes,), dtype=torch.int64, device=dev)
         self._reset_template = None
         self._endpoint_host = None  # (trailing, count, frames) from the last readback
+        # the step program: one key (L, W, n), on the card one CUDA graph;
+        # its warm-up steps an idle pool, a no-op
+        self.program = None if mesh is not None else DecodeProgram(
+            self._step, dev, idle=lambda windows, wcount: (windows, torch.zeros_like(wcount)))
 
     # -- public API ---------------------------------------------------------
 
@@ -286,27 +322,38 @@ class OnlineRecognizer:
         """Run one step for every ready stream and start the readback of the
         results without waiting for it; ``end_step`` takes the handle.  Under
         every search method on the card nothing here waits for the device:
-        the windows and lane indices go up pinned and non-blocking, and the
-        greedy and beam searches are one kernel launch each."""
+        the whole pool's windows and counts go up pinned and non-blocking,
+        and the step is one replay of the recognizer's CUDA graph (the first
+        step captures it, which waits).
+
+        One thread and one stream per recognizer: the graph's static inputs
+        and the pool are shared, so every ``begin_step`` on the card must
+        run on the stream of the first (another raises)."""
         active = [s for s in streams if s.lane >= 0 and s._ready()]
         if active:
-            # windows travel as int16, made by truncation toward zero
-            wps = self.windows_per_step
-            windows = np.zeros((len(active), wps, self.window_samples), np.int16)
-            wcount = np.zeros((len(active),), np.int64)
-            for i, s in enumerate(active):
+            # the pool's windows as int16 (made by truncation toward zero);
+            # a lane without a window gets zeros and a count of 0
+            shape = (self._pool_lanes, self.windows_per_step, self.window_samples)
+            windows_t = host_zeros(shape, torch.int16, self.device)
+            wcount_t = host_zeros((self._pool_lanes,), torch.int64, self.device)
+            windows, wcount = windows_t.numpy(), wcount_t.numpy()
+            # every rank takes every stream's windows; it keeps its own lanes'
+            for s in active:
+                lane = s.lane - self._lane0
                 k = 0
-                while k < wps and s._ready():
-                    windows[i, k] = np.clip(s._take_window() * 32768.0, -32768,
-                                            32767).astype(np.int16)
+                while k < shape[1] and s._ready():
+                    w = s._take_window()
+                    if self._owns(s.lane):
+                        windows[lane, k] = np.clip(w * 32768.0, -32768, 32767).astype(np.int16)
                     k += 1
-                wcount[i] = k
-            # every rank takes every stream's windows; it steps its own lanes
-            own = [i for i, s in enumerate(active) if self._owns(s.lane)]
-            if own:
+                if self._owns(s.lane):
+                    wcount[lane] = k
+            if wcount.any():
                 with torch.inference_mode(), self._precision():
-                    self._step(np.array([active[i].lane - self._lane0 for i in own]),
-                               windows[own], wcount[own])
+                    if self.program is not None:  # copies into its static inputs
+                        self.program(windows_t, wcount_t)
+                    else:  # under a mesh: eager
+                        self._step(upload(windows_t, self.device), upload(wcount_t, self.device))
         st = self._dec_state
         if self.hotwords:  # every beam's partial text, for the selection
             bufs = rnnt_beam.nbest_beams(st)[:3]
@@ -385,11 +432,10 @@ class OnlineRecognizer:
         stream = self.create_online_stream()
         if self._owns(stream.lane):
             lane = stream.lane - self._lane0
-            enc = state_from_numpy(snapshot["enc"], self.device)
-            dec = state_from_numpy(snapshot["dec"], self.device)
-            tree_map(lambda pool, v: pool[lane].copy_(v), self._enc_state, enc)
-            tree_map(lambda pool, v: pool[lane].copy_(v), self._dec_state, dec)
-            self._frame_count[lane] = int(snapshot["frames"])
+            state = (state_from_numpy(snapshot["enc"], self.device),
+                     state_from_numpy(snapshot["dec"], self.device),
+                     torch.tensor(int(snapshot["frames"])))
+            tree_map(lambda pool, v: pool[lane].copy_(v), self._pool(), state)
         stream._push(np.asarray(snapshot["buffer"], np.float32))
         stream._consumed = snapshot["consumed"]
         stream.finished_input = snapshot["finished_input"]
@@ -447,6 +493,12 @@ class OnlineRecognizer:
         return rnnt_greedy.init_state(b.decoder, b.decoder_cfg, b.joiner, batch,
                                       self.max_tokens, cd)
 
+    def _pool(self) -> tuple:
+        """The lane pool: (encoder state, decode state, frame counters), each
+        leaf ``[pool lanes, ...]``.  Bound in ``__init__`` and only written
+        in place: the captured step holds these addresses."""
+        return self._enc_state, self._dec_state, self._frame_count
+
     def _owns(self, lane: int) -> bool:
         """Whether this rank's data group holds ``lane``."""
         return 0 <= lane - self._lane0 < self._pool_lanes
@@ -468,52 +520,63 @@ class OnlineRecognizer:
     def _reset_lane(self, lane: int) -> None:
         """Zero one lane's state (a fresh stream); ``lane`` indexes the
         pool."""
-        if self._reset_template is None:
+        if self._reset_template is None:  # a pool of one lane
             self._reset_template = (
                 self._enc.init_state(self.bundle.encoder_cfg, 1, self.device),
                 self._init_dec_state(1),
+                torch.zeros((1,), dtype=torch.int64, device=self.device),
             )
-        enc_t, dec_t = self._reset_template
-        tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._enc_state, enc_t)
-        tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._dec_state, dec_t)
-        self._frame_count[lane] = 0
+        tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._pool(), self._reset_template)
         self._endpoint_host = None  # the lane's counters changed
 
-    def _step(self, lanes: np.ndarray, windows: np.ndarray, wcount: np.ndarray) -> None:
-        """One step on the pool's ``lanes`` (in the order of ``windows``' rows):
-        windows [N, W, n] int16, wcount [N] windows per lane.  Window slot k
-        steps the encoder of the lanes with more than k windows; one decode
-        pass then runs over each lane's concatenated encoder output."""
+    def _step(self, windows: torch.Tensor, wcount: torch.Tensor) -> tuple:
+        """One step of the whole pool (the reference's ``_build_step_fn``):
+        windows [L, W, n] int16, wcount [L] int64 windows per lane.  Window
+        slot k steps the encoder of every lane and keeps the new state of
+        the lanes with more than k windows; one decode pass then runs over
+        each lane's ``wcount * chunk`` encoder frames.  Writes the pool in
+        place, reads nothing on the host and returns nothing: the function
+        ``program`` captures.  Its stages are profiler scopes."""
         b = self.bundle
-        dev, cd, chunk = self.device, self.compute_dtype, self.chunk_frames
-        lanes_t = upload(lanes, dev)
-        samples = upload(windows, dev)
-        wps = windows.shape[1]
-        enc_out = None
-        for k in range(wps):
-            rows = upload(np.nonzero(wcount > k)[0], dev)
-            idx = lanes_t[rows]
-            state = tree_map(lambda a: a.index_select(0, idx), self._enc_state)
-            feats = fbank_compute(samples[rows, k].float() * (1.0 / 32768.0), b.frontend_cfg,
-                                  self._feat_window, tables=self._fbank_tables)
-            out, new_state = self._enc.streaming_step(self.encoder, b.encoder_cfg, state, feats, cd)
-            tree_map(lambda pool, v: pool.index_copy_(0, idx, v.to(pool.dtype)),
-                     self._enc_state, new_state)
-            if enc_out is None:
-                enc_out = out.new_zeros((len(lanes), wps * chunk, out.shape[-1]))
-            enc_out[rows, k * chunk:(k + 1) * chunk] = out
-        dec = tree_map(lambda a: a.index_select(0, lanes_t), self._dec_state)
-        lens = upload(wcount * chunk, dev)
-        offset = self._frame_count.index_select(0, lanes_t)
-        if self.decoding_method == "greedy_search_ctc":
-            lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
-            new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
-        else:
-            # online search also skips <sos/eos> = 1 (extra_skip_sos)
-            enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
-            args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
-            search = (rnnt_beam.beam_frames_skip if self.decoding_method == "modified_beam_search"
-                      else rnnt_greedy.greedy_frames_skip)
-            new_dec = search(*args, operands=self._search_ops)
-        tree_map(lambda pool, v: pool.index_copy_(0, lanes_t, v), self._dec_state, new_dec)
-        self._frame_count.index_add_(0, lanes_t, lens)
+        cd, chunk = self.compute_dtype, self.chunk_frames
+        outs = []
+        for k in range(windows.shape[1]):
+            with record_function("online.step.fbank"):
+                feats = fbank_compute(windows[:, k].float() * (1.0 / 32768.0), b.frontend_cfg,
+                                      self._feat_window, tables=self._fbank_tables,
+                                      noise=self._dither)
+            with record_function("online.step.encoder"):
+                out, new_state = self._enc.streaming_step(self.encoder, b.encoder_cfg,
+                                                          self._enc_state, feats, cd)
+            with record_function("online.step.freeze"):
+                _freeze(self._enc_state, new_state, wcount > k)
+            outs.append(out)
+        with record_function("online.step.search"):
+            enc_out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+            lens, dec, offset = wcount * chunk, self._dec_state, self._frame_count
+            if self.decoding_method == "greedy_search_ctc":
+                lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
+                new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
+            else:
+                # online search also skips <sos/eos> = 1 (extra_skip_sos)
+                enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
+                args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
+                search = (rnnt_beam.beam_frames_skip
+                          if self.decoding_method == "modified_beam_search"
+                          else rnnt_greedy.greedy_frames_skip)
+                new_dec = search(*args, operands=self._search_ops)
+            tree_map(lambda pool, v: pool.copy_(v), self._dec_state, new_dec)
+            self._frame_count.add_(lens)
+        return ()
+
+
+def _freeze(pool, new, active: torch.Tensor) -> None:
+    """Write ``new`` into the ``pool`` leaves in place on the ``active``
+    lanes; the others keep theirs (the reference's ``_where_lane``: every
+    leaf is lane-leading).  Every select is made before the first write, so
+    a new leaf that is a view of a pool leaf reads it unchanged."""
+    def select(old, v):
+        mask = active.reshape((-1,) + (1,) * (old.dim() - 1))
+        return torch.where(mask, v.to(old.dtype), old)
+
+    tree_map(lambda old, v: old.copy_(v), pool, tree_map(select, pool, new))

@@ -1,19 +1,30 @@
-"""One decode program per (rows, samples) shape: the port's counterpart of
-the JAX runtime's shape-keyed ``jax.jit`` cache over ``_build_decode_fn``
-(``k2transducerasr_tpu/runtime/offline.py``), which runs fbank, the
-encoder, the joiner projection and the search as ONE compiled program per
-(batch, frame bucket).
+"""One program per input shape: the port's counterpart of the JAX
+runtimes' shape-keyed ``jax.jit`` caches.  The offline recognizer's
+``_build_decode_fn`` (``k2transducerasr_tpu/runtime/offline.py``) runs
+fbank, the encoder, the joiner projection and the search as ONE compiled
+program per (batch, frame bucket); the online recognizer's
+``_build_step_fn`` (``runtime/online.py``) runs a streaming step over the
+whole lane pool as ONE compiled program of one shape.
 
-``DecodeProgram(fn, device)`` wraps a function of (int16 samples [rows, N],
-int64 counts [rows]) that returns a tuple of output tensors.  Each key
-(rows, N) holds:
+``DecodeProgram(fn, device)`` wraps a function of (int16 samples, int64
+counts) that returns a tuple of output tensors: offline ``_decode``
+(samples [rows, N], counts [rows]), keyed (rows, N); online ``_step``
+(windows [L, W, n], counts [L]), keyed (L, W, n), which writes the lane
+pool in place and returns nothing.  The inputs may lie on the device or on
+the host: online ``begin_step`` passes its pinned host buffers, which go
+straight into the static inputs, non-blocking.  Each key holds:
 
-* the static inputs, which every call fills with ``copy_``;
+* the static inputs on ``device``, which every call fills with ``copy_``;
 * on the card, a ``torch.cuda.CUDAGraph`` of ``fn``, captured at the first
   call of that shape after one eager warm-up run on the program's side
   stream, as PyTorch's documentation prescribes.  The warm-up builds the
   kernels, sets their shared-memory attributes and creates the cuBLAS and
-  cuDNN handles, none of which may happen under capture;
+  cuDNN handles, none of which may happen under capture.  The warm-up
+  rule: an ``fn`` that writes state in place (the online step) passes
+  ``idle``, a function of the static inputs that returns inputs on which
+  ``fn`` changes nothing (every count 0), and the warm-up runs on those;
+  otherwise the first call would apply its inputs twice, once in the
+  warm-up and once in the replay.  The capture itself runs nothing;
 * the static outputs the graph writes.
 
 A call on the card is one replay on the caller's current stream (the
@@ -46,6 +57,10 @@ Launch counts.  A replay runs no Python, so the kernels' wrappers
 times each wrapper launched (its ``launches`` rose while ``fn`` was
 captured, and is set back: nothing ran); every replay then adds those
 numbers, so each count stays the number of launches the card ran.
+
+The caller runs each call under its own precision: the cuBLAS and cuDNN
+math modes (TF32 on or off) are fixed into a graph when it is captured, so
+the first call of a shape must run under the mode of every later one.
 
 On the CPU each call runs ``fn`` eagerly on the static inputs and clones
 its outputs: the plain route the tests drive.
@@ -116,10 +131,13 @@ class CudaGraphs:
 class DecodeProgram:
     """``fn`` run once per call, keyed by the input shape; see the module
     docstring.  ``graphs``: the capture (default ``CudaGraphs(device)`` on
-    the card, none on the CPU; a test passes a fake)."""
+    the card, none on the CPU; a test passes a fake).  ``idle``: the
+    warm-up's inputs from the static inputs, for an ``fn`` that writes
+    state in place (default: the static inputs themselves)."""
 
-    def __init__(self, fn, device: torch.device, graphs=None):
+    def __init__(self, fn, device: torch.device, graphs=None, idle=None):
         self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else lambda: fn
+        self._idle = idle
         self.device = device
         self.counters = kernel_wrappers()
         if graphs is None and device.type == "cuda":
@@ -145,8 +163,8 @@ class DecodeProgram:
             if entry is None:
                 entry = self.entries[key] = self._new_entry(samples, counts)
             else:
-                entry.inputs[0].copy_(samples)
-                entry.inputs[1].copy_(counts)
+                entry.inputs[0].copy_(samples, non_blocking=True)
+                entry.inputs[1].copy_(counts, non_blocking=True)
             if entry.graph is None:
                 return tuple(t.clone() for t in self.fn(*entry.inputs))
             entry.graph.replay()
@@ -159,14 +177,15 @@ class DecodeProgram:
         if self.stream is None:
             self.stream = stream
         elif stream != self.stream:
-            raise RuntimeError(f"decode program called on {stream}; its graphs serve one "
+            raise RuntimeError(f"program called on {stream}; its graphs serve one "
                                f"caller stream, {self.stream}")
 
     def _new_entry(self, samples, counts) -> Entry:
-        inputs = (samples.clone(), counts.clone())
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                       .copy_(x, non_blocking=True) for x in (samples, counts))
         if self.graphs is None:
             return Entry(inputs)
-        self.graphs.warm_up(self.fn, inputs)
+        self.graphs.warm_up(self.fn, inputs if self._idle is None else self._idle(*inputs))
         before = [c.launches for c in self.counters]
         try:
             graph, outputs = self.graphs.capture(self.fn, inputs)

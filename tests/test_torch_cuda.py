@@ -13,7 +13,10 @@ resident in the cluster's shared memory or streamed, ragged widths, context
 1, 8 and 10, J = D = 1536, more lanes than clusters run at once).  The beam
 search kernel is held against its plain version (float32: every state field
 and each frame's recorded choice; bf16: the beam replay), and K1 and K2 at
-heads of 128 (their chunked bodies) against their plain versions.
+heads of 128 (their chunked bodies) against their plain versions.  The
+recognizers' CUDA graphs are held against their eager functions bit for
+bit: offline each batch's ``_decode``, online each streaming step over the
+whole lane pool (every family and search method, idle lanes untouched).
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -54,7 +57,7 @@ from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import lstm as TL
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
-from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy
+from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
 
@@ -677,9 +680,9 @@ def test_greedy_frames_skip_does_not_sync(cuda):
 
 
 def _replayed(rec, fn):
-    """fn(), a begin_decode of a batch shape ``rec.program`` has captured:
-    it adds no graph and runs the shape's one graph (a replay: no wrapper
-    counts a launch but the program)."""
+    """fn(), a begin_decode (or begin_step) of a shape ``rec.program`` has
+    captured: it adds no graph and runs the shape's one graph (a replay: no
+    wrapper counts a launch but the program)."""
     entries = dict(rec.program.entries)
     assert entries and all(e.graph is not None for e in entries.values())
     fn()
@@ -713,7 +716,8 @@ def test_begin_decode_and_begin_step_do_not_sync(cuda, family, compat):
     online.get_results([stream])
     assert stream._ready()  # the step below runs the encoder and the search
     pending = []
-    assert _host_syncs(lambda: pending.append(online.begin_step([stream]))) == []
+    assert _host_syncs(lambda: _replayed(online, lambda: pending.append(
+        online.begin_step([stream])))) == []
     online.end_step(pending[0])
 
 
@@ -932,7 +936,8 @@ def test_begin_decode_and_begin_step_do_not_sync_under_beam_search(cuda, hotword
     online.get_results([stream])
     assert stream._ready()
     pending = []
-    assert _host_syncs(lambda: pending.append(online.begin_step([stream]))) == []
+    assert _host_syncs(lambda: _replayed(online, lambda: pending.append(
+        online.begin_step([stream])))) == []
     online.end_step(pending[0])
 
 
@@ -1362,6 +1367,134 @@ def test_dropping_a_recognizer_releases_its_graph_pool(cuda):
         assert pool_segments() == []
     finally:
         gc.enable()
+
+
+# -- the online recognizer's step graph (runtime/online.py::_step) ------------
+
+# (family, method, hotwords): every family and search method on its pin dir
+STEP_CASES = GRAPH_CASES
+STEP_LANES = 3  # two streams and a lane no stream holds
+
+
+def _pool_leaves(rec) -> list:
+    """Every leaf of an online recognizer's lane pool (``_pool``), as it
+    lies."""
+    leaves = []
+    tree_map(leaves.append, rec._pool())
+    return leaves
+
+
+def _step_pair(bundle, **kw):
+    """Two recognizers of one bundle: the first steps through its graph, the
+    second runs the same step function eagerly (its program taken away)."""
+    graph = OnlineRecognizer(bundle, max_lanes=STEP_LANES, device="cuda", **kw)
+    eager = OnlineRecognizer(bundle, max_lanes=STEP_LANES, device="cuda", **kw)
+    eager.program = None
+    return graph, eager
+
+
+def _assert_step_graph_equals_eager(graph, eager):
+    """Stream A holds 8 windows, stream B 4 and is passed to every other
+    step only, the third lane holds no stream: half the lanes or more idle
+    in every step.  After each step (the first, the capture's, included)
+    the graph's pool equals the eager step's bit for bit, leaf by leaf, and
+    so do the partial results; the lanes that took no window kept every
+    leaf bit for bit; from the second step on a replay adds the eager
+    step's launches.  Returns the last results."""
+    win, hop = graph.window_samples, graph.hop_samples
+    pcms = (_pcm(win + 7 * hop, 31), _pcm(win + 3 * hop, 32))
+    pairs = []
+    for rec in (graph, eager):
+        pairs.append([rec.create_online_stream() for _ in pcms])
+        for s, x in zip(pairs[-1], pcms):
+            s.add_samples(x)
+    results = []
+    for step in range(8):
+        picks = [[sa] + ([sb] if step % 2 == 0 else []) for sa, sb in pairs]
+        stepping = {s.lane for s in picks[0] if s._ready()}
+        before = [t.clone() for t in _pool_leaves(graph)]
+        results, launches = [], []
+        for rec, streams in zip((graph, eager), picks):
+            c0 = _counts()
+            results.append([(r.tokens, r.timestamps) for r in rec.get_results(streams)])
+            launches.append(tuple(a - b for a, b in zip(_counts(), c0)))
+        assert results[0] == results[1], f"step {step}"
+        assert step == 0 or launches[0] == launches[1], f"step {step}"
+        for g, e, old in zip(_pool_leaves(graph), _pool_leaves(eager), before):
+            assert g.dtype == e.dtype and torch.equal(g, e), f"step {step}"
+            for lane in set(range(STEP_LANES)) - stepping:
+                assert torch.equal(g[lane], old[lane]), f"step {step}, idle lane {lane}"
+    (entry,) = graph.program.entries.values()
+    assert entry.graph is not None
+    return results[0]
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("family,method,hotwords", STEP_CASES,
+                         ids=[f"{f}-{m}" + ("-hotwords" if h else "") for f, m, h in STEP_CASES])
+def test_step_graph_equals_eager_step(cuda, family, method, hotwords, compute_dtype):
+    """Every family and search method, bf16 and float32: each step's replay
+    leaves the pool the eager step leaves, bit for bit, idle lanes
+    untouched, and the first step is not applied twice by the warm-up."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
+    graph, eager = _step_pair(bundle, decoding_method=method, compute_dtype=compute_dtype,
+                              max_active_paths=4, hotwords=hotwords)
+    assert any(tokens for tokens, _ in _assert_step_graph_equals_eager(graph, eager))
+
+
+@pytest.mark.parametrize("family,method", INT8_GRAPH_CASES,
+                         ids=[f"{f}-{m}" for f, m in INT8_GRAPH_CASES])
+def test_step_graph_equals_eager_step_under_int8(cuda, family, method):
+    graph, eager = _step_pair(_int8_bundle(family, "cuda"), decoding_method=method,
+                              max_active_paths=4, accuracy="int8")
+    _assert_step_graph_equals_eager(graph, eager)
+
+
+def test_step_graph_two_windows_a_step_equal_one(cuda):
+    """windows_per_step=2 through its graph gives the tokens of one window a
+    step; each recognizer holds the one key (lanes, windows, samples)."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    results = {}
+    for wps in (1, 2):
+        graph, eager = _step_pair(bundle, windows_per_step=wps)
+        results[wps] = _assert_step_graph_equals_eager(graph, eager)
+        assert list(graph.program.entries) == [(STEP_LANES, wps, graph.window_samples)]
+    assert results[2] == results[1]
+
+
+def test_step_graph_with_dither_equals_the_per_call_draw(cuda):
+    """With dither the graph reads the noise its recognizer drew once; the
+    eager step, whose fbank draws its seed-0 noise on every call, leaves
+    the same pool and results bit for bit."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    bundle = dataclasses.replace(bundle, frontend_cfg=dataclasses.replace(bundle.frontend_cfg,
+                                                                          dither=0.01))
+    graph, eager = _step_pair(bundle)
+    eager._dither = None
+    assert any(tokens for tokens, _ in _assert_step_graph_equals_eager(graph, eager))
+
+
+def test_step_graph_pool_never_moves_and_serves_one_stream(cuda):
+    """The pool's leaves keep their storage across steps, a lane's reset and
+    restore_stream, and the recognizer keeps one graph; a begin_step on
+    another stream raises, and the first stream still steps."""
+    bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, "zipformer2_pin"), device="cuda")
+    rec = OnlineRecognizer(bundle, max_lanes=STEP_LANES, device="cuda")
+    ptrs = [t.data_ptr() for t in _pool_leaves(rec)]
+    s = rec.create_online_stream()
+    s.add_samples(_pcm(rec.window_samples + 3 * rec.hop_samples, 33))
+    rec.get_results([s])
+    snap = rec.snapshot_stream(s)
+    rec.dispose_stream(s)
+    again = rec.create_online_stream()
+    again.add_samples(_pcm(rec.window_samples, 34))
+    rec.get_results([again])
+    restored = rec.restore_stream(snap)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="one caller stream"):
+            rec.begin_step([restored])
+    assert rec.decode_to_end(restored).tokens
+    assert [t.data_ptr() for t in _pool_leaves(rec)] == ptrs and len(rec.program) == 1
 
 
 def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):
