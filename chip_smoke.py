@@ -183,6 +183,8 @@ from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from k2transducerasr_tpu_torch.runtime.offline import PendingDecode
 from k2transducerasr_tpu_torch.runtime.program import CudaGraphs, DecodeProgram
 from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
+from k2transducerasr_tpu_torch.utils import profiling
+from k2transducerasr_tpu_torch.utils.profiling import STEP_STAGES
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
@@ -457,6 +459,12 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def counters_since(before: dict) -> dict:
+    """What each of the port's counters (``profiling.counters``) rose by
+    since the reading ``before``."""
+    return {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
 
 
 def path_kernels(spec, method=GREEDY) -> set:
@@ -1850,6 +1858,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     reset_peak_memory()
 
     reset_counts()
+    before = profiling.counters()
     t0 = time.time()
     results = []
     for k in range(1, n_batches + 1):
@@ -1857,6 +1866,10 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
+    ran = counters_since(before)
+    if ran.get("program.replays") != n_batches or ran.get("program.captures"):
+        raise AssertionError(f"{name}: {n_batches} timed batches ran {ran} (profiling "
+                             f"counters), expected one replay a batch and no capture")
 
     want = {k: v * n_batches for k, v in per_batch.items()}
     if counts != want:
@@ -2069,6 +2082,7 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     reset_peak_memory()
 
     reset_counts()
+    before = profiling.counters()
     lat, host, wait, text = [], [], [], []
     t_start = time.perf_counter()
     while any(s._ready() for s in streams):
@@ -2086,6 +2100,11 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     wall = time.perf_counter() - t_start
     counts = read_counts()
     steps = len(lat)
+    ran = counters_since(before)
+    if ran.get("program.replays") != steps or ran.get("program.captures"):
+        raise AssertionError(f"{name} streaming: {steps} timed steps ran {ran} (profiling "
+                             f"counters), expected one replay a step and no capture")
+    lanes_per_replay = ran["online.lanes_stepped"] / steps
     want = {k: v * steps for k, v in per_step.items()}
     if counts != want:
         raise AssertionError(f"{name} streaming main path launched {counts} in {steps} steps, "
@@ -2134,6 +2153,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
            "begin_step_host_ms": float(np.median(host)) * 1e3,
            "end_step_wait_ms": float(np.median(wait)) * 1e3,
            "end_step_results_ms": float(np.median(text)) * 1e3,
+           "lanes_per_replay": lanes_per_replay,
+           "windows_per_lane": ran["online.windows"] / ran["online.lanes_stepped"],
            "capture_ms": capture_ms, "graph_key": list(key), "graph_nodes": n_nodes,
            "kernel_nodes": nodes, "graph_pool_gib": rec.program.pool_bytes() / 2**30,
            "lane_pool_mib": sum(t.nbytes for t in pool_leaves(rec)) / 2**20, "replay_device_ms": replay_ms,
@@ -2149,7 +2170,9 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
         f"{row['audio_s_per_s']:.1f} audio-s/s; medians: begin_step host "
         f"{row['begin_step_host_ms']:.2f} ms, then the wait for the card "
         f"{row['end_step_wait_ms']:.2f}, then end_step's results (text) "
-        f"{row['end_step_results_ms']:.2f}; peak {peak:.2f} GiB, launches {counts} "
+        f"{row['end_step_results_ms']:.2f}; lanes stepped per replay {lanes_per_replay:.2f} "
+        f"of {STREAM_LANES}, windows per stepped lane {row['windows_per_lane']:.2f} (profiling "
+        f"counters); peak {peak:.2f} GiB, launches {counts} "
         f"({spec['per_batch']}/step of "
         f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
     log(f"{tag} {name} step graph of key (lanes, windows, samples) {key}: first step (warm-up "
@@ -2163,9 +2186,9 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
            if busy is None else
            f"{busy:.1%} of 3 profiled steps' wall time (the profiler's host cost included); "
            f"kernels in the trace by name {traced}, equal to the counters"))
-    log(f"{tag} {name} step split (device time of the kernels in each of _step's scopes, "
-        f"one eager step of all {STREAM_LANES} lanes under the profiler, another process): "
-        + ("not measured (the trace lacks kernels the step launched)" if stages["other"] is None
+    log(f"{tag} {name} step split (device time from each of _step's stage markers to the "
+        f"next, per replay of all {STREAM_LANES} lanes under the profiler, another process): "
+        + ("not measured (the trace lacks kernels the step launched)" if stages["search"] is None
            else ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
            + f", sum {sum(stages.values()):.3f} beside one replay's {replay_ms:.3f}")
         + f"; the graph against "
@@ -2525,63 +2548,78 @@ def device_trace(fn, reps: int) -> tuple[float | None, dict]:
     return (busy_us / 1e6 / wall if busy_us else None), kernels
 
 
-STEP_STAGES = ("fbank", "encoder", "freeze", "search")  # _step's scopes, online.step.<stage>
+def stage_split(events) -> dict[str, float]:
+    """A device trace's time by stage: ``events`` are ``(name, start,
+    end)`` of the kernels and copies of one stream in any unit, the stage
+    markers (``profiling.stage``: k2t_stage_<stage>) among them.  Each event
+    belongs to the stage of the last marker that began at or before it
+    (events before the first marker: to the stage that marker ends, as the
+    marker sequence shows); the stage's time is the union of its events'
+    intervals.  -> {stage: time} for each stage seen, plus "copies": what
+    lies between ``end`` and the next ``fbank``.  (``asrbench/`` splits its
+    traces with its own copy: the benchmark imports nothing of the port.)"""
+    prefix = profiling.MARKER_PREFIX
+    events = sorted(events, key=lambda e: e[1])
+    marks = [n[len(prefix):] for n, _, _ in events if n.startswith(prefix)]
+    before = {}  # stage -> the stage whose marker precedes it
+    for prev, cur in zip(marks, marks[1:]):
+        before.setdefault(cur, prev)
+    current = before.get(marks[0], "end") if marks else "end"
+    parts: dict[str, list] = {}
+    for n, s, e in events:
+        if n.startswith(prefix):
+            current = n[len(prefix):]
+        parts.setdefault("copies" if current == "end" else current, []).append((s, e))
+    return {k: union_length(v) for k, v in parts.items()}
+
+
+def union_length(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, hi = 0.0, None
+    for s, e in sorted(intervals):
+        if hi is None or s > hi:
+            total += e - s
+            hi = e
+        elif e > hi:
+            total += e - hi
+            hi = e
+    return total
 
 
 def stream_stage_split(rec, per_step: dict) -> dict:
-    """One step of the whole pool (every lane stepping) split by _step's own
-    profiler scopes (online.step.<stage>, STEP_STAGES): the step run eagerly
-    under the profiler with the card synchronised at each scope's entry and
-    exit, so that a scope's kernels both launch and run inside its host
-    range, and the device time of the device events (kernels, copies) that
-    start inside each range, in ms; "other" is the rest of the traced
-    device time.  Time ranges, not the profiler's launch links: the
-    hand-written kernels launch through their own, statically linked, CUDA
-    runtime, and the profiler traces them with no link to their op.  A replay runs no Python, so its
-    kernels carry no scope; the eager step runs the same kernels (a replay
-    adds none), not the same gaps.  The values are None (not measured) when
-    the trace does not hold each of KERNELS as often as one step launches
-    it (``per_step``).  The pool and the launch counts are put back: not
-    part of any counted run."""
+    """Replays of the step graph (every lane stepping) split by the stage
+    markers they carry (``profiling.stage``: k2t_stage_<stage>): the device
+    time of each of STEP_STAGES, from its marker to the next, and "copies"
+    (the static inputs' copies, from ``end`` to the next ``fbank``), in ms
+    per replay (stage_split).  Two replays, since a profile in
+    a process that profiled before can miss its first events (seen on an
+    H100: the first fbank marker): events before the first marker seen go
+    to the stage the second replay shows before it.  The values are None
+    (not measured) when the trace does not hold each of KERNELS as often as
+    the replays launch it (``per_step``).  The pool and the launch counts
+    are put back: not part of any counted run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from k2transducerasr_tpu_torch.runtime import online as online_mod
-
-    @contextlib.contextmanager
-    def synced(name):
-        torch.cuda.synchronize()
-        with record_function(name):
-            yield
-            torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
 
     windows, wcount = online_windows(rec, rec.max_lanes, 400)
     pool = [t.clone() for t in pool_leaves(rec)]
     saved = read_counts()
-    online_mod.record_function = synced
-    try:
-        with torch.inference_mode(), rec._precision():
+    with torch.inference_mode(), rec._precision():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                rec.program(windows, wcount)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                rec._step(windows, wcount)
-                torch.cuda.synchronize()
-    finally:
-        online_mod.record_function = record_function
     for t, t0 in zip(pool_leaves(rec), pool):
         t.copy_(t0)
     for name, fn in KERNELS.items():
         fn.launches = saved[name]
-    events = prof.events()
-    scopes = [(e.name.removeprefix("online.step."), e.time_range) for e in events
-              if e.device_type == DeviceType.CPU and e.name.startswith("online.step.")]
-    stages = dict.fromkeys(STEP_STAGES + ("other",), 0.0)
-    device = [e for e in events
-              if e.device_type == DeviceType.CUDA and not e.name.startswith("online.step.")]
-    for e in device:
-        stage = next((name for name, r in scopes if r.start <= e.time_range.start <= r.end),
-                     "other")
-        stages[stage] += e.time_range.elapsed_us() / 1e3
-    if {k: sum(k in e.name for e in device) for k in KERNELS} != per_step:
+    device = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    split = stage_split(device)
+    stages = {k: split.get(k, 0.0) / 2e3 for k in STEP_STAGES + ("copies",)}
+    if {k: sum(k in n for n, _, _ in device) for k in KERNELS} != {
+            k: 2 * v for k, v in per_step.items()}:
         return dict.fromkeys(stages)
     return stages
 

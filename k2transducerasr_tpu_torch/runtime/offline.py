@@ -27,6 +27,10 @@ bucketed samples), captured at the first batch of that shape and replayed
 with one launch per batch, as the JAX runtime compiles one program per
 (batch, frame bucket).  Under a mesh ``_decode`` runs eagerly: its
 collectives (gloo) cannot be captured.
+
+``begin_decode`` and ``end_decode`` record their parts as host spans and
+``_decode`` marks its stages on the device (fbank, encoder, search, end),
+through ``utils/profiling``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from k2transducerasr_tpu_torch.runtime.device import (
 from k2transducerasr_tpu_torch.runtime.program import DecodeProgram
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
+from k2transducerasr_tpu_torch.utils import profiling
 
 DECODING_METHODS = ("greedy_search", "greedy_search_ctc", "modified_beam_search")
 
@@ -260,8 +265,9 @@ class OfflineRecognizer:
         memory, so every ``begin_decode`` of a recognizer on the card must
         run on the stream of its first (another raises); calls from several
         threads on that stream are serialised."""
-        samples, sample_counts = self.pcm_batch(streams)
-        with torch.inference_mode(), self._precision():
+        with profiling.span("begin_decode.pcm"):
+            samples, sample_counts = self.pcm_batch(streams)
+        with profiling.span("begin_decode.queue"), torch.inference_mode(), self._precision():
             if self.program is not None:
                 out = self.program(samples, sample_counts)
             else:  # under a mesh: eager
@@ -269,10 +275,10 @@ class OfflineRecognizer:
                 if self._n_data > 1:  # every data group's rows, in order
                     out = tuple(self._all_rows(t) for t in out)
             host = tuple(readback(t) for t in out)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
         return PendingDecode(streams, host, event)
 
     def end_decode(self, pending: PendingDecode) -> list[OfflineRecognizerResult]:
@@ -281,21 +287,23 @@ class OfflineRecognizer:
         with ``hotwords`` the n-best hypothesis that ``apply_hotwords``
         prefers."""
         streams = pending.streams
-        if pending.event is not None:
-            pending.event.synchronize()
-        if self.hotwords:
-            results = []
-            for cands in self._nbest_results(streams, pending.host):
-                texts = [c.text for c in cands]
-                results.append(cands[texts.index(apply_hotwords(texts, self.hotwords))])
-        else:
-            host = pending.host
-            if self.decoding_method == "modified_beam_search":  # the n-best's first
-                host = tuple(t[:, 0] for t in host[:3])
-            rows = rnnt_greedy.extract_results(*host)[:len(streams)]
-            results = [self._result(toks, stamps) for toks, stamps in rows]
-        for stream, res in zip(streams, results):
-            stream.result = res
+        with profiling.span("end_decode.wait"):
+            if pending.event is not None:
+                pending.event.synchronize()
+        with profiling.span("end_decode.text"):
+            if self.hotwords:
+                results = []
+                for cands in self._nbest_results(streams, pending.host):
+                    texts = [c.text for c in cands]
+                    results.append(cands[texts.index(apply_hotwords(texts, self.hotwords))])
+            else:
+                host = pending.host
+                if self.decoding_method == "modified_beam_search":  # the n-best's first
+                    host = tuple(t[:, 0] for t in host[:3])
+                rows = rnnt_greedy.extract_results(*host)[:len(streams)]
+                results = [self._result(toks, stamps) for toks, stamps in rows]
+            for stream, res in zip(streams, results):
+                stream.result = res
         return results
 
     def get_nbest_results(self, streams: list[OfflineStream]
@@ -363,9 +371,12 @@ class OfflineRecognizer:
         return self._dither[key]
 
     def encode(self, samples: torch.Tensor, sample_counts: torch.Tensor):
-        """fbank and encoder: -> (enc_out [B, T', D], enc_lens [B])."""
+        """fbank and encoder: -> (enc_out [B, T', D], enc_lens [B]).  Each
+        is marked on the device (``profiling.stage``)."""
         with torch.inference_mode(), self._precision():
+            profiling.stage("fbank", self.device)
             feats, feat_lens = self.features(samples, sample_counts)
+            profiling.stage("encoder", self.device)
             return self.encoder(feats, feat_lens, self.compute_dtype)
 
     def _decode(self, samples, sample_counts) -> tuple:
@@ -373,12 +384,21 @@ class OfflineRecognizer:
         count), or under beam search the ordered n-best buffers (tokens,
         timestamps, count, score; ``rnnt_beam.nbest_beams``).  The function
         ``program`` captures; called directly it runs eagerly (the reference
-        a graph is held to)."""
+        a graph is held to).  Its stages are marked on the device
+        (``profiling.stage``): fbank, encoder, search, end."""
+        enc_out, enc_lens = self.encode(samples, sample_counts)
+        profiling.stage("search", self.device)
+        out = self._search(enc_out, enc_lens)
+        profiling.stage("end", self.device)
+        return out
+
+    def _search(self, enc_out, enc_lens) -> tuple:
+        """The joiner projection or the CTC head, the search and, under beam
+        search, the n-best: ``_decode``'s outputs from the encoder's."""
         b = self.bundle
         cd = self.compute_dtype
-        batch = samples.shape[0]
+        batch = enc_out.shape[0]
         zero = torch.zeros((batch,), dtype=torch.int64, device=self.device)
-        enc_out, enc_lens = self.encode(samples, sample_counts)
         if self.decoding_method == "greedy_search_ctc":
             lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
             state = ctc_greedy.init_state(batch, self.max_tokens, device=self.device)

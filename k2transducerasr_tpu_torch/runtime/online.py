@@ -26,9 +26,10 @@ eagerly on the rank's own lanes: its collectives (gloo) cannot be captured.
 With dither, the step's noise is drawn once, here (``fbank.dither_noise``,
 seeded 0, the eager draw of every call), and read by each window slot: a
 graph cannot draw from an unregistered generator.  ``_step`` marks its
-stages with ``torch.profiler.record_function`` (``online.step.fbank``,
-``.encoder``, ``.freeze``, ``.search``), which a profiler of an eager step
-reads (a replay runs no Python, so its kernels carry no scope).
+stages on the device (``utils/profiling.stage``: fbank, encoder and freeze
+for each window slot, then search and end), marks that a replay carries;
+``begin_step`` and ``end_step`` record their parts as host spans and count
+the windows and lanes each step takes.
 
 A recognizer serves one thread: its streams' buffers, its lane list and its
 pool are shared, and a step's readback is queued after the replay outside
@@ -67,7 +68,6 @@ import dataclasses
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from k2transducerasr_tpu_torch import native
 from k2transducerasr_tpu_torch.decode import ctc_greedy, rnnt_beam, rnnt_greedy
@@ -90,6 +90,7 @@ from k2transducerasr_tpu_torch.runtime.offline import DECODING_METHODS
 from k2transducerasr_tpu_torch.runtime.program import DecodeProgram
 from k2transducerasr_tpu_torch.text.hotwords import apply_hotwords
 from k2transducerasr_tpu_torch.text.postprocess import tokens_to_text
+from k2transducerasr_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -329,45 +330,53 @@ class OnlineRecognizer:
         One thread and one stream per recognizer: the graph's static inputs
         and the pool are shared, so every ``begin_step`` on the card must
         run on the stream of the first (another raises)."""
-        active = [s for s in streams if s.lane >= 0 and s._ready()]
-        if active:
-            # the pool's windows as int16 (made by truncation toward zero);
-            # a lane without a window gets zeros and a count of 0
-            shape = (self._pool_lanes, self.windows_per_step, self.window_samples)
-            windows_t = host_zeros(shape, torch.int16, self.device)
-            wcount_t = host_zeros((self._pool_lanes,), torch.int64, self.device)
-            windows, wcount = windows_t.numpy(), wcount_t.numpy()
-            # every rank takes every stream's windows; it keeps its own lanes'
-            for s in active:
-                lane = s.lane - self._lane0
-                k = 0
-                while k < shape[1] and s._ready():
-                    w = s._take_window()
+        stepped = False
+        with profiling.span("begin_step.prep"):
+            active = [s for s in streams if s.lane >= 0 and s._ready()]
+            if active:
+                # the pool's windows as int16 (made by truncation toward zero);
+                # a lane without a window gets zeros and a count of 0
+                shape = (self._pool_lanes, self.windows_per_step, self.window_samples)
+                windows_t = host_zeros(shape, torch.int16, self.device)
+                wcount_t = host_zeros((self._pool_lanes,), torch.int64, self.device)
+                windows, wcount = windows_t.numpy(), wcount_t.numpy()
+                # every rank takes every stream's windows; it keeps its own lanes'
+                for s in active:
+                    lane = s.lane - self._lane0
+                    k = 0
+                    while k < shape[1] and s._ready():
+                        w = s._take_window()
+                        if self._owns(s.lane):
+                            windows[lane, k] = np.clip(w * 32768.0, -32768,
+                                                       32767).astype(np.int16)
+                        k += 1
                     if self._owns(s.lane):
-                        windows[lane, k] = np.clip(w * 32768.0, -32768, 32767).astype(np.int16)
-                    k += 1
-                if self._owns(s.lane):
-                    wcount[lane] = k
-            if wcount.any():
+                        wcount[lane] = k
+                lanes = int(np.count_nonzero(wcount))
+                profiling.count("online.windows", int(wcount.sum()))
+                profiling.count("online.lanes_stepped", lanes)
+                stepped = lanes > 0
+        with profiling.span("begin_step.queue"):
+            if stepped:
                 with torch.inference_mode(), self._precision():
                     if self.program is not None:  # copies into its static inputs
                         self.program(windows_t, wcount_t)
                     else:  # under a mesh: eager
                         self._step(upload(windows_t, self.device), upload(wcount_t, self.device))
-        st = self._dec_state
-        if self.hotwords:  # every beam's partial text, for the selection
-            bufs = rnnt_beam.nbest_beams(st)[:3]
-        elif self.decoding_method == "modified_beam_search":
-            bufs = rnnt_beam.best_beam(st)
-        else:
-            bufs = (st.tokens, st.timestamps, st.count)
-        if self.enable_endpoint and self.decoding_method != "modified_beam_search":
-            bufs = bufs + (st.trailing_blanks, self._frame_count)
-        host = tuple(readback(t) for t in self._all_lanes(bufs))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+            st = self._dec_state
+            if self.hotwords:  # every beam's partial text, for the selection
+                bufs = rnnt_beam.nbest_beams(st)[:3]
+            elif self.decoding_method == "modified_beam_search":
+                bufs = rnnt_beam.best_beam(st)
+            else:
+                bufs = (st.tokens, st.timestamps, st.count)
+            if self.enable_endpoint and self.decoding_method != "modified_beam_search":
+                bufs = bufs + (st.trailing_blanks, self._frame_count)
+            host = tuple(readback(t) for t in self._all_lanes(bufs))
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
         return streams, host, event
 
     def end_step(self, pending) -> list[OnlineRecognizerResult]:
@@ -375,25 +384,27 @@ class OnlineRecognizer:
         results for its streams.  With ``hotwords`` each stream's result is
         the n-best hypothesis that ``apply_hotwords`` prefers."""
         streams, host, event = pending
-        if event is not None:
-            event.synchronize()
-        tokens, stamps, counts = host[:3]
-        if len(host) > 3:
-            self._endpoint_host = (host[3], counts, host[4])
-        results = []
-        for s in streams:
-            if s.lane < 0:
-                results.append(s.result or OnlineRecognizerResult("", [], []))
-                continue
-            if self.hotwords:
-                cands = self._lane_nbest(s.lane, tokens, stamps, counts)
-                texts = [c.text for c in cands]
-                s.result = cands[texts.index(apply_hotwords(texts, self.hotwords))]
-            else:
-                n = int(counts[s.lane])
-                s.result = self._result(tokens[s.lane, :n].tolist(),
-                                        stamps[s.lane, :n].tolist())
-            results.append(s.result)
+        with profiling.span("end_step.wait"):
+            if event is not None:
+                event.synchronize()
+        with profiling.span("end_step.text"):
+            tokens, stamps, counts = host[:3]
+            if len(host) > 3:
+                self._endpoint_host = (host[3], counts, host[4])
+            results = []
+            for s in streams:
+                if s.lane < 0:
+                    results.append(s.result or OnlineRecognizerResult("", [], []))
+                    continue
+                if self.hotwords:
+                    cands = self._lane_nbest(s.lane, tokens, stamps, counts)
+                    texts = [c.text for c in cands]
+                    s.result = cands[texts.index(apply_hotwords(texts, self.hotwords))]
+                else:
+                    n = int(counts[s.lane])
+                    s.result = self._result(tokens[s.lane, :n].tolist(),
+                                            stamps[s.lane, :n].tolist())
+                results.append(s.result)
         return results
 
     def snapshot_stream(self, stream: OnlineStream) -> dict:
@@ -536,37 +547,39 @@ class OnlineRecognizer:
         the lanes with more than k windows; one decode pass then runs over
         each lane's ``wcount * chunk`` encoder frames.  Writes the pool in
         place, reads nothing on the host and returns nothing: the function
-        ``program`` captures.  Its stages are profiler scopes."""
-        b = self.bundle
+        ``program`` captures.  Its stages are marked on the device
+        (``profiling.stage``)."""
+        b, dev = self.bundle, self.device
         cd, chunk = self.compute_dtype, self.chunk_frames
         outs = []
         for k in range(windows.shape[1]):
-            with record_function("online.step.fbank"):
-                feats = fbank_compute(windows[:, k].float() * (1.0 / 32768.0), b.frontend_cfg,
-                                      self._feat_window, tables=self._fbank_tables,
-                                      noise=self._dither)
-            with record_function("online.step.encoder"):
-                out, new_state = self._enc.streaming_step(self.encoder, b.encoder_cfg,
-                                                          self._enc_state, feats, cd)
-            with record_function("online.step.freeze"):
-                _freeze(self._enc_state, new_state, wcount > k)
+            profiling.stage("fbank", dev)
+            feats = fbank_compute(windows[:, k].float() * (1.0 / 32768.0), b.frontend_cfg,
+                                  self._feat_window, tables=self._fbank_tables,
+                                  noise=self._dither)
+            profiling.stage("encoder", dev)
+            out, new_state = self._enc.streaming_step(self.encoder, b.encoder_cfg,
+                                                      self._enc_state, feats, cd)
+            profiling.stage("freeze", dev)
+            _freeze(self._enc_state, new_state, wcount > k)
             outs.append(out)
-        with record_function("online.step.search"):
-            enc_out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-            lens, dec, offset = wcount * chunk, self._dec_state, self._frame_count
-            if self.decoding_method == "greedy_search_ctc":
-                lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
-                new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
-            else:
-                # online search also skips <sos/eos> = 1 (extra_skip_sos)
-                enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
-                args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
-                search = (rnnt_beam.beam_frames_skip
-                          if self.decoding_method == "modified_beam_search"
-                          else rnnt_greedy.greedy_frames_skip)
-                new_dec = search(*args, operands=self._search_ops)
-            tree_map(lambda pool, v: pool.copy_(v), self._dec_state, new_dec)
-            self._frame_count.add_(lens)
+        profiling.stage("search", dev)
+        enc_out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        lens, dec, offset = wcount * chunk, self._dec_state, self._frame_count
+        if self.decoding_method == "greedy_search_ctc":
+            lp = ctc_mod.log_probs(self.ctc, enc_out, cd)
+            new_dec = ctc_greedy.ctc_frames(dec, lp, lens, offset)
+        else:
+            # online search also skips <sos/eos> = 1 (extra_skip_sos)
+            enc_proj = joiner_mod.project_encoder(b.joiner, enc_out, cd)
+            args = (b.decoder, b.decoder_cfg, b.joiner, dec, enc_proj, lens, offset, True, cd)
+            search = (rnnt_beam.beam_frames_skip
+                      if self.decoding_method == "modified_beam_search"
+                      else rnnt_greedy.greedy_frames_skip)
+            new_dec = search(*args, operands=self._search_ops)
+        tree_map(lambda pool, v: pool.copy_(v), self._dec_state, new_dec)
+        self._frame_count.add_(lens)
+        profiling.stage("end", dev)
         return ()
 
 

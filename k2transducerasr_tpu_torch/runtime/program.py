@@ -58,6 +58,11 @@ times each wrapper launched (its ``launches`` rose while ``fn`` was
 captured, and is set back: nothing ran); every replay then adds those
 numbers, so each count stays the number of launches the card ran.
 
+Counters.  The program counts into ``utils/profiling``'s counters:
+``program.replays``, ``program.captures`` and ``program.capture_s``, the
+host seconds of each key's eager warm-up and capture together (capture
+synchronises).
+
 The caller runs each call under its own precision: the cuBLAS and cuDNN
 math modes (TF32 on or off) are fixed into a graph when it is captured, so
 the first call of a shape must run under the mode of every later one.
@@ -71,12 +76,14 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import threading
+import time
 import weakref
 
 import torch
 
 from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
 from k2transducerasr_tpu_torch.ops import attention_cuda
+from k2transducerasr_tpu_torch.utils import profiling
 
 
 def kernel_wrappers() -> tuple:
@@ -168,6 +175,7 @@ class DecodeProgram:
             if entry.graph is None:
                 return tuple(t.clone() for t in self.fn(*entry.inputs))
             entry.graph.replay()
+            profiling.count("program.replays")
             for counter, n in zip(self.counters, entry.launches):
                 counter.launches += n
             return tuple(t.clone() for t in entry.outputs)
@@ -185,6 +193,7 @@ class DecodeProgram:
                        .copy_(x, non_blocking=True) for x in (samples, counts))
         if self.graphs is None:
             return Entry(inputs)
+        t0 = time.perf_counter()
         self.graphs.warm_up(self.fn, inputs if self._idle is None else self._idle(*inputs))
         before = [c.launches for c in self.counters]
         try:
@@ -193,6 +202,8 @@ class DecodeProgram:
         finally:  # the captured launches did not run
             for c, n in zip(self.counters, before):
                 c.launches = n
+        profiling.count("program.captures")
+        profiling.count("program.capture_s", time.perf_counter() - t0)
         return Entry(inputs, graph, tuple(outputs), launches)
 
     def pool_bytes(self) -> int:
