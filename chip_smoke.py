@@ -51,6 +51,12 @@ Phases (any failure exits non-zero; none is caught):
      mirror, with registers and spills; each case's time, its device time,
      the plain loop's (once: it syncs once per trip) and the bound from these
      inputs' frames and emitting beams, the replaced kernel's times beside;
+  3e. bias_swoosh (the zipformer2 encoder's bias + Swoosh) against its plain
+     version at every shape of the benchmark's longform batch (20 x 30 s)
+     and offpeak step (820 lanes), each bf16 out to one bf16 ulp, with its
+     time, its device time, the plain version's time and the bound (its
+     bytes over the bandwidth); every zipformer2 path below counts its 84
+     launches per flagship batch and step;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -176,6 +182,7 @@ from k2transducerasr_tpu_torch.models.lstm import LstmConfig
 from k2transducerasr_tpu_torch.models.registry import get_encoder
 from k2transducerasr_tpu_torch.models.zipformer import ZipformerConfig
 from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
@@ -189,11 +196,22 @@ from k2transducerasr_tpu_torch.utils.profiling import STEP_STAGES
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_ROOT = os.path.join(REPO, "tests", "torch_port_data")
 
+
+
+def swoosh_calls(cfg) -> int:
+    """bias_swoosh launches of one zipformer2 forward or streaming step:
+    three feed-forwards and two conv modules a layer, the three embed convs
+    and the ConvNeXt (84 at the flagship's 16 layers)."""
+    return 5 * sum(cfg.num_encoder_layers) + 4
+
+
 # family -> its config and causal (streaming) config, the kernel its attention
 # launches (once per layer: per flagship batch and per streaming step; None:
 # the family launches no attention kernel), its pins
-# (tests/test_pinned_transcripts.py), and whether greedy search runs the
-# rnnt_greedy kernel (every transducer: once per batch and per step)
+# (tests/test_pinned_transcripts.py), whether greedy search runs the
+# rnnt_greedy kernel (every transducer: once per batch and per step), and
+# the bias_swoosh launches per flagship batch and streaming step (the
+# zipformer2 encoder's; 0: the family runs no Swoosh)
 FAMILIES = {
     "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                        kernel="relpos_attn_probs",
@@ -201,18 +219,18 @@ FAMILIES = {
                        pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
                        pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                        online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6",
-                       greedy=True),
+                       greedy=True, swoosh=swoosh_calls(Zipformer2Config())),
     "conformer": dict(cfg=ConformerConfig, stream_cfg=lambda: ConformerConfig(causal=True),
                       kernel="relpos_attn_ctx",
                       per_batch=ConformerConfig().num_layers,
                       pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
-                      online_pin_text="tok28tok28tok28tok28", greedy=True),
+                      online_pin_text="tok28tok28tok28tok28", greedy=True, swoosh=0),
     # the zipformer2 encoder under a CTC head (vocab 500 at full width)
     "zipformer2ctc": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                           kernel="relpos_attn_probs",
                           per_batch=sum(Zipformer2Config().num_encoder_layers),
                           pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27",
-                          greedy=False),
+                          greedy=False, swoosh=swoosh_calls(Zipformer2Config())),
     # zipformer v1 (icefall pruned_transducer_stateless7): 15 layers, 8 heads
     # of 24, K1 once per layer
     "zipformer": dict(cfg=ZipformerConfig, stream_cfg=lambda: ZipformerConfig(causal=True),
@@ -221,13 +239,13 @@ FAMILIES = {
                       pin_text="tok5tok17tok5tok17tok5tok17tok5tok17",
                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                       online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23",
-                      greedy=True),
+                      greedy=True, swoosh=0),
     # the LSTM transducer: a cuDNN recurrence, no kernel of this port
     "lstm": dict(cfg=LstmConfig, stream_cfg=LstmConfig, kernel=None, per_batch=0,
                  pin_text="tok6tok15tok15tok15tok15tok15tok15",
                  pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                  online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9",
-                 greedy=True),
+                 greedy=True, swoosh=0),
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
@@ -267,13 +285,18 @@ BEAM_PINS = {
 }
 KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx,
            "rnnt_greedy": rnnt_greedy.greedy_frames_skip,
-           "rnnt_beam": rnnt_beam.beam_frames_skip}
+           "rnnt_beam": rnnt_beam.beam_frames_skip, "bias_swoosh": ACT.bias_swoosh}
 GREEDY = "greedy_search"
-# the searches' launches on each counted path, filled in by the phases
+# the searches' and bias_swoosh's launches on each counted path, filled in
+# by the phases
 GREEDY_PATHS: dict[str, int] = {}
 BEAM_PATHS: dict[str, int] = {}
+SWOOSH_PATHS: dict[str, int] = {}
 SEARCH_PATHS = {"rnnt_greedy": GREEDY_PATHS, "rnnt_beam": BEAM_PATHS}
 
+# bias_swoosh's shapes ([3e]): the benchmark's longform batch (20 x 30 s,
+# 3000 fbank frames) and offpeak step (820 lanes)
+SWOOSH_LONGFORM_B, SWOOSH_LONGFORM_FRAMES, SWOOSH_STREAM_LANES = 20, 3000, 820
 # flagship (Zipformer2Config()) at 16 x 30 s: t_pad 3072 frames -> 1532
 # encoder-rate frames; (T, heads, layers) per stack at downsampling 1,2,4,8,4,2
 FLAGSHIP_B = 16
@@ -342,6 +365,11 @@ MUTATIONS = [
      "k2transducerasr_tpu_torch/csrc/rnnt_beam.cu",
      "for (int q = 0; q < kCL; ++q) S +=", "for (int q = 0; q < kCL - 1; ++q) S +=",
      "phase_beam"),
+    ("bias_swoosh slope 0.07 instead of 0.08", "k2transducerasr_tpu_torch/csrc/bias_swoosh.cu",
+     "__fmul_rn(0.08f, z)", "__fmul_rn(0.07f, z)", "phase_swoosh"),
+    ("bias_swoosh SwooshL shifted by 3 instead of 4",
+     "k2transducerasr_tpu_torch/csrc/bias_swoosh.cu", "kind == 0 ? 4.f : 1.f",
+     "kind == 0 ? 3.f : 1.f", "phase_swoosh"),
 ]
 
 
@@ -468,11 +496,12 @@ def counters_since(before: dict) -> dict:
 
 
 def path_kernels(spec, method=GREEDY) -> set:
-    """The kernels a run of the family launches: its attention kernel, and
-    for a transducer rnnt_greedy under greedy search and rnnt_beam under
-    modified beam search."""
+    """The kernels a run of the family launches: its attention kernel,
+    bias_swoosh for a zipformer2 encoder, and for a transducer rnnt_greedy
+    under greedy search and rnnt_beam under modified beam search."""
     search = {GREEDY: {"rnnt_greedy"}, BEAM: {"rnnt_beam"}}.get(method, set())
-    return ({spec["kernel"]} - {None}) | (search if spec["greedy"] else set())
+    return (({spec["kernel"]} - {None}) | (search if spec["greedy"] else set())
+            | ({"bias_swoosh"} if spec["swoosh"] else set()))
 
 
 def search_kernel(spec, method):
@@ -483,19 +512,29 @@ def search_kernel(spec, method):
 def family_launches(what, spec, counts, method=GREEDY) -> int:
     """A run of one family launched each kernel of its path and no other;
     the search kernel's launches are recorded in GREEDY_PATHS or BEAM_PATHS
-    under ``what``.  Returns the family's attention kernel's launches."""
+    under ``what``, bias_swoosh's in SWOOSH_PATHS.  Returns the family's
+    attention kernel's launches."""
     want = path_kernels(spec, method)
     if {k for k, n in counts.items() if n} != want:
         raise AssertionError(f"{what} launched {counts}; expected {sorted(want) or 'none'}")
     search = search_kernel(spec, method)
     if search:
         SEARCH_PATHS[search][what] = counts[search]
+    if spec["swoosh"]:
+        SWOOSH_PATHS[what] = counts["bias_swoosh"]
     return counts.get(spec["kernel"], 0)
 
 
 def counts_of(**launches) -> dict:
     """Every kernel's launch count, 0 but where given."""
     return {k: launches.get(k, 0) for k in KERNELS}
+
+
+def replay_counts(spec, search) -> dict:
+    """Each kernel's launches in one flagship batch or streaming step of the
+    family with the search kernel ``search`` (None: CTC)."""
+    return counts_of(**{spec["kernel"] or "none": spec["per_batch"], search or "none": 1,
+                        "bias_swoosh": spec["swoosh"]})
 
 
 def reset_peak_memory():
@@ -1619,6 +1658,107 @@ def graph_kernel_nodes(graph) -> tuple[dict, int]:
     return {name: sum(name in n for n in nodes) for name in KERNELS}, len(nodes)
 
 
+def _swoosh_cases() -> list:
+    """bias_swoosh's calls in one longform batch (20 x 30 s of
+    Zipformer2Config(): 1496 encoder-rate frames at stack 0) and in one
+    offpeak step (820 lanes x one window of Zipformer2Config(causal=True)),
+    each shape once with its count: (name, shape, layout, in dtype, kind,
+    calls per batch, calls per step).  Layouts as the encoder hands them
+    over: a product's rows; a depthwise convolution's [B, C, T] seen as
+    [B, T, C] (the non-causal conv modules; the causal ones' sum taken to
+    lie likewise); the embed convs channels last, as cuDNN keeps an NHWC
+    input's layout."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg, b = Zipformer2Config(), SWOOSH_LONGFORM_B
+    t0 = cfg.embed_len(SWOOSH_LONGFORM_FRAMES)
+    c1, c2, c3 = cfg.embed_channels
+    cases = []
+    for route, lanes, frames, t_stage, count in (
+            ("", b, t0, t0, "layers"), ("stream-", SWOOSH_STREAM_LANES, cfg.chunk_size,
+                                        cfg.chunk_size, "stream_layers")):
+        raw = SWOOSH_LONGFORM_FRAMES if not route else cfg.chunk_input_len
+        f1 = cfg.feature_dim
+        h2, f2 = (raw - 2 - 3) // 2 + 1, (f1 - 3) // 2 + 1
+        embed = [(f"{route}embed-conv1", (lanes, raw - 2, f1, c1), "rows", f32, "r", 1),
+                 (f"{route}embed-conv2", (lanes, h2, f2, c2), "rows", f32, "r", 1),
+                 (f"{route}embed-conv3", (lanes, h2 - 2, cfg.embed_freq_out, c3), "rows", f32,
+                  "r", 1),
+                 (f"{route}convnext-pw1", (lanes, t_stage, cfg.embed_freq_out, 3 * c3), "rows",
+                  bf, "l", 1)]
+        for name, shape, layout, dtype, kind, n in embed:
+            cases.append((name, shape, layout, dtype, kind, *((n, 0) if not route else (0, n))))
+        for si in range(cfg.num_stacks):
+            t = -(-frames // cfg.downsampling_factors[si])
+            n = cfg.num_encoder_layers[si]
+            ff = (f"{route}ff-stack{si}", (lanes * t, cfg.feedforward_dims[si]), "rows", bf, "l",
+                  3 * n)
+            conv = (f"{route}conv-stack{si}", (lanes, t, cfg.encoder_dims[si]), "depthwise", f32,
+                    "r", 2 * n)
+            for name, shape, layout, dtype, kind, k in (ff, conv):
+                cases.append((name, shape, layout, dtype, kind, *((k, 0) if not route else (0, k))))
+    return cases
+
+
+def _swoosh_input(shape, layout, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = (torch.randn(n, generator=g, device="cuda") * 5).to(dtype)
+    if layout == "rows":
+        return flat.view(shape)
+    b, t, c = shape  # a depthwise convolution's [B, C, T]
+    return flat.view(b, c, t).transpose(1, 2)
+
+
+def phase_swoosh(bw):
+    """bias_swoosh against its plain version at every shape of a longform
+    batch and an offpeak step (``_swoosh_cases``), bf16 out: one bf16 ulp
+    (the same float32 steps on both sides).  Each case's time (kernel,
+    device, plain) beside its bound: (y's bytes + out's + the bias's) /
+    bandwidth.  No PyTorch call computes a Swoosh (library: none)."""
+    rows = []
+    worst = 0.0
+    for name, shape, layout, dtype, kind, layers, stream_layers in _swoosh_cases():
+        y = _swoosh_input(shape, layout, dtype, seed=len(rows))
+        bias = torch.randn(shape[-1], device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(len(rows)))
+        out = ACT.bias_swoosh(y, bias, kind, torch.bfloat16)
+        ref = ACT.bias_swoosh_reference(y, bias, kind, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, ok = _max_err(out, ref, torch.bfloat16)
+        if not ok:
+            raise AssertionError(f"bias_swoosh {name}: kernel disagrees with plain (max {err})")
+        worst = max(worst, err)
+        differ = int((out != ref).sum())
+        del out, ref
+
+        def kernel():
+            return ACT.bias_swoosh(y, bias, kind, torch.bfloat16)
+
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20)
+        host = host_us(kernel)
+        plain_ms = cuda_ms(lambda: ACT.bias_swoosh_reference(y, bias, kind, torch.bfloat16),
+                           reps=5, warm=1)
+        n = y.numel()
+        nbytes = n * (y.element_size() + 2) + 4 * shape[-1]
+        bound_ms, bound_by = bound(nbytes, 0, torch.float32, bw)
+        rows.append({"case": name, "family": "zipformer2", "dtype": "bfloat16",
+                     "shape": list(shape), "layout": layout,
+                     "in_dtype": str(dtype).split(".")[-1], "kind": kind, "layers": layers,
+                     "stream_layers": stream_layers, "max_abs_err": err,
+                     "elements_not_equal": differ, "ms": ms, "device_ms": dev_ms,
+                     "host_us": host, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "library_device_ms": None})
+        log(f"[3e] bias_swoosh {name:20s} {str(tuple(shape)):22s} {layout:9s} "
+            f"{rows[-1]['in_dtype']:8s}-> bf16 Swoosh{kind.upper()}: max_err {err:.3e} ok "
+            f"({differ} of {n} elements not equal) | kernel {ms:.4f} ms (device {dev_ms:.4f}, "
+            f"host {host:.1f} us) | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms "
+            f"({bound_by}) | {bound_ms / dev_ms:.1%} of bound by device time")
+        del y, bias
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def phase_golden(family):
     spec = FAMILIES[family]
     bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
@@ -1840,8 +1980,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     first_ms = (time.perf_counter() - t0) * 1e3
     (key, entry), = rec.program.entries.items()
     search = search_kernel(spec, rec.decoding_method)
-    per_batch = counts_of(**{spec["kernel"] or "none": spec["per_batch"],
-                             search or "none": 1})
+    per_batch = replay_counts(spec, search)
     with graph_dump() as dumped, torch.inference_mode(), rec._precision():
         DecodeProgram(rec._decode, rec.device)(*entry.inputs)
     nodes, n_nodes = graph_kernel_nodes(dumped[0])
@@ -1876,6 +2015,8 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         raise AssertionError(f"{name} main path launched {counts}, expected {want}")
     if search:
         SEARCH_PATHS[search][name] = counts[search]
+    if spec["swoosh"]:
+        SWOOSH_PATHS[name] = counts["bias_swoosh"]
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1892,7 +2033,6 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     if len(audited) != n_batches or any(new for _, new in audited):
         raise AssertionError(f"{name}: {audited} calls of the program, expected {n_batches} "
                              f"replays")
-    reset_counts()
     busy, traced = device_trace(lambda: rec.end_decode(rec.begin_decode(batches[1])), reps=3)
     replayed = read_counts()
     if busy is not None and traced != replayed:
@@ -2064,7 +2204,7 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     capture_ms = (time.perf_counter() - t0) * 1e3
     (key, entry), = rec.program.entries.items()
     search = search_kernel(spec, rec.decoding_method)
-    per_step = counts_of(**{spec["kernel"] or "none": spec["per_batch"], search or "none": 1})
+    per_step = replay_counts(spec, search)
     with graph_dump() as dumped, torch.inference_mode(), rec._precision():
         CudaGraphs(rec.device).capture(rec._step, entry.inputs)  # runs nothing
     nodes, n_nodes = graph_kernel_nodes(dumped[0])
@@ -2074,7 +2214,6 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     if nodes != per_step or dict(zip(KERNELS, entry.launches)) != per_step:
         raise AssertionError(f"{name} streaming: the graph holds kernel nodes {nodes} and "
                              f"records {entry.launches}, expected one step's {per_step}")
-    reset_counts()
     busy, traced = device_trace(lambda: rec.get_results(streams), reps=3)
     if busy is not None and traced != {k: 3 * v for k, v in per_step.items()}:
         raise AssertionError(f"{name} streaming: the profiler traced kernels {traced} over 3 "
@@ -2111,6 +2250,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
                              f"expected {want}")
     if search:
         SEARCH_PATHS[search][f"{name}/streaming"] = counts[search]
+    if spec["swoosh"]:
+        SWOOSH_PATHS[f"{name}/streaming"] = counts["bias_swoosh"]
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
@@ -2531,21 +2672,60 @@ def device_trace(fn, reps: int) -> tuple[float | None, dict]:
     of it the card was busy (a lower bound: tracing adds host time), and the
     device events named after each of KERNELS (a kernel whose name holds
     it).  The share is None when the profiler recorded no device activity
-    (CUPTI tracing is not available on every machine): not measured."""
+    (CUPTI tracing is not available on every machine): not measured.
+    A profile can miss events at its edges (seen on an H100: the first
+    replay's first bias_swoosh; the tail of a streaming step), so one call
+    runs before the counted ones and one after, both uncounted: only the
+    events of the counted calls' replays count (``counted_window``), and
+    the kernels' counters hold the counted calls' launches alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counted = read_counts()
+        fn()
+        torch.cuda.synchronize()
+    for name, launches in counted.items():
+        KERNELS[name].launches = launches
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return None, {name: 0 for name in KERNELS}
+    events = events[counted_window([e.name for e in events], reps)]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     kernels = {name: sum(name in e.name for e in events) for name in KERNELS}
+    replays, current = [], []  # each counted replay's kernels, for a mismatch's log
+    for e in events:
+        current.append(e.name)
+        if e.name == profiling.MARKER_PREFIX + "end":
+            replays.append({k: sum(k in n for n in current) for k in KERNELS if counted[k]})
+            current = []
+    if any(r != replays[0] for r in replays):
+        log(f"[trace] the profiler's replays differ: {replays}")
     return (busy_us / 1e6 / wall if busy_us else None), kernels
+
+
+def counted_window(names: list[str], reps: int) -> slice:
+    """Of a trace's device events in start order (``names``), those of the
+    ``reps`` counted calls between one uncounted call before and one after:
+    from after the first ``k2t_stage_end`` marker to the ``reps + 1``-th,
+    which ends the last counted replay.  The last call's marker may be
+    lost (``reps + 1`` markers); AssertionError for fewer or more."""
+    end = profiling.MARKER_PREFIX + "end"
+    ends = [i for i, n in enumerate(names) if n == end]
+    if len(ends) not in (reps + 1, reps + 2):
+        raise AssertionError(f"the profiler traced {len(ends)} {end} markers over {reps} "
+                             f"counted calls and two uncounted ones")
+    return slice(ends[0] + 1, ends[reps] + 1)
 
 
 def stage_split(events) -> dict[str, float]:
@@ -2651,8 +2831,7 @@ def stage_splits() -> int:
             s.add_samples(synth_pcm(4 * 16000, 300 + i))
         rec.get_results(streams)  # the capture
         search = search_kernel(spec, rec.decoding_method)
-        out[path_name(rec)] = stream_stage_split(rec, counts_of(
-            **{spec["kernel"] or "none": spec["per_batch"], search or "none": 1}))
+        out[path_name(rec)] = stream_stage_split(rec, replay_counts(spec, search))
         del rec, streams, bundle
         gc.collect()
         torch.cuda.empty_cache()
@@ -2911,9 +3090,10 @@ def phase_convert(tmp):
         f"identical to the source bundle's: {res[0].tokens == res[1].tokens}; launches {counts}")
     if (res[0].tokens, res[0].timestamps) != (res[1].tokens, res[1].timestamps):
         raise AssertionError("the converted dir decodes other tokens than its source bundle")
-    if counts != counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"], rnnt_greedy=1):
+    if counts != replay_counts(FAMILIES["zipformer2"], "rnnt_greedy"):
         raise AssertionError(f"the converted dir's decode launched {counts}")
     GREEDY_PATHS["converted_offline"] = counts["rnnt_greedy"]
+    SWOOSH_PATHS["converted_offline"] = counts["bias_swoosh"]
     return launches, t2 - t1
 
 
@@ -3194,12 +3374,10 @@ def phase_parallel(tmp) -> dict:
         runs["nccl"] = _spawn_ranks(tmp, "nccl")
     else:
         log("[12] nccl: not run (one card)")
-    want_tp = {"zipformer2": counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"],
-                                       rnnt_greedy=1),
-               "conformer": counts_of(relpos_attn_ctx=FAMILIES["conformer"]["per_batch"],
-                                      rnnt_greedy=1)}
+    want_tp = {family: replay_counts(FAMILIES[family], "rnnt_greedy")
+               for family in ("zipformer2", "conformer")}
     want_dp = want_tp["zipformer2"]
-    want_dp_beam = counts_of(relpos_attn_probs=FAMILIES["zipformer2"]["per_batch"], rnnt_beam=1)
+    want_dp_beam = replay_counts(FAMILIES["zipformer2"], "rnnt_beam")
     for backend, ranks in runs.items():
         for r in ranks:
             tag = f"[12] {backend} rank {r['rank']}"
@@ -3229,8 +3407,10 @@ def phase_parallel(tmp) -> dict:
                 if path == "dp_beam_offline" and got["launches"] != want_dp_beam:
                     raise AssertionError(f"{tag} {path} launched {got['launches']}")
                 if path == "dp_streaming" and not (got["launches"]["relpos_attn_probs"]
-                                                   and got["launches"]["rnnt_greedy"]):
-                    raise AssertionError(f"{tag} {path} launched no K1 or no rnnt_greedy")
+                                                   and got["launches"]["rnnt_greedy"]
+                                                   and got["launches"]["bias_swoosh"]):
+                    raise AssertionError(f"{tag} {path} launched no K1, rnnt_greedy or "
+                                         f"bias_swoosh")
     gloo = runs["gloo"]
     total = lambda path, k: sum(r[path]["launches"][k] for r in gloo)  # noqa: E731
     for r in gloo:  # every rank launches the search kernel on its own rows
@@ -3238,6 +3418,8 @@ def phase_parallel(tmp) -> dict:
             GREEDY_PATHS[f"{path}_rank{r['rank']}"] = r[path]["launches"]["rnnt_greedy"]
         BEAM_PATHS[f"dp_beam_offline_rank{r['rank']}"] = r["dp_beam_offline"]["launches"][
             "rnnt_beam"]
+        for path in ("tp_zipformer2", "dp_offline", "dp_beam_offline", "dp_streaming"):
+            SWOOSH_PATHS[f"{path}_rank{r['rank']}"] = r[path]["launches"]["bias_swoosh"]
     return {"relpos_attn_probs": {"tp_offline": total("tp_zipformer2", "relpos_attn_probs"),
                                   "dp_offline": total("dp_offline", "relpos_attn_probs"),
                                   "dp_beam_offline": total("dp_beam_offline",
@@ -3421,6 +3603,7 @@ def main() -> int:
     k2_rows, k2_worst = phase_k2(bw)
     greedy_rows, greedy_plans = phase_greedy(bw)
     beam_rows, beam_plans = phase_beam(bw)
+    swoosh_rows, swoosh_worst = phase_swoosh(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
@@ -3511,6 +3694,16 @@ def main() -> int:
                     "(not timed)"),
         greedy_kernel_line(greedy_rows, greedy_plans),
         beam_kernel_line(beam_rows, beam_plans),
+        kernel_line("bias_swoosh", "k2transducerasr_tpu_torch/csrc/bias_swoosh.cu",
+                    "none: XLA fused the bias, the Swoosh and the cast on the TPU",
+                    dict(SWOOSH_PATHS), swoosh_rows, swoosh_worst,
+                    "one longform batch (20 x 30 s of Zipformer2Config(), bf16): 84 calls "
+                    "(48 feed-forwards, 32 conv modules, 3 embed convs, the ConvNeXt) at "
+                    "[3e]'s shapes; streaming: one offpeak step of 820 lanes of "
+                    "Zipformer2Config(causal=True), 84 calls; launches: every zipformer2 and "
+                    "zipformer2-CTC path (launches_by_path; 84 per flagship batch or step, "
+                    "5 per layer + 4 at the pin dirs' widths); library_ms null: no PyTorch "
+                    "call computes a Swoosh"),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

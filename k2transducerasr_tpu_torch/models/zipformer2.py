@@ -11,7 +11,18 @@ module docstring for the architecture.  Differences of form, not of value:
     forms compute the same conv), and the ConvNeXt depthwise conv uses the
     diagonal of its dense ``[7, 7, C, C]`` weight at call time;
   * the parameters live in an ``nn.Module`` (``Zipformer2``) whose
-    ``state_dict`` keys are the reference's dotted paths.
+    ``state_dict`` keys are the reference's dotted paths;
+  * every Swoosh (the feed-forwards' and the ConvNeXt's SwooshL, the embed
+    convs' and the conv modules' SwooshR) is one ``bias_swoosh`` call
+    (``ops/activations_cuda.py``: a kernel on the card) that adds the bias of
+    the product or convolution before it, in float32, and rounds once to the
+    compute dtype (float32 under ``compute_dtype=None``).  So those products
+    and convolutions run without their bias (``L.linear_product``,
+    ``L.conv1d_product``, ``L.conv2d_product``), and under bf16 the sum of
+    product and bias is rounded once, after the Swoosh.  int8
+    and model-sharded weights hand the kernel their float32 product; the
+    causal conv modules their float32 sum of the two convolutions, whose
+    biases it holds.
 
 Streaming (``init_state``/``streaming_step``, causal configs) carries the
 reference's cache inventory in its batch-leading layout: per layer
@@ -31,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from k2transducerasr_tpu_torch.ops import layers as L
+from k2transducerasr_tpu_torch.ops.activations_cuda import bias_swoosh
 from k2transducerasr_tpu_torch.ops.attention import descending_rel_positions
 from k2transducerasr_tpu_torch.ops.attention_cuda import relpos_attn_probs
 from k2transducerasr_tpu_torch.parallel.sharding import whole
@@ -204,15 +216,33 @@ def init_params(rng: np.random.Generator, cfg: Zipformer2Config) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _bias(p):
+    return p["b"] if "b" in p else None
+
+
+def _swoosh_dtype(compute_dtype):
+    return compute_dtype or torch.float32
+
+
+def _linear_swoosh(p, x, kind: str, compute_dtype):
+    """Swoosh ``kind`` of the linear ``p`` (its bias added by the kernel)."""
+    return bias_swoosh(L.linear_product(p, x, compute_dtype), _bias(p), kind,
+                       _swoosh_dtype(compute_dtype))
+
+
+def _conv2d_swoosh_r(p, x, compute_dtype, **conv):
+    """SwooshR of the 3x3 conv ``p`` (its bias added by the kernel)."""
+    y = L.conv2d_product(p["w"], x, compute_dtype=compute_dtype, **conv)
+    return bias_swoosh(y, _bias(p), "r", _swoosh_dtype(compute_dtype))
+
+
 def _embed_conv_stack(p, x, compute_dtype=None):
     """Conv 3-stack: x [B, T, F] -> stage tensor [B, (T-7)//2, F', c3]
     (conv1: freq pad 1, time VALID; conv2: stride 2 VALID; conv3: stride
     (1, 2) VALID; SwooshR after each)."""
-    h = L.swoosh_r(L.apply_conv2d(p["conv1"], x[..., None], padding=(0, 1),
-                                  compute_dtype=compute_dtype))
-    h = L.swoosh_r(L.apply_conv2d(p["conv2"], h, strides=(2, 2), compute_dtype=compute_dtype))
-    h = L.swoosh_r(L.apply_conv2d(p["conv3"], h, strides=(1, 2), compute_dtype=compute_dtype))
-    return h
+    h = _conv2d_swoosh_r(p["conv1"], x[..., None], compute_dtype, padding=(0, 1))
+    h = _conv2d_swoosh_r(p["conv2"], h, compute_dtype, strides=(2, 2))
+    return _conv2d_swoosh_r(p["conv3"], h, compute_dtype, strides=(1, 2))
 
 
 def _embed_tail(p, h, compute_dtype=None):
@@ -225,8 +255,7 @@ def _embed_tail(p, h, compute_dtype=None):
     dw_w = torch.diagonal(w, dim1=2, dim2=3)[:, :, None, :]  # HWIO [7, 7, 1, C]
     dw = L.apply_conv2d(p["convnext_dw"], hh, groups=hh.shape[-1], compute_dtype=compute_dtype,
                         weight=dw_w)
-    hh = L.apply_linear(p["convnext_pw1"], dw, compute_dtype)
-    hh = L.swoosh_l(hh)
+    hh = _linear_swoosh(p["convnext_pw1"], dw, "l", compute_dtype)
     hh = L.apply_linear(p["convnext_pw2"], hh, compute_dtype)
     h = residual + hh
     b, t0, f, c = h.shape
@@ -277,9 +306,7 @@ def _compact_rel_pos(t_q: int, s_kv: int, pos_dim: int, device=None,
 
 
 def _apply_ff(p, x, compute_dtype):
-    return L.apply_linear(
-        p["w2"], L.swoosh_l(L.apply_linear(p["w1"], x, compute_dtype)), compute_dtype
-    )
+    return L.apply_linear(p["w2"], _linear_swoosh(p["w1"], x, "l", compute_dtype), compute_dtype)
 
 
 def _attn_shared(p, cfg: Zipformer2Config, si: int, x_q, compute_dtype,
@@ -391,7 +418,9 @@ def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None, cache=None
         h = torch.where(valid[:, :, None], h, 0.0)
     new_cache = None
     if chunk == 0:
-        y = L.apply_conv1d(p["dw"], h, groups=dim, padding="SAME", compute_dtype=compute_dtype)
+        y = L.conv1d_product(p["dw"]["w"], h, groups=dim, padding="SAME",
+                             compute_dtype=compute_dtype)
+        bias = _bias(p["dw"])
     else:
         b, t, d = h.shape
         if cache is None:
@@ -409,7 +438,8 @@ def _conv_module(p, dim, kernel, x, chunk, compute_dtype, valid=None, cache=None
         ).reshape(b, n, chunk, d)
         y_chunk = y_chunk * _chunkwise_scale(p["chunk_scale"], chunk)[None, None]
         y = y_causal + y_chunk.reshape(b, t, d)
-    y = L.swoosh_r(y)
+        bias = None  # each convolution's bias is in the sum
+    y = bias_swoosh(y, bias, "r", _swoosh_dtype(compute_dtype))
     return L.apply_linear(p["out"], y, compute_dtype), new_cache
 
 

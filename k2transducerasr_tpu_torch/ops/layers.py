@@ -99,18 +99,28 @@ def _cast(x: torch.Tensor, compute_dtype) -> torch.Tensor:
 def apply_linear(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) — see the module docstring for the
     bf16 rounding and the int8 form."""
-    if "w_q8" in p:
-        return _apply_linear_int8(p, x, compute_dtype)
-    if compute_dtype is None:
-        def mm(a, w):
-            return torch.matmul(a.to(w.dtype), w)
-    else:
-        def mm(a, w):
-            return torch.matmul(a.to(compute_dtype), w.to(compute_dtype)).float()
-    y = _product(x, p["w"], mm)
+    y = linear_product(p, x, compute_dtype).float()
     if "b" in p:
         y = y + p["b"]
     return _cast(y, compute_dtype)
+
+
+def linear_product(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """``apply_linear`` without its bias and its cast, for a caller whose
+    next op adds the bias (``ops/activations_cuda.bias_swoosh``): with a
+    whole weight under a ``compute_dtype``, the product as cuBLAS rounds it
+    to that dtype (the values ``apply_linear`` adds its bias to); float32
+    under None, under int8 (the scales applied) and for a model-sharded
+    weight (its partial products gathered or summed in float32)."""
+    if "w_q8" in p:
+        return _int8_product(p, x)
+    w = p["w"]
+    if compute_dtype is None:
+        return _product(x, w, lambda a, m: torch.matmul(a.to(m.dtype), m))
+    if isinstance(w, ModelShard):
+        return _product(x, w, lambda a, m: torch.matmul(a.to(compute_dtype),
+                                                        m.to(compute_dtype)).float())
+    return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
 
 
 def _product(x: torch.Tensor, w, mm) -> torch.Tensor:
@@ -199,11 +209,11 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), _col_major(b))[:m, :n]
 
 
-def _apply_linear_int8(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """(q(x) @ w_q8) * x_scale * w_scale + b with dynamic per-token
-    activation scales ``amax/127`` (a zero amax taken as 1; as the compiled
-    reference rounds it, ``_mul_inv127``), all in float32 as the reference
-    computes it, then cast to ``compute_dtype``."""
+def _int8_product(p, x: torch.Tensor) -> torch.Tensor:
+    """(q(x) @ w_q8) * x_scale * w_scale with dynamic per-token activation
+    scales ``amax/127`` (a zero amax taken as 1; as the compiled reference
+    rounds it, ``_mul_inv127``), all in float32 as the reference computes
+    it."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
     xs = _mul_inv127(torch.where(amax == 0, 1.0, amax))
@@ -212,10 +222,7 @@ def _apply_linear_int8(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     def mm(a, w):
         return int8_matmul(a.reshape(-1, a.shape[-1]), w).reshape(*a.shape[:-1], w.shape[1])
 
-    y = _product(xq, p["w_q8"], mm).float() * xs * p["w_scale"]
-    if "b" in p:
-        y = y + p["b"]
-    return _cast(y, compute_dtype)
+    return _product(xq, p["w_q8"], mm).float() * xs * p["w_scale"]
 
 
 def apply_biasnorm(p, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -277,7 +284,17 @@ def apply_conv1d(p, x: torch.Tensor, groups: int = 1, padding: str = "SAME",
     """x: [B, T, C_in] -> [B, T', C_out].  Weight layout [K, C_in/g, C_out].
     Depthwise (groups == C) and grouped convs alike; float32 accumulation
     over operands rounded to ``compute_dtype``."""
-    w = p["w"]
+    y = conv1d_product(p["w"], x, groups, padding, compute_dtype)
+    if "b" in p:
+        y = y + p["b"]
+    return _cast(y, compute_dtype)
+
+
+def conv1d_product(w, x: torch.Tensor, groups: int = 1, padding: str = "SAME",
+                   compute_dtype=None) -> torch.Tensor:
+    """``apply_conv1d`` without its bias and its cast: the float32 output,
+    [B, T', C_out] as PyTorch's convolution lays it out (a depthwise one's
+    [B, C_out, T'] on the card, seen through a transpose)."""
     k = w.shape[0]
     xc = _cast(x, compute_dtype).float()
     wc = _cast(w, compute_dtype).float().permute(2, 1, 0)  # [C_out, C_in/g, K]
@@ -286,10 +303,7 @@ def apply_conv1d(p, x: torch.Tensor, groups: int = 1, padding: str = "SAME",
         xc = F.pad(xc, (0, 0, lo, k - 1 - lo))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    y = F.conv1d(xc.transpose(1, 2), wc, groups=groups).transpose(1, 2)
-    if "b" in p:
-        y = y + p["b"]
-    return _cast(y, compute_dtype)
+    return F.conv1d(xc.transpose(1, 2), wc, groups=groups).transpose(1, 2)
 
 
 def apply_conv2d(p, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int = 1,
@@ -300,14 +314,23 @@ def apply_conv2d(p, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int
     ``apply_conv2d`` and its banded-matmul forms of the embed convs
     (``apply_conv2d_c1_banded``, ``apply_conv2d_banded_s2``), which compute
     this same 3x3 conv."""
-    w = p["w"] if weight is None else weight
-    xc = _cast(x, compute_dtype).float().permute(0, 3, 1, 2)  # NCHW view
-    wc = _cast(w, compute_dtype).float().permute(3, 2, 0, 1)  # OIHW
-    y = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(padding), groups=groups)
-    y = y.permute(0, 2, 3, 1)
+    y = conv2d_product(p["w"] if weight is None else weight, x, strides, padding, groups,
+                       compute_dtype)
     if "b" in p:
         y = y + p["b"]
     return _cast(y, compute_dtype)
+
+
+def conv2d_product(w, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int = 1,
+                   compute_dtype=None) -> torch.Tensor:
+    """``apply_conv2d`` without its bias and its cast: the float32 output,
+    [B, H', W', C_out] as a view of the convolution's NCHW tensor (channels
+    last in memory where the convolution keeps its NHWC input's layout, as
+    cuDNN does)."""
+    xc = _cast(x, compute_dtype).float().permute(0, 3, 1, 2)  # NCHW view
+    wc = _cast(w, compute_dtype).float().permute(3, 2, 0, 1)  # OIHW
+    y = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(padding), groups=groups)
+    return y.permute(0, 2, 3, 1)
 
 
 def apply_embedding(p, ids: torch.Tensor) -> torch.Tensor:

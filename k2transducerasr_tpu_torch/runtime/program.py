@@ -82,14 +82,15 @@ import weakref
 import torch
 
 from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
-from k2transducerasr_tpu_torch.ops import attention_cuda
+from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda
 from k2transducerasr_tpu_torch.utils import profiling
 
 
 def kernel_wrappers() -> tuple:
     """The wrappers that count their kernels' launches (``.launches``)."""
     return (attention_cuda.relpos_attn_probs, attention_cuda.relpos_attn_ctx,
-            rnnt_greedy.greedy_frames_skip, rnnt_beam.beam_frames_skip)
+            rnnt_greedy.greedy_frames_skip, rnnt_beam.beam_frames_skip,
+            activations_cuda.bias_swoosh)
 
 
 @dataclasses.dataclass

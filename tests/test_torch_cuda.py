@@ -24,6 +24,13 @@ installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
+bias_swoosh (the zipformer2 encoder's bias + Swoosh) is held against its
+plain version at the benchmark cells' shapes and layouts, ragged and
+unaligned, and counted 84 times in each replay of a flagship offline graph
+and streaming step: bf16 output to one bf16 ulp, float32 output to two
+float32 ulps (the same float32 steps on both sides, expf and log1pf CUDA's
+on both: they agree exactly unless a compiler orders a step otherwise).
+
 Tolerance, K1: float32 probs to atol 1e-5 (summation order); bf16 probs to
 one bf16 ulp of the plain value (both round one float32 value).  K2: float32
 ctx to atol 1e-5 (summation order: the kernel's online softmax adds the
@@ -56,6 +63,7 @@ from k2transducerasr_tpu_torch.decode import rnnt_greedy as TGreedy
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import lstm as TL
+from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
@@ -1245,7 +1253,8 @@ INT8_GRAPH_CASES = [("zipformer2", GREEDY), ("conformer", GREEDY), ("zipformer",
 
 def _counts():
     return (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches,
-            TGreedy.greedy_frames_skip.launches, TBeam.beam_frames_skip.launches)
+            TGreedy.greedy_frames_skip.launches, TBeam.beam_frames_skip.launches,
+            ACT.bias_swoosh.launches)
 
 
 def _eager(rec, streams):
@@ -1497,6 +1506,99 @@ def test_step_graph_pool_never_moves_and_serves_one_stream(cuda):
     assert [t.data_ptr() for t in _pool_leaves(rec)] == ptrs and len(rec.program) == 1
 
 
+# -- bias + Swoosh (ops/activations_cuda.py) ---------------------------------
+
+# (name, shape as the encoder hands it over, how it lies in memory, in dtype,
+# out dtype, bias, kind).  First the cells' shapes: longform's 20 x 30 s
+# batch (1496 encoder-rate frames at stack 0, 187 at stack 3, 1496 stage
+# frames of 19 bins out of the ConvNeXt, 2998 x 80 after embed conv1) and
+# offpeak's 820 lanes x 32 frames; the layouts are the products' rows, a
+# depthwise convolution's [B, C, T] and an NCHW convolution's, each seen
+# channels last.  Then ragged channels and unaligned pointers.
+F32, BF16 = torch.float32, torch.bfloat16
+SWOOSH_CASES = [
+    ("ff-stack0", (20 * 1496, 512), "rows", BF16, BF16, True, "l"),
+    ("ff-stack3", (20 * 187, 1536), "rows", BF16, BF16, True, "l"),
+    ("convnext-pw1", (20, 1496, 19, 384), "rows", BF16, BF16, True, "l"),
+    ("conv-module", (20, 1496, 192), "depthwise", F32, BF16, True, "r"),
+    ("conv-module-stack3", (20, 187, 512), "depthwise", F32, BF16, True, "r"),
+    ("embed-conv1", (20, 2998, 80, 8), "nchw", F32, BF16, True, "r"),
+    ("embed-conv3", (20, 1497, 19, 128), "nchw", F32, BF16, True, "r"),
+    ("stream-ff", (820 * 32, 512), "rows", BF16, BF16, True, "l"),
+    ("stream-conv-sum", (820, 32, 192), "rows", F32, BF16, False, "r"),
+    ("f32", (4096, 384), "rows", F32, F32, True, "l"),
+    ("f32-depthwise", (8, 77, 192), "depthwise", F32, F32, True, "r"),
+    ("int8-ff", (640, 768), "rows", F32, BF16, True, "l"),
+    ("ragged-c", (7, 13), "rows", BF16, BF16, True, "r"),
+    ("ragged-c-f32", (7, 13), "rows", F32, F32, False, "l"),
+    ("unaligned", (33, 64), "offset", BF16, BF16, True, "l"),
+    ("unaligned-f32", (33, 64), "offset", F32, BF16, True, "r"),
+]
+
+
+def _swoosh_input(shape, layout, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = (torch.randn(n + 1, generator=g, device="cuda") * 5).to(dtype)
+    if layout == "rows":
+        return flat[:n].view(shape)
+    if layout == "offset":  # 2 or 4 bytes past a 16-byte boundary
+        return flat[1:].view(shape)
+    if layout == "depthwise":  # [B, C, T] seen as [B, T, C]
+        b, t, c = shape
+        return flat[:n].view(b, c, t).transpose(1, 2)
+    b, h, w, c = shape  # NCHW seen as NHWC
+    return flat[:n].view(b, c, h, w).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("name,shape,layout,dtype,out_dtype,bias,kind", SWOOSH_CASES,
+                         ids=[c[0] for c in SWOOSH_CASES])
+def test_bias_swoosh_matches_plain(cuda, name, shape, layout, dtype, out_dtype, bias, kind):
+    y = _swoosh_input(shape, layout, dtype, seed=len(name))
+    b = torch.randn(shape[-1], device="cuda") if bias else None
+    before = ACT.bias_swoosh.launches
+    got = ACT.bias_swoosh(y, b, kind, out_dtype)
+    torch.cuda.synchronize()
+    assert ACT.bias_swoosh.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == y.shape and got.stride() == y.stride()
+    want = ACT.bias_swoosh_reference(y, b, kind, out_dtype)
+    d = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(torch.finfo(out_dtype).tiny)
+    ulps, bits = (1, 7) if out_dtype == BF16 else (2, 23)
+    ok = d <= ulps * torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    assert bool(ok.all()), f"{int((~ok).sum())} of {d.numel()} past {ulps} ulp, max {d.max()}"
+
+
+@pytest.mark.parametrize("route", ["offline", "streaming"])
+def test_graph_replay_counts_84_bias_swoosh_launches(cuda, route):
+    """At the flagship's widths and 16 layers, a captured offline graph and
+    a captured streaming step each add 84 bias_swoosh launches a replay (48
+    feed-forwards, 32 conv modules, 3 embed convs, the ConvNeXt), as many
+    as one eager run of the offline batch launches."""
+    from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+
+    bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=route == "streaming"),
+                                vocab_size=500, seed=5, device="cuda")
+    if route == "offline":
+        rec = OfflineRecognizer(bundle, device="cuda")
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(5 * 16000))
+        assert _eager(rec, [s])[1][-1] == 84
+        rec.get_result(s)  # captures the batch shape's graph
+        before = ACT.bias_swoosh.launches
+        rec.get_result(s)
+    else:
+        rec = OnlineRecognizer(bundle, max_lanes=4, device="cuda")
+        s = rec.create_online_stream()
+        s.add_samples(_pcm(rec.window_samples + 4 * rec.hop_samples))
+        rec.get_results([s])  # the first step: warm-up on the idle pool, capture, replay
+        before = ACT.bias_swoosh.launches
+        rec.get_results([s])
+    assert ACT.bias_swoosh.launches - before == 84
+    (entry,) = rec.program.entries.values()
+    assert entry.launches[-1] == 84
+
+
 def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):
     """A host read planted in _decode: the warm-up runs it, the capture
     refuses it, and begin_decode raises with no graph kept and no result.
@@ -1517,3 +1619,4 @@ def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         rec.begin_decode(streams)
     assert len(rec.program) == 0
+

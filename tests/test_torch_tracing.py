@@ -362,6 +362,31 @@ def test_stage_split_sums_each_stage_by_its_markers(events, want):
     assert _chip_smoke().stage_split(events) == pytest.approx(want)
 
 
+END = "k2t_stage_end"
+
+
+@pytest.mark.parametrize("names,reps,want", [
+    # one uncounted call, two counted, one uncounted
+    (["f", "s", END, "f", "a", END, "f", "b", END, "f", "s", END], 2,
+     ["f", "a", END, "f", "b", END]),
+    # the first call's head and the last call's tail, its marker too, lost
+    (["s", END, "f", "a", END, "f"], 1, ["f", "a", END]),
+])
+def test_counted_window_takes_the_counted_calls_between_the_uncounted_ones(names, reps, want):
+    """``chip_smoke.device_trace`` counts the events of the calls bracketed
+    by an uncounted call before and after, by their end markers."""
+    assert names[_chip_smoke().counted_window(names, reps)] == want
+
+
+@pytest.mark.parametrize("names", [
+    ["f", END, "f", END, "f"],  # two counted calls' end markers lost
+    ["f", END, "f", END, "f", END, "f", END, "f", END],  # a call more than the count
+])
+def test_counted_window_refuses_another_number_of_calls(names):
+    with pytest.raises(AssertionError, match="markers"):
+        _chip_smoke().counted_window(names, 2)
+
+
 # -- on the card --------------------------------------------------------------
 
 
