@@ -57,6 +57,14 @@ Phases (any failure exits non-zero; none is caught):
      time, its device time, the plain version's time and the bound (its
      bytes over the bandwidth); every zipformer2 path below counts its 84
      launches per flagship batch and step;
+  3f. the encoders' convolutions (all but the depthwise ones) at the
+     benchmark cells' shapes and layouts, recorded from one eager conformer
+     and zipformer2 longform batch (20 x 30 s) and offpeak step (820
+     lanes): each one's device time with cuDNN's TF32 allowed
+     (ops/layers.conv_tf32) and on FFMA, beside its bounds; those the port
+     scopes held to FFMA within the float32 summation-order bound; every
+     path below counts its conv_tf32 calls per batch and step (FAMILIES'
+     ``convs``: 26 conformer, 2 each zipformer);
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -185,6 +193,7 @@ from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
 from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
+from k2transducerasr_tpu_torch.ops import layers as L
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from k2transducerasr_tpu_torch.runtime.offline import PendingDecode
@@ -211,7 +220,10 @@ def swoosh_calls(cfg) -> int:
 # (tests/test_pinned_transcripts.py), whether greedy search runs the
 # rnnt_greedy kernel (every transducer: once per batch and per step), and
 # the bias_swoosh launches per flagship batch and streaming step (the
-# zipformer2 encoder's; 0: the family runs no Swoosh)
+# zipformer2 encoder's; 0: the family runs no Swoosh), and the convolutions
+# run through ops/layers.conv_tf32 per bf16 batch and step (the embed's of
+# 32 output channels or more and the conformer's pointwise ones; no
+# depthwise one, and not the zipformers' embed conv1, 1 -> 8 channels)
 FAMILIES = {
     "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                        kernel="relpos_attn_probs",
@@ -219,18 +231,19 @@ FAMILIES = {
                        pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
                        pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                        online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6",
-                       greedy=True, swoosh=swoosh_calls(Zipformer2Config())),
+                       greedy=True, swoosh=swoosh_calls(Zipformer2Config()), convs=2),
     "conformer": dict(cfg=ConformerConfig, stream_cfg=lambda: ConformerConfig(causal=True),
                       kernel="relpos_attn_ctx",
                       per_batch=ConformerConfig().num_layers,
                       pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
-                      online_pin_text="tok28tok28tok28tok28", greedy=True, swoosh=0),
+                      online_pin_text="tok28tok28tok28tok28", greedy=True, swoosh=0,
+                      convs=2 + 2 * ConformerConfig().num_layers),
     # the zipformer2 encoder under a CTC head (vocab 500 at full width)
     "zipformer2ctc": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                           kernel="relpos_attn_probs",
                           per_batch=sum(Zipformer2Config().num_encoder_layers),
                           pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27",
-                          greedy=False, swoosh=swoosh_calls(Zipformer2Config())),
+                          greedy=False, swoosh=swoosh_calls(Zipformer2Config()), convs=2),
     # zipformer v1 (icefall pruned_transducer_stateless7): 15 layers, 8 heads
     # of 24, K1 once per layer
     "zipformer": dict(cfg=ZipformerConfig, stream_cfg=lambda: ZipformerConfig(causal=True),
@@ -239,13 +252,13 @@ FAMILIES = {
                       pin_text="tok5tok17tok5tok17tok5tok17tok5tok17",
                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                       online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23",
-                      greedy=True, swoosh=0),
+                      greedy=True, swoosh=0, convs=2),
     # the LSTM transducer: a cuDNN recurrence, no kernel of this port
     "lstm": dict(cfg=LstmConfig, stream_cfg=LstmConfig, kernel=None, per_batch=0,
                  pin_text="tok6tok15tok15tok15tok15tok15tok15",
                  pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                  online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9",
-                 greedy=True, swoosh=0),
+                 greedy=True, swoosh=0, convs=2),
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
@@ -292,6 +305,7 @@ GREEDY = "greedy_search"
 GREEDY_PATHS: dict[str, int] = {}
 BEAM_PATHS: dict[str, int] = {}
 SWOOSH_PATHS: dict[str, int] = {}
+CONV_TF32_PATHS: dict[str, int] = {}
 SEARCH_PATHS = {"rnnt_greedy": GREEDY_PATHS, "rnnt_beam": BEAM_PATHS}
 
 # bias_swoosh's shapes ([3e]): the benchmark's longform batch (20 x 30 s,
@@ -528,6 +542,18 @@ def family_launches(what, spec, counts, method=GREEDY) -> int:
 def counts_of(**launches) -> dict:
     """Every kernel's launch count, 0 but where given."""
     return {k: launches.get(k, 0) for k in KERNELS}
+
+
+def check_conv_tf32(what, spec, recorded, ran, replays) -> None:
+    """The family's convolutions with cuDNN's TF32 allowed
+    (``ops/layers.conv_tf32``): ``recorded`` per replay by the capture (its
+    entry's last count) and ``ran`` in ``replays`` timed replays (the rise
+    of ``conv_tf32.launches``), FAMILIES' ``convs`` a replay."""
+    want = spec["convs"]
+    if recorded != want or ran != want * replays:
+        raise AssertionError(f"{what}: conv_tf32 {recorded} a replay recorded, {ran} in "
+                             f"{replays} replays; expected {want} a replay")
+    CONV_TF32_PATHS[what] = ran
 
 
 def replay_counts(spec, search) -> dict:
@@ -1759,6 +1785,136 @@ def phase_swoosh(bw):
     return rows, worst
 
 
+# [3f]: the benchmark cells' batch of 20 x 30 s (conf_offline_longform,
+# z2_offline_longform) and z2_stream_offpeak's pool of 820 lanes
+CONV_ROWS, CONV_LANES = 20, 820
+TF32_PEAK = 495e12  # H100 SXM, dense TF32 on the tensor cores
+
+
+@contextlib.contextmanager
+def encoder_convs():
+    """Record the convolutions other than depthwise ones run while the block
+    runs: yields a dict from (conv, shapes, strides, arguments) to [conv, x,
+    w, arguments, whether cuDNN's TF32 was allowed in the call, calls], the
+    first call's operands cloned as they lay.  With the process's flag off,
+    as [1] leaves it, a call that sees it on runs inside
+    ``ops/layers.conv_tf32``."""
+    seen: dict = {}
+    saved = {name: getattr(F, name) for name in ("conv1d", "conv2d")}
+
+    def spy(conv):
+        def call(x, w, **kw):
+            groups = kw.get("groups", 1)
+            if not 1 < groups == x.shape[1]:
+                key = (conv.__name__, tuple(x.shape), x.stride(), tuple(w.shape),
+                       tuple(sorted(kw.items())))
+                if key not in seen:
+                    seen[key] = [conv, x.clone(), w.clone(), kw,
+                                 torch.backends.cudnn.allow_tf32, 0]
+                seen[key][-1] += 1
+            return conv(x, w, **kw)
+        return call
+
+    for name, conv in saved.items():
+        setattr(F, name, spy(conv))
+    try:
+        yield seen
+    finally:
+        for name, conv in saved.items():
+            setattr(F, name, conv)
+
+
+def _conv_cases() -> list:
+    """(cell, name, scoped, calls a replay, conv, x, w, arguments) of every
+    convolution but the depthwise ones in one eager conformer and zipformer2
+    longform batch and one eager offpeak step, at full width with random
+    weights; ``scoped``: run through ``ops/layers.conv_tf32``."""
+    n = 30 * 16000
+    runs = []
+    for family, cell in (("conformer", "conf_offline_longform"),
+                         ("zipformer2", "z2_offline_longform")):
+        bundle = ModelBundle.random(family, FAMILIES[family]["cfg"](), vocab_size=500, seed=0,
+                                    device="cuda")
+        rec = OfflineRecognizer(bundle, device="cuda")
+        streams = streams_for(rec, [synth_pcm(n, i) for i in range(CONV_ROWS)])
+        runs.append((cell, lambda rec=rec, streams=streams: rec.encode(*rec.pcm_batch(streams))))
+    bundle = ModelBundle.random("zipformer2", Zipformer2Config(causal=True), vocab_size=500,
+                                seed=0, device="cuda")
+    rec = OnlineRecognizer(bundle, max_lanes=CONV_LANES, device="cuda")
+    rec.program = None  # the eager step: one call of each convolution
+    stream = rec.create_online_stream()
+    stream.add_samples(synth_pcm(rec.window_samples, 0))
+    runs.append(("z2_stream_offpeak", lambda: rec.get_results([stream])))
+    cases = []
+    for cell, run in runs:
+        with encoder_convs() as seen:
+            run()
+        torch.cuda.synchronize()
+        for k, (conv, x, w, kw, scoped, calls) in enumerate(seen.values()):
+            what = (f"pointwise-{w.shape[1]}to{w.shape[0]}" if conv.__name__ == "conv1d"
+                    else f"embed-conv{k + 1}")
+            cases.append((cell, what, scoped, calls, conv, x, w, kw))
+    del rec, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_conv_tf32(bw):
+    """Each convolution of the benchmark cells' encoders but the depthwise
+    ones, at the cells' shapes and layouts (``_conv_cases``), run through
+    ``ops/layers.conv_tf32`` (TF32 on the tensor cores) and on FFMA
+    (``exact_f32``: true float32): the TF32 product of each one the port
+    scopes held to the FFMA one within (K + 2) x 2^-23 x the conv of |x|
+    and |w|, K = C_in/g x kh x kw (the float32 summation-order bound; the
+    operands are bf16-rounded, so every product is exact in both); each
+    one's device time both ways, beside its bound at 495 (TF32) and 67
+    (FFMA) TFLOP/s and the bandwidth, and whether the port scopes it (the
+    narrow embed conv1, 1 -> 8 channels, is the row behind
+    ``TF32_MIN_OUT_CHANNELS``).  The process's flag stays off throughout."""
+    rows = []
+    for cell, what, scoped, calls, conv, x, w, kw in _conv_cases():
+        k = int(np.prod(w.shape[1:]))
+        if scoped != (w.shape[0] // kw.get("groups", 1) >= L.TF32_MIN_OUT_CHANNELS):
+            raise AssertionError(f"[3f] {cell} {what}: scoped {scoped} against the rule")
+        before = L.conv_tf32.launches
+        got = L.conv_tf32(conv, x, w, **kw)
+        if L.conv_tf32.launches != before + 1 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError(f"[3f] {cell} {what}: conv_tf32 left the flag on or did not "
+                                 f"count")
+        with exact_f32():
+            want = conv(x, w, **kw)
+            mag = conv(x.abs(), w.abs(), **kw)
+        limit = (k + 2) * 2.0**-23 * mag
+        err = (got - want).abs()
+        worst = float((err / limit.clamp_min(torch.finfo(torch.float32).tiny)).max())
+        if scoped and worst > 1:
+            raise AssertionError(f"[3f] {cell} {what}: TF32 against FFMA past the float32 "
+                                 f"summation bound (max err {err.max().item():.3e})")
+        flops = 2 * got.numel() * k
+        nbytes = 4 * (x.numel() + w.numel() + got.numel())
+        del got, want, mag, limit, err
+        tf32_ms = device_ms(lambda: L.conv_tf32(conv, x, w, **kw), reps=10)
+        with exact_f32():
+            ffma_ms = device_ms(lambda: conv(x, w, **kw), reps=10)
+        tf32_bound = max(flops / TF32_PEAK, nbytes / bw) * 1e3
+        ffma_bound = max(flops / peak_flops(torch.float32), nbytes / bw) * 1e3
+        rows.append({"cell": cell, "conv": what, "scoped": scoped, "calls": calls,
+                     "x": list(x.shape), "x_stride": list(x.stride()), "w": list(w.shape),
+                     "args": repr(kw), "reduction": k, "gflop": flops / 1e9,
+                     "gbytes": nbytes / 1e9, "tf32_device_ms": tf32_ms,
+                     "ffma_device_ms": ffma_ms, "tf32_bound_ms": tf32_bound,
+                     "ffma_bound_ms": ffma_bound, "err_over_limit": worst})
+        log(f"[3f] conv {cell} {what} x{calls} ({'TF32' if scoped else 'FFMA: not scoped'}): "
+            f"x {tuple(x.shape)} w {tuple(w.shape)} {kw}, K {k}, {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB | TF32 {tf32_ms:.3f} ms (bound {tf32_bound:.3f}, "
+            f"{tf32_bound / tf32_ms:.1%}) | FFMA {ffma_ms:.3f} ms (bound {ffma_bound:.3f}) | "
+            f"FFMA/TF32 {ffma_ms / tf32_ms:.2f}x | TF32 err {worst:.3g} of the bound")
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_golden(family):
     spec = FAMILIES[family]
     bundle = ModelBundle.from_dir(os.path.join(PIN_ROOT, f"{family}_pin"), device="cuda")
@@ -1998,6 +2154,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
 
     reset_counts()
     before = profiling.counters()
+    convs = L.conv_tf32.launches
     t0 = time.time()
     results = []
     for k in range(1, n_batches + 1):
@@ -2005,6 +2162,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
+    check_conv_tf32(name, spec, entry.launches[-1], L.conv_tf32.launches - convs, n_batches)
     ran = counters_since(before)
     if ran.get("program.replays") != n_batches or ran.get("program.captures"):
         raise AssertionError(f"{name}: {n_batches} timed batches ran {ran} (profiling "
@@ -2073,7 +2231,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         f"{peak:.2f} GiB allocated with the graph held, its pool {pool:.3f} GiB, launches "
         f"{counts} ({spec['per_batch']}/batch of {spec['kernel']}), tokens/utt "
         f"{statistics.mean(toks):.1f} (min {min(toks)} max {max(toks)}), enc out "
-        f"{tuple(enc.shape)}")
+        f"{tuple(enc.shape)}, conv_tf32 {CONV_TF32_PATHS[name]}")
     log(f"{tag} {name} graph vs eager _decode: {len(audited)} batches bit for bit; one "
         f"replay's device time {replay_ms:.2f} ms (calls queued behind a spin); device busy "
         + ("not measured (the profiler recorded no device activity), nor the traced kernels"
@@ -2222,6 +2380,7 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
 
     reset_counts()
     before = profiling.counters()
+    convs = L.conv_tf32.launches
     lat, host, wait, text = [], [], [], []
     t_start = time.perf_counter()
     while any(s._ready() for s in streams):
@@ -2239,6 +2398,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     wall = time.perf_counter() - t_start
     counts = read_counts()
     steps = len(lat)
+    check_conv_tf32(f"{name}/streaming", spec, entry.launches[-1], L.conv_tf32.launches - convs,
+                    steps)
     ran = counters_since(before)
     if ran.get("program.replays") != steps or ran.get("program.captures"):
         raise AssertionError(f"{name} streaming: {steps} timed steps ran {ran} (profiling "
@@ -2314,8 +2475,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
         f"{row['end_step_results_ms']:.2f}; lanes stepped per replay {lanes_per_replay:.2f} "
         f"of {STREAM_LANES}, windows per stepped lane {row['windows_per_lane']:.2f} (profiling "
         f"counters); peak {peak:.2f} GiB, launches {counts} "
-        f"({spec['per_batch']}/step of "
-        f"{spec['kernel']}), tokens/lane {statistics.mean(toks):.1f}")
+        f"({spec['per_batch']}/step of {spec['kernel']}), conv_tf32 "
+        f"{CONV_TF32_PATHS[name + '/streaming']}, tokens/lane {statistics.mean(toks):.1f}")
     log(f"{tag} {name} step graph of key (lanes, windows, samples) {key}: first step (warm-up "
         f"on the idle pool, capture, replay) {capture_ms:.1f} ms; a second capture, dumped: "
         f"{n_nodes} nodes, kernel nodes {nodes}; graph pool {row['graph_pool_gib']:.3f} GiB, "
@@ -2923,8 +3084,6 @@ def phase_int_mm(bw):
     bf16 torch.matmul at the flagship's largest linear shapes, and the whole
     int8 linear (per-token quantisation, product, scales) against the bf16
     one; the int32 product equals the CPU's on the first 256 rows."""
-    from k2transducerasr_tpu_torch.ops import layers as L
-
     rows = []
     g = torch.Generator(device="cuda").manual_seed(7)
     for m, k, n in INT_MM_SHAPES:
@@ -3604,6 +3763,7 @@ def main() -> int:
     greedy_rows, greedy_plans = phase_greedy(bw)
     beam_rows, beam_plans = phase_beam(bw)
     swoosh_rows, swoosh_worst = phase_swoosh(bw)
+    conv_rows = phase_conv_tf32(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
@@ -3637,6 +3797,7 @@ def main() -> int:
         converted_launches, convert_s = phase_convert(tmp)
         cli_launches = phase_cli(tmp)
         par_launches = phase_parallel(tmp)
+    print(json.dumps({"conv_tf32": conv_rows, "conv_tf32_paths": CONV_TF32_PATHS}), flush=True)
     print(json.dumps({"offline": offline,
                       "streaming": list(streaming.values()) + [streaming_beam, streaming_int8],
                       "int_mm": int_mm, "convert_host_s": convert_s, "no_wait": no_wait,

@@ -27,8 +27,18 @@ One rounding differs from the reference under bf16: ``apply_linear`` takes
 PyTorch's bf16 matmul, whose float32 accumulator is rounded to bf16 before
 the float32 bias add (the reference rounds once, after the add).  That is a
 one-bf16-ulp-level difference, stated in the bf16 tolerances of the tests.
-Convolutions instead run in float32 on bf16-rounded operands — exact
-products with float32 accumulation, as the reference computes them.
+
+Convolutions take float32 operands rounded to ``compute_dtype`` and give a
+float32 output, as the reference computes them.  Where that dtype is one
+TF32 holds exactly (bf16, fp16: at most 10 explicit mantissa bits, and
+float32's exponent) and the product has enough outputs a group for the
+tensor cores to pay (``TF32_MIN_OUT_CHANNELS``), the conv runs with cuDNN's
+TF32 allowed, whatever the process's flag (``conv_tf32``): the operands
+pass into TF32 unchanged, each product of two is exact in float32 and the
+sums stay float32, so only their order differs, as it does between any two
+cuDNN algorithms.  The float32 route (``compute_dtype=None``), depthwise
+products (one output a group: PyTorch's own kernel, where TF32 means
+nothing) and other narrow ones run under the process's flags.
 """
 
 from __future__ import annotations
@@ -303,7 +313,8 @@ def conv1d_product(w, x: torch.Tensor, groups: int = 1, padding: str = "SAME",
         xc = F.pad(xc, (0, 0, lo, k - 1 - lo))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    return F.conv1d(xc.transpose(1, 2), wc, groups=groups).transpose(1, 2)
+    return _conv(F.conv1d, xc.transpose(1, 2), wc, compute_dtype,
+                 groups=groups).transpose(1, 2)
 
 
 def apply_conv2d(p, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: int = 1,
@@ -329,8 +340,66 @@ def conv2d_product(w, x: torch.Tensor, strides=(1, 1), padding=(0, 0), groups: i
     cuDNN does)."""
     xc = _cast(x, compute_dtype).float().permute(0, 3, 1, 2)  # NCHW view
     wc = _cast(w, compute_dtype).float().permute(3, 2, 0, 1)  # OIHW
-    y = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(padding), groups=groups)
+    y = _conv(F.conv2d, xc, wc, compute_dtype, stride=tuple(strides), padding=tuple(padding),
+              groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+# The compute dtypes TF32 holds exactly: every value keeps its mantissa (10
+# bits at most) and its exponent (float32's range) in TF32.
+TF32_EXACT = (torch.bfloat16, torch.float16)
+# The fewest output channels a group for which cuDNN's TF32 conv beats its
+# FFMA one.  On an H100 80GB HBM3 (700 W, cuDNN through torch 2.11), device
+# time: zipformer2's embed conv1 (1 -> 8 channels, 3x3, x [20, 1, 3072, 80])
+# took 1.547 ms under TF32 against 0.381 on FFMA; every conv of 32 outputs
+# or more at the benchmark's shapes ran faster under TF32, 1.97x (8 -> 32,
+# 0.314 against 0.626 ms) to 11.2x (the conformer's conv2, 512 -> 512), and
+# the conformer's conv1, 1 -> 512 over the same 9-long reduction as
+# zipformer2's, 2.58x (1.187 against 3.062 ms): the output width decides,
+# not the reduction's length.
+TF32_MIN_OUT_CHANNELS = 32
+
+
+def _conv(conv, xc: torch.Tensor, wc: torch.Tensor, compute_dtype, groups: int, **kw):
+    """``conv(xc, wc, groups=groups, **kw)`` on operands rounded to
+    ``compute_dtype``: through ``conv_tf32`` where that dtype is one TF32
+    holds exactly and the product has ``TF32_MIN_OUT_CHANNELS`` outputs a
+    group or more (``wc``'s dim 0 over ``groups``; a depthwise product has
+    one); under the process's flags otherwise."""
+    if compute_dtype in TF32_EXACT and wc.shape[0] // groups >= TF32_MIN_OUT_CHANNELS:
+        return conv_tf32(conv, xc, wc, groups=groups, **kw)
+    return conv(xc, wc, groups=groups, **kw)
+
+
+def conv_tf32(conv, xc: torch.Tensor, wc: torch.Tensor, **kw) -> torch.Tensor:
+    """``conv(xc, wc, **kw)`` with cuDNN's TF32 allowed for this one call:
+    ``torch.backends.cudnn.allow_tf32`` set True and given back as it was,
+    on return and on a raise.  For float32 operands that TF32 holds exactly
+    (see the module docstring), so the result is float32 sums of exact
+    products.  The legacy flag alone, as ``runtime/device.exact_f32`` sets
+    it: setting ``torch.backends.cudnn.conv.fp32_precision`` while the flag
+    is False makes every later read of the flag raise (torch 2.13).
+
+    The flag is the process's: the scope covers this call on the calling
+    thread, and a float32 conv that another thread ran meanwhile would see
+    it too.  A CUDA graph captured around the call keeps the TF32 algorithm
+    that its eager warm-up and the capture chose, and every replay runs it;
+    what runs after the call, such as a float32 reference under the flags
+    its harness set, sees those flags again.  ``conv_tf32.launches`` counts
+    the calls on CUDA tensors (a program adds its captured calls at each
+    replay, ``runtime/program.py``)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y = conv(xc, wc, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    if xc.is_cuda:
+        conv_tf32.launches += 1
+    return y
+
+
+conv_tf32.launches = 0
 
 
 def apply_embedding(p, ids: torch.Tensor) -> torch.Tensor:

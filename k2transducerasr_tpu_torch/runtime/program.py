@@ -65,7 +65,9 @@ synchronises).
 
 The caller runs each call under its own precision: the cuBLAS and cuDNN
 math modes (TF32 on or off) are fixed into a graph when it is captured, so
-the first call of a shape must run under the mode of every later one.
+the first call of a shape must run under the mode of every later one.  A
+convolution over bf16-rounded operands sets its own (``ops/layers.conv_tf32``:
+TF32 allowed in its warm-up and its capture alike, whatever the caller's).
 
 On the CPU each call runs ``fn`` eagerly on the static inputs and clones
 its outputs: the plain route the tests drive.
@@ -82,15 +84,17 @@ import weakref
 import torch
 
 from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
-from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda
+from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda, layers
 from k2transducerasr_tpu_torch.utils import profiling
 
 
 def kernel_wrappers() -> tuple:
-    """The wrappers that count their kernels' launches (``.launches``)."""
+    """The wrappers that count their kernels' launches (``.launches``):
+    K1, K2, G, B, S, and the convolutions run with cuDNN's TF32 allowed
+    (``ops/layers.conv_tf32``)."""
     return (attention_cuda.relpos_attn_probs, attention_cuda.relpos_attn_ctx,
             rnnt_greedy.greedy_frames_skip, rnnt_beam.beam_frames_skip,
-            activations_cuda.bias_swoosh)
+            activations_cuda.bias_swoosh, layers.conv_tf32)
 
 
 @dataclasses.dataclass

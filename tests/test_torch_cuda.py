@@ -31,6 +31,15 @@ and streaming step: bf16 output to one bf16 ulp, float32 output to two
 float32 ulps (the same float32 steps on both sides, expf and log1pf CUDA's
 on both: they agree exactly unless a compiler orders a step otherwise).
 
+The encoders' convolutions over bf16-rounded operands (``ops/layers.py``:
+on the tensor cores through ``conv_tf32`` where they have 32 outputs or
+more) are held against the same products in true float32 at the benchmark
+cells' shapes, within (K + 2) x 2^-23 x the conv of |x| and |w| (the
+float32 summation-order bound: every product of two bf16 values is exact);
+a replay counts 26 scoped convolutions a conformer batch, 2 a zipformer2
+batch or step and 0 on the float32 route, and leaves cuDNN's TF32 flag as
+the process set it.
+
 Tolerance, K1: float32 probs to atol 1e-5 (summation order); bf16 probs to
 one bf16 ulp of the plain value (both round one float32 value).  K2: float32
 ctx to atol 1e-5 (summation order: the kernel's online softmax adds the
@@ -63,6 +72,7 @@ from k2transducerasr_tpu_torch.decode import rnnt_greedy as TGreedy
 from k2transducerasr_tpu_torch.models import decoder as TD
 from k2transducerasr_tpu_torch.models import joiner as TJ
 from k2transducerasr_tpu_torch.models import lstm as TL
+from k2transducerasr_tpu_torch.ops import layers as TLayers
 from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
@@ -1240,6 +1250,7 @@ def test_cli_device_flag_on_the_card(cuda, tmp_path, capsys):
 # -- the offline recognizer's CUDA graphs (runtime/program.py) ----------------
 
 GREEDY, BEAM, CTC = "greedy_search", "modified_beam_search", "greedy_search_ctc"
+SWOOSH, CONV_TF32 = 4, 5  # bias_swoosh's and conv_tf32's places in _counts()
 # (family, method, hotwords): every family and search method on its pin dir
 GRAPH_CASES = [("zipformer2", GREEDY, None), ("conformer", GREEDY, None),
                ("zipformer", GREEDY, None), ("lstm", GREEDY, None),
@@ -1252,9 +1263,10 @@ INT8_GRAPH_CASES = [("zipformer2", GREEDY), ("conformer", GREEDY), ("zipformer",
 
 
 def _counts():
+    """Each counter of ``runtime/program.kernel_wrappers()``, in its order."""
     return (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches,
             TGreedy.greedy_frames_skip.launches, TBeam.beam_frames_skip.launches,
-            ACT.bias_swoosh.launches)
+            ACT.bias_swoosh.launches, TLayers.conv_tf32.launches)
 
 
 def _eager(rec, streams):
@@ -1583,7 +1595,7 @@ def test_graph_replay_counts_84_bias_swoosh_launches(cuda, route):
         rec = OfflineRecognizer(bundle, device="cuda")
         s = rec.create_offline_stream()
         s.add_samples(_pcm(5 * 16000))
-        assert _eager(rec, [s])[1][-1] == 84
+        assert _eager(rec, [s])[1][SWOOSH] == 84
         rec.get_result(s)  # captures the batch shape's graph
         before = ACT.bias_swoosh.launches
         rec.get_result(s)
@@ -1596,7 +1608,108 @@ def test_graph_replay_counts_84_bias_swoosh_launches(cuda, route):
         rec.get_results([s])
     assert ACT.bias_swoosh.launches - before == 84
     (entry,) = rec.program.entries.values()
-    assert entry.launches[-1] == 84
+    assert entry.launches[SWOOSH] == 84
+
+
+# -- the convolutions on the tensor cores (ops/layers.py::conv_tf32) ----------
+
+# (name, x [B, H, W, C_in] or [B, T, C_in], weight HWIO or [K, C_in, C_out],
+# arguments): every convolution of the benchmark cells' encoders but the
+# depthwise ones, at the cells' shapes: conf_offline_longform's and
+# z2_offline_longform's 20 x 30 s (3,072 fbank frames, 767 after the
+# conformer's embed), z2_stream_offpeak's step over 820 lanes (77 frames)
+CONV_CASES = [
+    ("conformer-embed-conv1", (20, 3072, 80, 1), (3, 3, 1, 512), dict(strides=(2, 2))),
+    ("conformer-embed-conv2", (20, 1535, 39, 512), (3, 3, 512, 512), dict(strides=(2, 2))),
+    ("conformer-pointwise1", (20, 767, 512), (1, 512, 1024), dict(padding="SAME")),
+    ("conformer-pointwise2", (20, 767, 512), (1, 512, 512), dict(padding="SAME")),
+    ("z2-longform-embed-conv1", (20, 3072, 80, 1), (3, 3, 1, 8), dict(padding=(0, 1))),
+    ("z2-longform-embed-conv2", (20, 3070, 80, 8), (3, 3, 8, 32), dict(strides=(2, 2))),
+    ("z2-longform-embed-conv3", (20, 1534, 39, 32), (3, 3, 32, 128), dict(strides=(1, 2))),
+    ("z2-offpeak-embed-conv1", (820, 77, 80, 1), (3, 3, 1, 8), dict(padding=(0, 1))),
+    ("z2-offpeak-embed-conv2", (820, 75, 80, 8), (3, 3, 8, 32), dict(strides=(2, 2))),
+    ("z2-offpeak-embed-conv3", (820, 37, 39, 32), (3, 3, 32, 128), dict(strides=(1, 2))),
+]
+
+
+@pytest.mark.parametrize("name,xs,ws,kw", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_bf16_conv_product_is_the_float32_conv_up_to_summation_order(cuda, name, xs, ws, kw):
+    """A bf16-operand product (on the tensor cores where ``conv_tf32``
+    scopes it: 32 output channels or more) against the same product in
+    true float32 (``exact_f32``, FFMA) over the bf16-rounded operands, within
+    (K + 2) x 2^-23 x the conv of |x| and |w|, K = C_in x kh x kw: the
+    float32 summation-order bound, since every product of two bf16 values
+    is exact in both.  ``conv_tf32.launches`` rises by one where the product
+    is scoped, and the process's flag (off) is left as it was."""
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    x = torch.randn(xs, generator=g, device="cuda")
+    w = torch.randn(ws, generator=g, device="cuda") * ws[-2] ** -0.5
+    product = TLayers.conv1d_product if len(xs) == 3 else TLayers.conv2d_product
+    scoped = ws[-1] >= TLayers.TF32_MIN_OUT_CHANNELS
+    before = TLayers.conv_tf32.launches
+    got = product(w, x, compute_dtype=torch.bfloat16, **kw)
+    assert TLayers.conv_tf32.launches - before == int(scoped)
+    assert torch.backends.cudnn.allow_tf32 is False and got.dtype == torch.float32
+    xr, wr = x.bfloat16().float(), w.bfloat16().float()
+    del x, w
+    with exact_f32():
+        want = product(wr, xr, **kw)
+        mag = product(wr.abs(), xr.abs(), **kw)
+    k = ws[0] * ws[-2] * (ws[1] if len(ws) == 4 else 1)
+    err = (got - want).abs()
+    limit = (k + 2) * 2.0**-23 * mag
+    assert bool((err <= limit).all()), f"max err {err.max().item():.3e} past the bound"
+
+
+# (family, route, compute dtype, conv_tf32 calls a replay)
+CONV_COUNT_CASES = [("conformer", "offline", torch.bfloat16, 26),
+                    ("zipformer2", "offline", torch.bfloat16, 2),
+                    ("zipformer2", "streaming", torch.bfloat16, 2),
+                    ("conformer", "offline", None, 0)]
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["tf32-off", "tf32-on"])
+@pytest.mark.parametrize("family,route,compute_dtype,want", CONV_COUNT_CASES,
+                         ids=[f"{f}-{r}-{'bf16' if c else 'f32'}"
+                              for f, r, c, _ in CONV_COUNT_CASES])
+def test_graph_replay_counts_conv_tf32_calls_and_leaves_the_flag(cuda, flag, family, route,
+                                                                 compute_dtype, want):
+    """At full width a captured offline graph or streaming step adds its
+    scoped convolutions to ``conv_tf32.launches`` at each replay: 26 a
+    conformer batch (the embed's two convs, 12 layers' two pointwise
+    convs), 2 a zipformer2 batch or step (the embed's conv2 and conv3; conv1
+    has 8 outputs), 0 on the float32 route.  ``torch.backends.cudnn.
+    allow_tf32`` reads as the process set it, off or on, after the eager
+    run, the warm-up and capture, and a replay."""
+    from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
+    from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+
+    torch.backends.cudnn.allow_tf32 = flag
+    config = {"conformer": ConformerConfig, "zipformer2": Zipformer2Config}[family]
+    bundle = ModelBundle.random(family, config(causal=route == "streaming"), vocab_size=500,
+                                seed=5, device="cuda")
+    if route == "offline":
+        rec = OfflineRecognizer(bundle, compute_dtype=compute_dtype, device="cuda")
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(5 * 16000))
+        assert _eager(rec, [s])[1][CONV_TF32] == want
+        assert torch.backends.cudnn.allow_tf32 is flag
+        rec.get_result(s)  # the warm-up, the capture and a replay
+        assert torch.backends.cudnn.allow_tf32 is flag
+        before = TLayers.conv_tf32.launches
+        rec.get_result(s)
+    else:
+        rec = OnlineRecognizer(bundle, compute_dtype=compute_dtype, max_lanes=4, device="cuda")
+        s = rec.create_online_stream()
+        s.add_samples(_pcm(rec.window_samples + 4 * rec.hop_samples))
+        rec.get_results([s])  # the first step: warm-up on the idle pool, capture, replay
+        assert torch.backends.cudnn.allow_tf32 is flag
+        before = TLayers.conv_tf32.launches
+        rec.get_results([s])
+    assert torch.backends.cudnn.allow_tf32 is flag
+    assert TLayers.conv_tf32.launches - before == want
+    (entry,) = rec.program.entries.values()
+    assert entry.launches[CONV_TF32] == want
 
 
 def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):

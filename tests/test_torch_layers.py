@@ -157,6 +157,133 @@ def test_embed_convs_match_the_banded_forms():
     np.testing.assert_allclose(t3.numpy(), h3, rtol=1e-5, atol=1e-5)
 
 
+# -- the convolutions' TF32 scope (ops/layers.py::conv_tf32) ------------------
+
+
+@pytest.fixture
+def cudnn_tf32_off():
+    """cuDNN's TF32 flag False for the test, as a harness that turns it off
+    for its own float32 work leaves it; given back afterwards."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("before", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+def test_conv_tf32_gives_the_flag_back(before, raises):
+    """Inside the call the flag reads True; after it, as it was before,
+    whether the convolution returned or raised."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = before
+    seen = []
+
+    def conv(x, w, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        if raises:
+            raise RuntimeError("conv failed")
+        return x * w
+
+    try:
+        x = torch.ones(3)
+        if raises:
+            with pytest.raises(RuntimeError, match="conv failed"):
+                TL.conv_tf32(conv, x, x)
+        else:
+            assert torch.equal(TL.conv_tf32(conv, x, x), x)
+        assert seen == [True] and torch.backends.cudnn.allow_tf32 is before
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+# (name, product, compute dtype, groups, C_in, C_out, whether TF32 is
+# allowed in it)
+SCOPE_CASES = [
+    ("conv1d-pointwise-bf16", "conv1d", torch.bfloat16, 1, 8, 32, True),
+    ("conv1d-pointwise-fp16", "conv1d", torch.float16, 1, 8, 32, True),
+    ("conv1d-pointwise-f32", "conv1d", None, 1, 8, 32, False),
+    ("conv1d-depthwise-bf16", "conv1d", torch.bfloat16, 32, 32, 32, False),
+    ("conv1d-grouped-bf16", "conv1d", torch.bfloat16, 2, 8, 64, True),
+    ("conv1d-grouped-narrow-bf16", "conv1d", torch.bfloat16, 2, 8, 32, False),
+    ("conv2d-c1-bf16", "conv2d", torch.bfloat16, 1, 1, 32, True),
+    ("conv2d-c1-narrow-bf16", "conv2d", torch.bfloat16, 1, 1, 8, False),
+    ("conv2d-bf16", "conv2d", torch.bfloat16, 1, 6, 32, True),
+    ("conv2d-f32", "conv2d", None, 1, 6, 32, False),
+    ("conv2d-depthwise-bf16", "conv2d", torch.bfloat16, 6, 6, 6, False),
+]
+
+
+@pytest.mark.parametrize("name,product,cd,groups,cin,cout,scoped", SCOPE_CASES,
+                         ids=[c[0] for c in SCOPE_CASES])
+def test_conv_products_allow_tf32_only_over_exact_operands(monkeypatch, cudnn_tf32_off, name,
+                                                           product, cd, groups, cin, cout,
+                                                           scoped):
+    """A product over operands rounded to bf16 or fp16 with at least
+    ``TF32_MIN_OUT_CHANNELS`` outputs a group runs with cuDNN's TF32
+    allowed; the float32 route, a depthwise product and a narrower one run
+    under the process's flag (here False).  The flag reads False again
+    afterwards, and on CPU tensors ``conv_tf32.launches`` does not rise."""
+    assert TL.TF32_MIN_OUT_CHANNELS == 32
+    fn = getattr(torch.nn.functional, product)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, product, spy)
+    g = torch.Generator().manual_seed(len(name))
+    before = TL.conv_tf32.launches
+    if product == "conv1d":
+        w = torch.randn(3, cin // groups, cout, generator=g)
+        TL.conv1d_product(w, torch.randn(2, 9, cin, generator=g), groups=groups,
+                          compute_dtype=cd)
+    else:
+        w = torch.randn(3, 3, cin // groups, cout, generator=g)
+        TL.conv2d_product(w, torch.randn(2, 9, 7, cin, generator=g), strides=(2, 2),
+                          groups=groups, compute_dtype=cd)
+    assert seen == [scoped]
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert TL.conv_tf32.launches == before
+
+
+# (name, product, x shape, weight shape, keyword arguments): the embed convs
+# (C_in 1 with the freq padding, stride 2, stride (1, 2)) and the conformer's
+# pointwise and depthwise convs, at small widths
+BITWISE_CASES = [
+    ("conv2d-c1", "conv2d", (2, 13, 20, 1), (3, 3, 1, 8), dict(padding=(0, 1))),
+    ("conv2d-s2", "conv2d", (2, 11, 18, 8), (3, 3, 8, 12), dict(strides=(2, 2))),
+    ("conv2d-s12", "conv2d", (2, 5, 9, 12), (3, 3, 12, 16), dict(strides=(1, 2))),
+    ("conv1d-pointwise", "conv1d", (2, 17, 16), (1, 16, 32), dict(padding="SAME")),
+    ("conv1d-depthwise", "conv1d", (2, 17, 16), (7, 1, 16), dict(groups=16, padding="SAME")),
+]
+
+
+@pytest.mark.parametrize("name,product,xs,ws,kw", BITWISE_CASES,
+                         ids=[c[0] for c in BITWISE_CASES])
+def test_bf16_conv_products_on_the_cpu_are_the_float32_conv_of_the_upcasts(
+        cudnn_tf32_off, name, product, xs, ws, kw):
+    """On the CPU a bf16-operand product is what it was before the scope:
+    bit for bit ``F.conv1d``/``F.conv2d`` over the operands rounded to bf16
+    and upcast to float32."""
+    g = torch.Generator().manual_seed(len(name))
+    x, w = torch.randn(xs, generator=g), torch.randn(ws, generator=g)
+    xr, wr = x.bfloat16().float(), w.bfloat16().float()
+    if product == "conv1d":
+        got = TL.conv1d_product(w, x, compute_dtype=torch.bfloat16, **kw)
+        k, lo = ws[0], (ws[0] - 1) // 2
+        xp = torch.nn.functional.pad(xr, (0, 0, lo, k - 1 - lo)).transpose(1, 2)
+        want = torch.nn.functional.conv1d(xp, wr.permute(2, 1, 0),
+                                          groups=kw.get("groups", 1)).transpose(1, 2)
+    else:
+        got = TL.conv2d_product(w, x, compute_dtype=torch.bfloat16, **kw)
+        want = torch.nn.functional.conv2d(
+            xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), stride=kw.get("strides", (1, 1)),
+            padding=kw.get("padding", (0, 0))).permute(0, 2, 3, 1)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_conformer_norms_and_activations_match_jax(dtype):
     """LayerNorm, folded BatchNorm, swish and GLU.  bf16: LayerNorm to one

@@ -185,16 +185,18 @@ def test_replay_adds_the_launches_its_capture_recorded(monkeypatch):
     """Warm-up launches count, captured ones are taken back, each replay
     adds the capture's; the outputs are clones of the graph's; a failed
     capture raises, restores the counts and stores no entry."""
-    probs, _, search, beam, swoosh = kernel_wrappers()
+    probs, _, search, beam, swoosh, convs = kernel_wrappers()
     monkeypatch.setattr(probs, "launches", 10)
     monkeypatch.setattr(search, "launches", 0)
     monkeypatch.setattr(beam, "launches", 0)
     monkeypatch.setattr(swoosh, "launches", 0)
+    monkeypatch.setattr(convs, "launches", 0)
 
     def fn(samples, counts):  # what the kernels' wrappers count on the card
         probs.launches += 3
         search.launches += 1
         swoosh.launches += 5
+        convs.launches += 2
         return samples.sum(1), counts * 2
 
     graphs = _FakeGraphs()
@@ -203,12 +205,13 @@ def test_replay_adds_the_launches_its_capture_recorded(monkeypatch):
     n = torch.tensor([3, 2])
     first = program(x, n)
     assert (probs.launches, search.launches) == (10 + 3 + 3, 1 + 1)  # warm-up + one replay
-    assert program.entries[(2, 3)].launches == (3, 0, 1, 0, 5) and graphs.graphs[0].replays == 1
-    assert beam.launches == 0 and swoosh.launches == 5 + 5
+    assert program.entries[(2, 3)].launches == (3, 0, 1, 0, 5, 2)
+    assert graphs.graphs[0].replays == 1
+    assert beam.launches == 0 and swoosh.launches == 5 + 5 and convs.launches == 2 + 2
     assert first[0].tolist() == [3, 12] and first[1].tolist() == [6, 4] and len(first) == 2
     second = program(x + 1, n - 1)
     assert (probs.launches, search.launches) == (19, 3) and len(graphs.graphs) == 1
-    assert swoosh.launches == 15
+    assert swoosh.launches == 15 and convs.launches == 6
     assert second[0].tolist() == [6, 15] and second[1].tolist() == [4, 2]
     assert first[0].tolist() == [3, 12]  # a clone: the replay did not overwrite it
     assert second[0].data_ptr() != graphs.graphs[0].outputs[0].data_ptr()
@@ -217,7 +220,7 @@ def test_replay_adds_the_launches_its_capture_recorded(monkeypatch):
     with pytest.raises(RuntimeError, match="capturing"):
         program(torch.zeros((1, 3), dtype=torch.int16), torch.tensor([3]))
     assert (probs.launches, search.launches) == (19 + 3, 3 + 1)  # the warm-up's only
-    assert swoosh.launches == 15 + 5
+    assert swoosh.launches == 15 + 5 and convs.launches == 6 + 2
     assert list(program.entries) == [(2, 3)]
 
 
@@ -291,13 +294,13 @@ def test_dropping_a_recognizer_frees_its_program(bundles):
 
 def test_default_counters_are_the_four_kernel_wrappers():
     from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
-    from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda
+    from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda, layers
 
     program = DecodeProgram(lambda s, c: (s,), torch.device("cpu"))
     assert program.counters == kernel_wrappers() == (
         attention_cuda.relpos_attn_probs, attention_cuda.relpos_attn_ctx,
         rnnt_greedy.greedy_frames_skip, rnnt_beam.beam_frames_skip,
-        activations_cuda.bias_swoosh)
+        activations_cuda.bias_swoosh, layers.conv_tf32)
     assert program.graphs is None and program.pool_bytes() == 0
 
 
