@@ -1591,7 +1591,7 @@ def eager_begin(rec, streams):
     handle's host buffers are the device tensors, which end_decode copies
     back when it reads them, behind whatever the stream holds by then)."""
     samples, counts = rec.pcm_batch(streams)
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         out = rec._decode(samples, counts)
     return PendingDecode(streams, out, None)
 
@@ -1795,33 +1795,29 @@ TF32_PEAK = 495e12  # H100 SXM, dense TF32 on the tensor cores
 def encoder_convs():
     """Record the convolutions other than depthwise ones run while the block
     runs: yields a dict from (conv, shapes, strides, arguments) to [conv, x,
-    w, arguments, whether cuDNN's TF32 was allowed in the call, calls], the
-    first call's operands cloned as they lay.  With the process's flag off,
-    as [1] leaves it, a call that sees it on runs inside
-    ``ops/layers.conv_tf32``."""
+    w, arguments, whether it ran through ``ops/layers.conv_tf32`` (its
+    ``launches`` rose), calls], the first call's operands cloned as they
+    lay.  Every convolution of the port goes through ``ops/layers._conv``."""
     seen: dict = {}
-    saved = {name: getattr(F, name) for name in ("conv1d", "conv2d")}
+    real = L._conv
 
-    def spy(conv):
-        def call(x, w, **kw):
-            groups = kw.get("groups", 1)
-            if not 1 < groups == x.shape[1]:
-                key = (conv.__name__, tuple(x.shape), x.stride(), tuple(w.shape),
-                       tuple(sorted(kw.items())))
-                if key not in seen:
-                    seen[key] = [conv, x.clone(), w.clone(), kw,
-                                 torch.backends.cudnn.allow_tf32, 0]
-                seen[key][-1] += 1
-            return conv(x, w, **kw)
-        return call
+    def spy(conv, xc, wc, compute_dtype, groups, **kw):
+        before = L.conv_tf32.launches
+        y = real(conv, xc, wc, compute_dtype, groups=groups, **kw)
+        if not 1 < groups == xc.shape[1]:
+            kw = dict(kw, groups=groups)
+            key = (conv.__name__, tuple(xc.shape), xc.stride(), tuple(wc.shape),
+                   tuple(sorted(kw.items())))
+            if key not in seen:
+                seen[key] = [conv, xc.clone(), wc.clone(), kw, L.conv_tf32.launches != before, 0]
+            seen[key][-1] += 1
+        return y
 
-    for name, conv in saved.items():
-        setattr(F, name, spy(conv))
+    L._conv = spy
     try:
         yield seen
     finally:
-        for name, conv in saved.items():
-            setattr(F, name, conv)
+        L._conv = real
 
 
 def _conv_cases() -> list:
@@ -1871,7 +1867,8 @@ def phase_conv_tf32(bw):
     one's device time both ways, beside its bound at 495 (TF32) and 67
     (FFMA) TFLOP/s and the bandwidth, and whether the port scopes it (the
     narrow embed conv1, 1 -> 8 channels, is the row behind
-    ``TF32_MIN_OUT_CHANNELS``).  The process's flag stays off throughout."""
+    ``TF32_MIN_OUT_CHANNELS``).  The process's flags stay off throughout:
+    ``conv_tf32`` asks for TF32 in its own call."""
     rows = []
     for cell, what, scoped, calls, conv, x, w, kw in _conv_cases():
         k = int(np.prod(w.shape[1:]))
@@ -2137,7 +2134,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     (key, entry), = rec.program.entries.items()
     search = search_kernel(spec, rec.decoding_method)
     per_batch = replay_counts(spec, search)
-    with graph_dump() as dumped, torch.inference_mode(), rec._precision():
+    with graph_dump() as dumped, torch.inference_mode():
         DecodeProgram(rec._decode, rec.device)(*entry.inputs)
     nodes, n_nodes = graph_kernel_nodes(dumped[0])
     del dumped
@@ -2197,7 +2194,7 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         raise AssertionError(f"{name}: the profiler traced kernels {traced} over 3 replays, the "
                              f"counters say {replayed}")
     samples, sample_counts = rec.pcm_batch(batches[1])
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         replay_ms = device_ms(lambda: rec.program(samples, sample_counts), reps=3)
 
     # one more batch split into stages (not part of the counted run)
@@ -2363,7 +2360,7 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     (key, entry), = rec.program.entries.items()
     search = search_kernel(spec, rec.decoding_method)
     per_step = replay_counts(spec, search)
-    with graph_dump() as dumped, torch.inference_mode(), rec._precision():
+    with graph_dump() as dumped, torch.inference_mode():
         CudaGraphs(rec.device).capture(rec._step, entry.inputs)  # runs nothing
     nodes, n_nodes = graph_kernel_nodes(dumped[0])
     del dumped
@@ -2422,7 +2419,7 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     # one replay's device time, every lane ready and 2 of them (not counted)
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         full, two = online_windows(rec, STREAM_LANES, 450), online_windows(rec, 2, 450)
         replay_ms = device_ms(lambda: rec.program(*full), reps=3)
         replay_two_ms = device_ms(lambda: rec.program(*two), reps=3)
@@ -2675,7 +2672,7 @@ def phase_graph_memory() -> dict:
     base_alloc, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     samples, counts = rec.pcm_batch(batches[GRAPH_MEMORY_SECONDS[0]])
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         rec._decode(samples, counts)
     torch.cuda.synchronize()
     out = {"eager_peak_allocated_gib": (torch.cuda.max_memory_allocated() - base_alloc) * gib,
@@ -2945,7 +2942,7 @@ def stream_stage_split(rec, per_step: dict) -> dict:
     windows, wcount = online_windows(rec, rec.max_lanes, 400)
     pool = [t.clone() for t in pool_leaves(rec)]
     saved = read_counts()
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):

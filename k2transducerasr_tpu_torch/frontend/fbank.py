@@ -9,12 +9,13 @@ so the chain is pre-composed (numpy, float64, then float32) into one
     power[k] = (x @ A)[k]^2 + (x @ A)[k + n_bins]^2
     fbank    = log(max(power @ Mel, eps))
 
-Both matmuls are true float32: TF32 is turned off around them on the card
-(``runtime.device.exact_f32``), as the reference keeps them at
-``precision=HIGHEST``.  With dither > 0, ``dither * N(0, 1)`` noise from an
-explicit ``torch.Generator`` is added to the frames before the first
-matmul (the reference draws it from ``jax.random``: the same distribution,
-other values).
+Both matmuls are true float32, as the reference keeps them at
+``precision=HIGHEST``: they run inside ``runtime.device.exact_f32``, the
+port's one precision rule (TF32 off), which holds here also when the fbank
+is called outside a recognizer.  With dither > 0, ``dither * N(0, 1)``
+noise from an explicit ``torch.Generator`` is added to the frames before
+the first matmul (the reference draws it from ``jax.random``: the same
+distribution, other values).
 
 ``FbankExtractor`` is the batched whole-buffer front; ``OnlineFbank`` the
 streaming one: a host sample buffer whose completed frames go through the

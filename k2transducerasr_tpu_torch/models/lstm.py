@@ -22,11 +22,12 @@ output is float32: the residual stream becomes float32 after the first
 layer (bf16 + float32 promotes), as there.  Under ``compute_dtype`` bf16 the
 recurrence runs in float32 on bf16-rounded weights and a bf16-rounded
 input, where the reference also rounds the input gates after the bias add
-and ``h`` before each recurrent product (the port keeps them float32, or
-TF32 on the card's tensor cores): a bf16 encoder differs from the
-reference's by a few bf16 ulps, as the tests state.  ``compute_dtype=None``
-on the card runs cuDNN in true float32 inside ``exact_f32()``
-(``torch.backends.cudnn.allow_tf32`` off also covers its RNNs).
+and ``h`` before each recurrent product (the port keeps them float32): a
+bf16 encoder differs from the reference's by a few bf16 ulps, as the tests
+state.  On the card cuDNN's recurrence is true float32 under every compute
+dtype: the recognizers run their device work inside
+``runtime/device.exact_f32``, whose ``torch.backends.cudnn.allow_tf32`` off
+also covers cuDNN's RNNs.
 
 Streaming state, batch-leading: ``h [B, L, d_model]`` (projected hidden)
 and ``c [B, L, rnn_hidden_size]`` (cell), float32.

@@ -29,16 +29,18 @@ the float32 bias add (the reference rounds once, after the add).  That is a
 one-bf16-ulp-level difference, stated in the bf16 tolerances of the tests.
 
 Convolutions take float32 operands rounded to ``compute_dtype`` and give a
-float32 output, as the reference computes them.  Where that dtype is one
-TF32 holds exactly (bf16, fp16: at most 10 explicit mantissa bits, and
-float32's exponent) and the product has enough outputs a group for the
-tensor cores to pay (``TF32_MIN_OUT_CHANNELS``), the conv runs with cuDNN's
-TF32 allowed, whatever the process's flag (``conv_tf32``): the operands
-pass into TF32 unchanged, each product of two is exact in float32 and the
-sums stay float32, so only their order differs, as it does between any two
-cuDNN algorithms.  The float32 route (``compute_dtype=None``), depthwise
-products (one output a group: PyTorch's own kernel, where TF32 means
-nothing) and other narrow ones run under the process's flags.
+float32 output, as the reference computes them.  The port's device work runs
+with TF32 off (``runtime/device.exact_f32``, which the recognizers enter for
+every compute dtype); the one product that uses TF32 asks for it in its own
+call (``conv_tf32``) and sets no flag.  That is a product over a dtype TF32
+holds exactly (bf16, fp16: at most 10 explicit mantissa bits, and float32's
+exponent) with enough outputs a group for the tensor cores to pay
+(``TF32_MIN_OUT_CHANNELS``): the operands pass into TF32 unchanged, each
+product of two is exact in float32 and the sums stay float32, so only their
+order differs, as it does between any two cuDNN algorithms.  The float32
+route (``compute_dtype=None``), depthwise products (one output a group:
+PyTorch's own kernel, where TF32 means nothing) and other narrow ones are
+plain ``F.conv1d``/``F.conv2d`` calls.
 """
 
 from __future__ import annotations
@@ -365,38 +367,45 @@ def _conv(conv, xc: torch.Tensor, wc: torch.Tensor, compute_dtype, groups: int, 
     ``compute_dtype``: through ``conv_tf32`` where that dtype is one TF32
     holds exactly and the product has ``TF32_MIN_OUT_CHANNELS`` outputs a
     group or more (``wc``'s dim 0 over ``groups``; a depthwise product has
-    one); under the process's flags otherwise."""
+    one); ``conv`` itself otherwise."""
     if compute_dtype in TF32_EXACT and wc.shape[0] // groups >= TF32_MIN_OUT_CHANNELS:
         return conv_tf32(conv, xc, wc, groups=groups, **kw)
     return conv(xc, wc, groups=groups, **kw)
 
 
-def conv_tf32(conv, xc: torch.Tensor, wc: torch.Tensor, **kw) -> torch.Tensor:
-    """``conv(xc, wc, **kw)`` with cuDNN's TF32 allowed for this one call:
-    ``torch.backends.cudnn.allow_tf32`` set True and given back as it was,
-    on return and on a raise.  For float32 operands that TF32 holds exactly
-    (see the module docstring), so the result is float32 sums of exact
-    products.  The legacy flag alone, as ``runtime/device.exact_f32`` sets
-    it: setting ``torch.backends.cudnn.conv.fp32_precision`` while the flag
-    is False makes every later read of the flag raise (torch 2.13).
+def conv_tf32(conv, xc: torch.Tensor, wc: torch.Tensor, stride=1, padding=0,
+              groups: int = 1) -> torch.Tensor:
+    """``conv(xc, wc, stride=stride, padding=padding, groups=groups)`` with
+    cuDNN's TF32 allowed in this one call, for float32 operands that TF32
+    holds exactly (see the module docstring): float32 sums of exact products.
 
-    The flag is the process's: the scope covers this call on the calling
-    thread, and a float32 conv that another thread ran meanwhile would see
-    it too.  A CUDA graph captured around the call keeps the TF32 algorithm
-    that its eager warm-up and the capture chose, and every replay runs it;
-    what runs after the call, such as a float32 reference under the flags
-    its harness set, sees those flags again.  ``conv_tf32.launches`` counts
-    the calls on CUDA tensors (a program adds its captured calls at each
-    replay, ``runtime/program.py``)."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        y = conv(xc, wc, **kw)
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-    if xc.is_cuda:
-        conv_tf32.launches += 1
-    return y
+    On CUDA tensors it makes the call that ATen's convolution makes for such
+    a product, ``aten::cudnn_convolution``, with ``allow_tf32`` passed in
+    place of read from the process's flag: a conv1d as a 2-d conv of height 1
+    over its input made contiguous, cuDNN's ``benchmark`` and
+    ``deterministic`` as the process set them, and both operands laid out by
+    cuDNN's call in the memory format ATen would choose.  No TF32 flag is
+    read or written, so float32 work on another thread keeps its own
+    precision.  A CUDA graph captured around the call keeps the TF32
+    algorithm that its eager warm-up and the capture chose, and every replay
+    runs it.  On CPU tensors ``conv`` itself: TF32 means nothing there.
+    ``conv_tf32.launches`` counts the calls on CUDA tensors (a program adds
+    its captured calls at each replay, ``runtime/program.py``)."""
+    if not xc.is_cuda:
+        return conv(xc, wc, stride=stride, padding=padding, groups=groups)
+    n = xc.dim() - 2
+    stride = (stride,) * n if isinstance(stride, int) else tuple(stride)
+    padding = (padding,) * n if isinstance(padding, int) else tuple(padding)
+    dilation = (1,) * n
+    if n == 1:  # ATen's view1d_as_2d
+        xc, wc = xc.contiguous().unsqueeze(2), wc.unsqueeze(2)
+        stride, padding, dilation = (1,) + stride, (0,) + padding, (1,) + dilation
+    deterministic = (torch.backends.cudnn.deterministic
+                     or torch.are_deterministic_algorithms_enabled())
+    y = torch.ops.aten.cudnn_convolution(xc, wc, padding, stride, dilation, groups,
+                                         torch.backends.cudnn.benchmark, deterministic, True)
+    conv_tf32.launches += 1
+    return y.squeeze(2) if n == 1 else y
 
 
 conv_tf32.launches = 0

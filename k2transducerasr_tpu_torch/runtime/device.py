@@ -7,6 +7,7 @@ CUDA where there is none raises: nothing carries on silently on the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -24,21 +25,41 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+# exact_f32's scopes over the whole process, since the flags it clears are
+# the process's: how many are open, and the flags the first one found
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = (False, False)
+
+
 @contextlib.contextmanager
 def exact_f32():
-    """Turn TF32 off for float32 matmuls and cuDNN convolutions while the
-    block runs, then restore both flags.  A float32 conv goes through cuDNN
-    in TF32 by default (about three decimal digits); the fbank matmuls and
-    the ``compute_dtype=None`` path are specified as true float32."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    cd = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Turn TF32 off for float32 matmuls and cuDNN (convolutions and RNNs)
+    while the block runs: the one precision rule of the port's device work,
+    which the recognizers enter for every compute dtype and the fbank for
+    its matmuls.  A product that may run on TF32 asks for it in its own call
+    (``ops/layers.conv_tf32``) and sets no flag.
+
+    Scopes nest and overlap across threads: under a lock, the first to open
+    saves both flags and clears them, and the last to close restores them,
+    so no thread's float32 work meets TF32 while another's scope is open.
+    A flag the caller sets meanwhile is overwritten at the last close."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved[0]
+                torch.backends.cudnn.allow_tf32 = _f32_saved[1]
 
 
 def host_zeros(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

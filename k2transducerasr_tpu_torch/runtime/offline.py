@@ -35,7 +35,6 @@ through ``utils/profiling``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -154,7 +153,8 @@ class OfflineRecognizer:
         device: str | torch.device = "cuda",
     ):
         """``compute_dtype``: bf16 (default) or None for float32, which is
-        true float32 on the card (TF32 off while a batch decodes).  A CTC
+        true float32 on the card: the recognizer's device work runs with
+        TF32 off whatever the dtype (``runtime/device.exact_f32``).  A CTC
         bundle always decodes with ``greedy_search_ctc``; ``hotwords`` need
         ``modified_beam_search``.  ``device`` must be the bundle's; the
         default asks for the card.  ``mesh``: a ``DeviceMesh`` of
@@ -197,8 +197,9 @@ class OfflineRecognizer:
         # (decode/rnnt_greedy.py::greedy_operands)
         self._search_ops = None
         if dev.type == "cuda" and decoding_method in ("greedy_search", "modified_beam_search"):
-            self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
-                                                           bundle.joiner, compute_dtype)
+            with exact_f32():
+                self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+                                                               bundle.joiner, compute_dtype)
         # the dither noise per (rows, frames), drawn once (features)
         self._dither: dict[tuple[int, int], torch.Tensor] = {}
         # one CUDA graph per (rows, samples) on the card; None under a mesh
@@ -267,7 +268,7 @@ class OfflineRecognizer:
         threads on that stream are serialised."""
         with profiling.span("begin_decode.pcm"):
             samples, sample_counts = self.pcm_batch(streams)
-        with profiling.span("begin_decode.queue"), torch.inference_mode(), self._precision():
+        with profiling.span("begin_decode.queue"), torch.inference_mode():
             if self.program is not None:
                 out = self.program(samples, sample_counts)
             else:  # under a mesh: eager
@@ -336,10 +337,6 @@ class OfflineRecognizer:
     def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
         return all_gather_dim(t, 0, self._data_group)
 
-    def _precision(self):
-        """float32 compute means true float32: TF32 off while it runs."""
-        return exact_f32() if self.compute_dtype is None else contextlib.nullcontext()
-
     def features(self, samples: torch.Tensor, sample_counts: torch.Tensor):
         """int16 samples [B, N] + true counts -> (feats [B, T_pad, F],
         feat_lens [B])."""
@@ -373,12 +370,13 @@ class OfflineRecognizer:
     def encode(self, samples: torch.Tensor, sample_counts: torch.Tensor):
         """fbank and encoder: -> (enc_out [B, T', D], enc_lens [B]).  Each
         is marked on the device (``profiling.stage``)."""
-        with torch.inference_mode(), self._precision():
+        with torch.inference_mode(), exact_f32():
             profiling.stage("fbank", self.device)
             feats, feat_lens = self.features(samples, sample_counts)
             profiling.stage("encoder", self.device)
             return self.encoder(feats, feat_lens, self.compute_dtype)
 
+    @exact_f32()
     def _decode(self, samples, sample_counts) -> tuple:
         """-> what ``end_decode`` reads: each lane's (tokens, timestamps,
         count), or under beam search the ordered n-best buffers (tokens,

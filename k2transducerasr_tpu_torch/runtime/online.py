@@ -62,7 +62,6 @@ collective.  ``snapshot_stream`` broadcasts the owner's state to every rank.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -190,8 +189,9 @@ class OnlineRecognizer:
         device: str | torch.device = "cuda",
     ):
         """``compute_dtype``: bf16 (default) or None for float32, which is
-        true float32 on the card (TF32 off while a step runs).  A CTC bundle
-        always decodes with ``greedy_search_ctc``; ``hotwords`` need
+        true float32 on the card: the recognizer's device work runs with
+        TF32 off whatever the dtype (``runtime/device.exact_f32``).  A CTC
+        bundle always decodes with ``greedy_search_ctc``; ``hotwords`` need
         ``modified_beam_search``.  ``device`` must be the bundle's; the
         default asks for the card.  ``mesh``: a ``DeviceMesh`` of
         ``parallel/sharding.make_mesh`` whose data groups divide
@@ -254,8 +254,9 @@ class OnlineRecognizer:
         # (decode/rnnt_greedy.py::greedy_operands)
         self._search_ops = None
         if dev.type == "cuda" and decoding_method in ("greedy_search", "modified_beam_search"):
-            self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
-                                                           bundle.joiner, compute_dtype)
+            with exact_f32():
+                self._search_ops = rnnt_greedy.greedy_operands(bundle.decoder, bundle.decoder_cfg,
+                                                               bundle.joiner, compute_dtype)
 
         self._free_lanes = list(range(max_lanes))
         self._streams: dict[int, OnlineStream] = {}
@@ -358,7 +359,7 @@ class OnlineRecognizer:
                 stepped = lanes > 0
         with profiling.span("begin_step.queue"):
             if stepped:
-                with torch.inference_mode(), self._precision():
+                with torch.inference_mode():
                     if self.program is not None:  # copies into its static inputs
                         self.program(windows_t, wcount_t)
                     else:  # under a mesh: eager
@@ -480,10 +481,6 @@ class OnlineRecognizer:
 
     # -- internals ----------------------------------------------------------
 
-    def _precision(self):
-        """float32 compute means true float32: TF32 off while it runs."""
-        return exact_f32() if self.compute_dtype is None else contextlib.nullcontext()
-
     def _result(self, toks: list[int], stamps: list[int]) -> OnlineRecognizerResult:
         table = self.bundle.tokens
         return OnlineRecognizerResult(text=tokens_to_text(toks, table),
@@ -494,6 +491,7 @@ class OnlineRecognizer:
         return [self._result(toks[lane, j, :n].tolist(), stamps[lane, j, :n].tolist())
                 for j, n in enumerate(counts[lane].tolist())]
 
+    @exact_f32()
     def _init_dec_state(self, batch: int):
         b, cd = self.bundle, self.compute_dtype
         if self.decoding_method == "greedy_search_ctc":
@@ -540,6 +538,7 @@ class OnlineRecognizer:
         tree_map(lambda pool, tpl: pool[lane].copy_(tpl[0]), self._pool(), self._reset_template)
         self._endpoint_host = None  # the lane's counters changed
 
+    @exact_f32()
     def _step(self, windows: torch.Tensor, wcount: torch.Tensor) -> tuple:
         """One step of the whole pool (the reference's ``_build_step_fn``):
         windows [L, W, n] int16, wcount [L] int64 windows per lane.  Window

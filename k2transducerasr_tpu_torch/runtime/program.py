@@ -63,11 +63,12 @@ Counters.  The program counts into ``utils/profiling``'s counters:
 host seconds of each key's eager warm-up and capture together (capture
 synchronises).
 
-The caller runs each call under its own precision: the cuBLAS and cuDNN
-math modes (TF32 on or off) are fixed into a graph when it is captured, so
-the first call of a shape must run under the mode of every later one.  A
-convolution over bf16-rounded operands sets its own (``ops/layers.conv_tf32``:
-TF32 allowed in its warm-up and its capture alike, whatever the caller's).
+Precision.  The cuBLAS and cuDNN math modes (TF32 on or off) are fixed
+into a graph when it is captured.  The recognizers' ``fn`` enters
+``runtime/device.exact_f32`` itself, so its warm-up and capture run with
+TF32 off whatever the caller's flags, and every replay keeps that; a
+convolution over bf16-rounded operands asks for TF32 in its own call
+(``ops/layers.conv_tf32``).
 
 On the CPU each call runs ``fn`` eagerly on the static inputs and clones
 its outputs: the plain route the tests drive.

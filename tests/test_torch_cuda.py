@@ -36,9 +36,12 @@ on the tensor cores through ``conv_tf32`` where they have 32 outputs or
 more) are held against the same products in true float32 at the benchmark
 cells' shapes, within (K + 2) x 2^-23 x the conv of |x| and |w| (the
 float32 summation-order bound: every product of two bf16 values is exact);
-a replay counts 26 scoped convolutions a conformer batch, 2 a zipformer2
-batch or step and 0 on the float32 route, and leaves cuDNN's TF32 flag as
-the process set it.
+each is bit for bit ``F.conv1d``/``F.conv2d`` under the TF32 flag it asks
+for (set in the test); float32 convolutions on another thread, inside
+``exact_f32``, stay bit for bit float32 while scoped ones run; a replay
+counts 26 scoped convolutions a conformer batch, 2 a zipformer2 batch or
+step and 0 on the float32 route, and leaves cuDNN's TF32 flag as the
+process set it.
 
 Tolerance, K1: float32 probs to atol 1e-5 (summation order); bf16 probs to
 one bf16 ulp of the plain value (both round one float32 value).  K2: float32
@@ -1274,7 +1277,7 @@ def _eager(rec, streams):
     kernel's launches in that run."""
     samples, counts = rec.pcm_batch(streams)
     before = _counts()
-    with torch.inference_mode(), rec._precision():
+    with torch.inference_mode():
         out = rec._decode(samples, counts)
     return [t.cpu() for t in out], tuple(a - b for a, b in zip(_counts(), before))
 
@@ -1659,6 +1662,79 @@ def test_bf16_conv_product_is_the_float32_conv_up_to_summation_order(cuda, name,
     err = (got - want).abs()
     limit = (k + 2) * 2.0**-23 * mag
     assert bool((err <= limit).all()), f"max err {err.max().item():.3e} past the bound"
+
+
+@pytest.mark.parametrize("name,xs,ws,kw", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_bf16_conv_product_is_f_conv_under_the_tf32_it_asks_for(cuda, name, xs, ws, kw):
+    """The scoped route (``aten::cudnn_convolution`` with ``allow_tf32``
+    passed in, the flag untouched) makes the call ``F.conv1d``/``F.conv2d``
+    makes: bit for bit the same product over the bf16-rounded operands with
+    ``cudnn.allow_tf32`` set True around it here; an unscoped product (8
+    outputs) the same with the flag off, as the process has it."""
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    x = torch.randn(xs, generator=g, device="cuda")
+    w = torch.randn(ws, generator=g, device="cuda") * ws[-2] ** -0.5
+    product = TLayers.conv1d_product if len(xs) == 3 else TLayers.conv2d_product
+    scoped = ws[-1] >= TLayers.TF32_MIN_OUT_CHANNELS
+    got = product(w, x, compute_dtype=torch.bfloat16, **kw)
+    assert torch.backends.cudnn.allow_tf32 is False
+    xr, wr = x.bfloat16().float(), w.bfloat16().float()
+    del x, w
+    torch.backends.cudnn.allow_tf32 = scoped
+    try:
+        want = product(wr, xr, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_float32_convs_on_another_thread_stay_float32_while_scoped_ones_run(cuda):
+    """One thread runs scoped bf16-operand convolutions in a loop while
+    another runs float32 ones (float32 operands, which TF32 would round)
+    inside ``exact_f32``: every float32 result equals the float32 product
+    run alone, bit for bit.  A scope that turned the process's TF32 flag on
+    would let some of them run on TF32."""
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((64, 200, 80, 8), generator=g, device="cuda")
+    w = torch.randn((3, 3, 8, 32), generator=g, device="cuda") * 8 ** -0.5
+    with exact_f32():
+        alone = TLayers.conv2d_product(w, x, strides=(2, 2))
+    torch.cuda.synchronize()
+    stop, errors, mismatches = threading.Event(), [], []
+    scoped = [0]
+
+    def bf16_loop():
+        try:
+            while not stop.is_set():
+                TLayers.conv2d_product(w, x, strides=(2, 2), compute_dtype=torch.bfloat16)
+                scoped[0] += 1
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    def float32_loop():
+        try:
+            for _ in range(200):
+                with exact_f32():
+                    got = TLayers.conv2d_product(w, x, strides=(2, 2))
+                if not torch.equal(got, alone):
+                    mismatches.append((got - alone).abs().max().item())
+        except Exception as e:  # reported below
+            errors.append(e)
+        finally:
+            stop.set()
+
+    threads = [threading.Thread(target=f) for f in (bf16_loop, float32_loop)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert errors == [] and scoped[0] > 0
+    assert mismatches == [], f"{len(mismatches)} of 200 float32 convs left float32"
+    assert torch.backends.cudnn.allow_tf32 is False
 
 
 # (family, route, compute dtype, conv_tf32 calls a replay)

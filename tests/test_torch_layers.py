@@ -9,6 +9,10 @@ ulp of the output (rtol 2**-7) — PyTorch's bf16 matmul rounds before the
 float32 bias add, the reference after it.
 """
 
+import os
+import sys
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from k2transducerasr_tpu.frontend import fbank as JF
 from k2transducerasr_tpu.ops import layers as JL
 from k2transducerasr_tpu_torch.frontend import fbank as TF
 from k2transducerasr_tpu_torch.ops import layers as TL
+from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from tests.kaldi_fbank_reference import fbank_reference
 
 
@@ -157,26 +162,17 @@ def test_embed_convs_match_the_banded_forms():
     np.testing.assert_allclose(t3.numpy(), h3, rtol=1e-5, atol=1e-5)
 
 
-# -- the convolutions' TF32 scope (ops/layers.py::conv_tf32) ------------------
-
-
-@pytest.fixture
-def cudnn_tf32_off():
-    """cuDNN's TF32 flag False for the test, as a harness that turns it off
-    for its own float32 work leaves it; given back afterwards."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    yield
-    torch.backends.cudnn.allow_tf32 = saved
+# -- the convolutions' TF32 (ops/layers.py::conv_tf32) ------------------------
 
 
 @pytest.mark.parametrize("before", [False, True], ids=["off", "on"])
 @pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
-def test_conv_tf32_gives_the_flag_back(before, raises):
-    """Inside the call the flag reads True; after it, as it was before,
-    whether the convolution returned or raised."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = before
+def test_conv_tf32_leaves_the_flag_as_the_caller_set_it(monkeypatch, before, raises):
+    """``conv_tf32`` sets no flag: on CPU tensors the convolution sees
+    cuDNN's TF32 flag as the caller set it, and the flag reads so after the
+    call, whether the convolution returned or raised (the error passes
+    through)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", before)
     seen = []
 
     def conv(x, w, **kw):
@@ -185,20 +181,17 @@ def test_conv_tf32_gives_the_flag_back(before, raises):
             raise RuntimeError("conv failed")
         return x * w
 
-    try:
-        x = torch.ones(3)
-        if raises:
-            with pytest.raises(RuntimeError, match="conv failed"):
-                TL.conv_tf32(conv, x, x)
-        else:
-            assert torch.equal(TL.conv_tf32(conv, x, x), x)
-        assert seen == [True] and torch.backends.cudnn.allow_tf32 is before
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
+    x = torch.ones(3)
+    if raises:
+        with pytest.raises(RuntimeError, match="conv failed"):
+            TL.conv_tf32(conv, x, x)
+    else:
+        assert torch.equal(TL.conv_tf32(conv, x, x), x)
+    assert seen == [before] and torch.backends.cudnn.allow_tf32 is before
 
 
-# (name, product, compute dtype, groups, C_in, C_out, whether TF32 is
-# allowed in it)
+# (name, product, compute dtype, groups, C_in, C_out, whether it runs
+# through conv_tf32)
 SCOPE_CASES = [
     ("conv1d-pointwise-bf16", "conv1d", torch.bfloat16, 1, 8, 32, True),
     ("conv1d-pointwise-fp16", "conv1d", torch.float16, 1, 8, 32, True),
@@ -216,25 +209,33 @@ SCOPE_CASES = [
 
 @pytest.mark.parametrize("name,product,cd,groups,cin,cout,scoped", SCOPE_CASES,
                          ids=[c[0] for c in SCOPE_CASES])
-def test_conv_products_allow_tf32_only_over_exact_operands(monkeypatch, cudnn_tf32_off, name,
-                                                           product, cd, groups, cin, cout,
-                                                           scoped):
+def test_conv_products_allow_tf32_only_over_exact_operands(monkeypatch, name, product, cd,
+                                                           groups, cin, cout, scoped):
     """A product over operands rounded to bf16 or fp16 with at least
-    ``TF32_MIN_OUT_CHANNELS`` outputs a group runs with cuDNN's TF32
-    allowed; the float32 route, a depthwise product and a narrower one run
-    under the process's flag (here False).  The flag reads False again
-    afterwards, and on CPU tensors ``conv_tf32.launches`` does not rise."""
+    ``TF32_MIN_OUT_CHANNELS`` outputs a group goes through ``conv_tf32``
+    (which asks for TF32 in its own call on the card); the float32 route, a
+    depthwise product and a narrower one do not.  No flag changes: the
+    convolution sees both TF32 flags as the caller set them (here False,
+    which a scope that turned TF32 on would show), and they read so after;
+    on CPU tensors ``conv_tf32.launches`` does not rise."""
     assert TL.TF32_MIN_OUT_CHANNELS == 32
-    fn = getattr(torch.nn.functional, product)
-    seen = []
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    fn, real = getattr(torch.nn.functional, product), TL.conv_tf32
+    seen, routed = [], []
 
     def spy(*a, **kw):
-        seen.append(torch.backends.cudnn.allow_tf32)
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
         return fn(*a, **kw)
 
+    def spy_tf32(*a, **kw):
+        routed.append(a[1].shape)
+        return real(*a, **kw)
+
     monkeypatch.setattr(torch.nn.functional, product, spy)
+    monkeypatch.setattr(TL, "conv_tf32", spy_tf32)
     g = torch.Generator().manual_seed(len(name))
-    before = TL.conv_tf32.launches
+    before = real.launches
     if product == "conv1d":
         w = torch.randn(3, cin // groups, cout, generator=g)
         TL.conv1d_product(w, torch.randn(2, 9, cin, generator=g), groups=groups,
@@ -243,9 +244,11 @@ def test_conv_products_allow_tf32_only_over_exact_operands(monkeypatch, cudnn_tf
         w = torch.randn(3, 3, cin // groups, cout, generator=g)
         TL.conv2d_product(w, torch.randn(2, 9, 7, cin, generator=g), strides=(2, 2),
                           groups=groups, compute_dtype=cd)
-    assert seen == [scoped]
+    assert len(routed) == int(scoped)
+    assert seen == [(False, False)]
     assert torch.backends.cudnn.allow_tf32 is False
-    assert TL.conv_tf32.launches == before
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert real.launches == before
 
 
 # (name, product, x shape, weight shape, keyword arguments): the embed convs
@@ -263,8 +266,8 @@ BITWISE_CASES = [
 @pytest.mark.parametrize("name,product,xs,ws,kw", BITWISE_CASES,
                          ids=[c[0] for c in BITWISE_CASES])
 def test_bf16_conv_products_on_the_cpu_are_the_float32_conv_of_the_upcasts(
-        cudnn_tf32_off, name, product, xs, ws, kw):
-    """On the CPU a bf16-operand product is what it was before the scope:
+        name, product, xs, ws, kw):
+    """On the CPU a bf16-operand product, through ``conv_tf32`` or not, is
     bit for bit ``F.conv1d``/``F.conv2d`` over the operands rounded to bf16
     and upcast to float32."""
     g = torch.Generator().manual_seed(len(name))
@@ -282,6 +285,82 @@ def test_bf16_conv_products_on_the_cpu_are_the_float32_conv_of_the_upcasts(
             xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), stride=kw.get("strides", (1, 1)),
             padding=kw.get("padding", (0, 0))).permute(0, 2, 3, 1)
     assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+# -- the port's one precision rule (runtime/device.py::exact_f32) -------------
+
+
+def _flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def test_overlapping_exact_f32_scopes_on_two_threads_restore_at_the_last_exit(monkeypatch):
+    """Thread A opens a scope, thread B opens one, A closes first: both TF32
+    flags stay False until B, the last, closes, and then read as the caller
+    set them (True)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    a_in, b_in, a_out, b_may_exit = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def a():
+        with exact_f32():
+            seen["a"] = _flags()
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def b():
+        a_in.wait(10)
+        with exact_f32():
+            b_in.set()
+            a_out.wait(10)
+            seen["b after a's exit"] = _flags()
+            b_may_exit.wait(10)
+
+    threads = [threading.Thread(target=f) for f in (a, b)]
+    for t in threads:
+        t.start()
+    assert a_out.wait(10)
+    assert _flags() == (False, False)  # B's scope is still open
+    b_may_exit.set()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert seen == {"a": (False, False), "b after a's exit": (False, False)}
+    assert _flags() == (True, True)
+
+
+def test_exact_f32_under_thread_churn_never_lets_tf32_in(monkeypatch):
+    """More threads than cores, each opening and closing nested scopes with
+    a short switch interval: every read inside a scope sees both flags
+    False, and the caller's values (True, False) come back after the last."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    bad = []
+
+    def churn():
+        for _ in range(200):
+            with exact_f32():
+                with exact_f32():
+                    if _flags() != (False, False):
+                        bad.append(_flags())
+                if _flags() != (False, False):
+                    bad.append(_flags())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=churn) for _ in range(2 * (os.cpu_count() or 1) + 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert bad == []
+    assert _flags() == (True, False)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -304,6 +304,43 @@ def test_default_counters_are_the_four_kernel_wrappers():
     assert program.graphs is None and program.pool_bytes() == 0
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind", ["offline", "online"])
+def test_recognizers_run_their_device_work_with_tf32_off(bundles, monkeypatch, kind,
+                                                         compute_dtype):
+    """The port's one precision rule: with both TF32 flags set True by the
+    caller, every linear and convolution a recognizer runs (built, then
+    decoding a batch or taking a step; bf16 or float32) sees both False, and
+    both read True again afterwards."""
+    from k2transducerasr_tpu_torch import OnlineRecognizer
+    from k2transducerasr_tpu_torch.ops import layers
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+
+    def spy(fn):
+        def call(*a, **kw):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return fn(*a, **kw)
+        return call
+
+    for name in ("apply_linear", "_conv"):
+        monkeypatch.setattr(layers, name, spy(getattr(layers, name)))
+    tb = bundles["zipformer2"][1]
+    if kind == "offline":
+        rec = OfflineRecognizer(tb, compute_dtype=compute_dtype, device="cpu")
+        rec.get_results(_streams(rec, [_pcm(6400)]))
+    else:
+        rec = OnlineRecognizer(tb, compute_dtype=compute_dtype, max_lanes=2, device="cpu")
+        s = rec.create_online_stream()
+        s.add_samples(_pcm(rec.window_samples))
+        rec.get_results([s])
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_mesh_recognizer_stays_eager(bundles):
     """The rule: under a mesh the recognizer has no program (its collectives
     cannot be captured); without one it always has one."""

@@ -489,7 +489,7 @@ def test_replays_with_and_without_markers_agree_bit_for_bit(kind, monkeypatch):
     for marked in (True, False):
         if not marked:
             monkeypatch.setattr(profiling, "stage", lambda name, device: None)
-        with torch.inference_mode(), rec._precision():
+        with torch.inference_mode():
             graph, outputs = CudaGraphs(rec.device).capture(fn, entry.inputs)  # runs nothing
         got[marked] = replayed(graph, outputs)
         del graph
