@@ -65,6 +65,13 @@ Phases (any failure exits non-zero; none is caught):
      scopes held to FFMA within the float32 summation-order bound; every
      path below counts its conv_tf32 calls per batch and step (FAMILIES'
      ``convs``: 26 conformer, 2 each zipformer);
+  3g. layernorm (the conformer's and the LSTM's LayerNorm) against its
+     plain version at the conformer cell's batch (20 x 30 s: [20, 767, 512]
+     bf16, 60 calls), in float32 there, and at a streaming step's q and kv
+     (16 lanes), float32 to rtol + atol 1e-5 and bf16 one bf16 ulp beyond, with
+     its time, its device time, the plain version's, F.layer_norm's and the
+     bound; every conformer path below counts its 60 launches per batch
+     and 72 per step, every LSTM path one a layer;
   4. each committed pin model dir (zipformer2, conformer, zipformer2-CTC,
      zipformer v1, LSTM), float32 on the card, must give its pinned
      transcript and timestamps exactly, offline and through
@@ -194,10 +201,11 @@ from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
 from k2transducerasr_tpu_torch.ops import cuda_build
 from k2transducerasr_tpu_torch.ops import layers as L
+from k2transducerasr_tpu_torch.ops import norm_cuda as NORM
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from k2transducerasr_tpu_torch.runtime.offline import PendingDecode
-from k2transducerasr_tpu_torch.runtime.program import CudaGraphs, DecodeProgram
+from k2transducerasr_tpu_torch.runtime.program import CudaGraphs, DecodeProgram, kernel_wrappers
 from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
 from k2transducerasr_tpu_torch.utils import profiling
 from k2transducerasr_tpu_torch.utils.profiling import STEP_STAGES
@@ -223,7 +231,10 @@ def swoosh_calls(cfg) -> int:
 # zipformer2 encoder's; 0: the family runs no Swoosh), and the convolutions
 # run through ops/layers.conv_tf32 per bf16 batch and step (the embed's of
 # 32 output channels or more and the conformer's pointwise ones; no
-# depthwise one, and not the zipformers' embed conv1, 1 -> 8 channels)
+# depthwise one, and not the zipformers' embed conv1, 1 -> 8 channels), and
+# the layernorm launches per flagship batch (``norm``) and streaming step
+# (``stream_norm``: the conformer's attention normalises its kv too; 0: the
+# family runs no LayerNorm)
 FAMILIES = {
     "zipformer2": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                        kernel="relpos_attn_probs",
@@ -231,19 +242,23 @@ FAMILIES = {
                        pin_text="tok25tok25tok18tok8tok12tok6tok25tok6",
                        pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                        online_pin_text="tok25tok25tok18tok8tok12tok6tok25tok6tok12tok6tok25tok6",
-                       greedy=True, swoosh=swoosh_calls(Zipformer2Config()), convs=2),
+                       greedy=True, swoosh=swoosh_calls(Zipformer2Config()), convs=2,
+                       norm=0, stream_norm=0),
     "conformer": dict(cfg=ConformerConfig, stream_cfg=lambda: ConformerConfig(causal=True),
                       kernel="relpos_attn_ctx",
                       per_batch=ConformerConfig().num_layers,
                       pin_text="tok28tok28tok28tok28", pin_timestamps=[0, 1, 4, 7],
                       online_pin_text="tok28tok28tok28tok28", greedy=True, swoosh=0,
-                      convs=2 + 2 * ConformerConfig().num_layers),
+                      convs=2 + 2 * ConformerConfig().num_layers,
+                      norm=5 * ConformerConfig().num_layers,
+                      stream_norm=6 * ConformerConfig().num_layers),
     # the zipformer2 encoder under a CTC head (vocab 500 at full width)
     "zipformer2ctc": dict(cfg=Zipformer2Config, stream_cfg=lambda: Zipformer2Config(causal=True),
                           kernel="relpos_attn_probs",
                           per_batch=sum(Zipformer2Config().num_encoder_layers),
                           pin_text="tok29", pin_timestamps=[0], online_pin_text="tok29tok27",
-                          greedy=False, swoosh=swoosh_calls(Zipformer2Config()), convs=2),
+                          greedy=False, swoosh=swoosh_calls(Zipformer2Config()), convs=2,
+                          norm=0, stream_norm=0),
     # zipformer v1 (icefall pruned_transducer_stateless7): 15 layers, 8 heads
     # of 24, K1 once per layer
     "zipformer": dict(cfg=ZipformerConfig, stream_cfg=lambda: ZipformerConfig(causal=True),
@@ -252,13 +267,14 @@ FAMILIES = {
                       pin_text="tok5tok17tok5tok17tok5tok17tok5tok17",
                       pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                       online_pin_text="tok5tok17tok5tok17tok5tok17tok5tok17tok5tok23",
-                      greedy=True, swoosh=0, convs=2),
-    # the LSTM transducer: a cuDNN recurrence, no kernel of this port
+                      greedy=True, swoosh=0, convs=2, norm=0, stream_norm=0),
+    # the LSTM transducer: a cuDNN recurrence and a LayerNorm a layer
     "lstm": dict(cfg=LstmConfig, stream_cfg=LstmConfig, kernel=None, per_batch=0,
                  pin_text="tok6tok15tok15tok15tok15tok15tok15",
                  pin_timestamps=[0, 1, 2, 3, 4, 5, 6, 7],
                  online_pin_text="tok6tok15tok15tok15tok15tok15tok15tok9tok9tok9tok9tok9tok9",
-                 greedy=True, swoosh=0, convs=2),
+                 greedy=True, swoosh=0, convs=2, norm=LstmConfig().num_layers,
+                 stream_norm=LstmConfig().num_layers),
 }
 BEAM = "modified_beam_search"
 BEAM_K = 4
@@ -298,13 +314,17 @@ BEAM_PINS = {
 }
 KERNELS = {"relpos_attn_probs": AC.relpos_attn_probs, "relpos_attn_ctx": AC.relpos_attn_ctx,
            "rnnt_greedy": rnnt_greedy.greedy_frames_skip,
-           "rnnt_beam": rnnt_beam.beam_frames_skip, "bias_swoosh": ACT.bias_swoosh}
+           "rnnt_beam": rnnt_beam.beam_frames_skip, "bias_swoosh": ACT.bias_swoosh,
+           "layernorm": NORM.layernorm}
+# where conv_tf32's count lies in a program entry's ``launches``
+CONV_TF32_AT = kernel_wrappers().index(L.conv_tf32)
 GREEDY = "greedy_search"
-# the searches' and bias_swoosh's launches on each counted path, filled in
-# by the phases
+# the searches', bias_swoosh's and layernorm's launches on each counted
+# path, filled in by the phases
 GREEDY_PATHS: dict[str, int] = {}
 BEAM_PATHS: dict[str, int] = {}
 SWOOSH_PATHS: dict[str, int] = {}
+NORM_PATHS: dict[str, int] = {}
 CONV_TF32_PATHS: dict[str, int] = {}
 SEARCH_PATHS = {"rnnt_greedy": GREEDY_PATHS, "rnnt_beam": BEAM_PATHS}
 
@@ -384,6 +404,9 @@ MUTATIONS = [
     ("bias_swoosh SwooshL shifted by 3 instead of 4",
      "k2transducerasr_tpu_torch/csrc/bias_swoosh.cu", "kind == 0 ? 4.f : 1.f",
      "kind == 0 ? 3.f : 1.f", "phase_swoosh"),
+    ("layernorm variance over D - 1", "k2transducerasr_tpu_torch/csrc/layernorm.cu",
+     "__fdiv_rn(warp_sum(q), (float)D)", "__fdiv_rn(warp_sum(q), (float)(D - 1))",
+     "phase_layernorm"),
 ]
 
 
@@ -511,11 +534,13 @@ def counters_since(before: dict) -> dict:
 
 def path_kernels(spec, method=GREEDY) -> set:
     """The kernels a run of the family launches: its attention kernel,
-    bias_swoosh for a zipformer2 encoder, and for a transducer rnnt_greedy
-    under greedy search and rnnt_beam under modified beam search."""
+    bias_swoosh for a zipformer2 encoder, layernorm for a conformer or LSTM
+    one, and for a transducer rnnt_greedy under greedy search and rnnt_beam
+    under modified beam search."""
     search = {GREEDY: {"rnnt_greedy"}, BEAM: {"rnnt_beam"}}.get(method, set())
     return (({spec["kernel"]} - {None}) | (search if spec["greedy"] else set())
-            | ({"bias_swoosh"} if spec["swoosh"] else set()))
+            | ({"bias_swoosh"} if spec["swoosh"] else set())
+            | ({"layernorm"} if spec["norm"] else set()))
 
 
 def search_kernel(spec, method):
@@ -526,8 +551,8 @@ def search_kernel(spec, method):
 def family_launches(what, spec, counts, method=GREEDY) -> int:
     """A run of one family launched each kernel of its path and no other;
     the search kernel's launches are recorded in GREEDY_PATHS or BEAM_PATHS
-    under ``what``, bias_swoosh's in SWOOSH_PATHS.  Returns the family's
-    attention kernel's launches."""
+    under ``what``, bias_swoosh's in SWOOSH_PATHS, layernorm's in NORM_PATHS.
+    Returns the family's attention kernel's launches."""
     want = path_kernels(spec, method)
     if {k for k, n in counts.items() if n} != want:
         raise AssertionError(f"{what} launched {counts}; expected {sorted(want) or 'none'}")
@@ -536,6 +561,8 @@ def family_launches(what, spec, counts, method=GREEDY) -> int:
         SEARCH_PATHS[search][what] = counts[search]
     if spec["swoosh"]:
         SWOOSH_PATHS[what] = counts["bias_swoosh"]
+    if spec["norm"]:
+        NORM_PATHS[what] = counts["layernorm"]
     return counts.get(spec["kernel"], 0)
 
 
@@ -556,11 +583,19 @@ def check_conv_tf32(what, spec, recorded, ran, replays) -> None:
     CONV_TF32_PATHS[what] = ran
 
 
-def replay_counts(spec, search) -> dict:
-    """Each kernel's launches in one flagship batch or streaming step of the
-    family with the search kernel ``search`` (None: CTC)."""
+def replay_counts(spec, search, streaming=False) -> dict:
+    """Each kernel's launches in one flagship batch (or, ``streaming``,
+    streaming step) of the family with the search kernel ``search`` (None:
+    CTC)."""
     return counts_of(**{spec["kernel"] or "none": spec["per_batch"], search or "none": 1,
-                        "bias_swoosh": spec["swoosh"]})
+                        "bias_swoosh": spec["swoosh"],
+                        "layernorm": spec["stream_norm" if streaming else "norm"]})
+
+
+def recorded(entry) -> dict:
+    """Each of KERNELS' launches a replay, as a program entry recorded them
+    (``launches`` in ``kernel_wrappers()``'s order)."""
+    return {name: entry.launches[kernel_wrappers().index(fn)] for name, fn in KERNELS.items()}
 
 
 def reset_peak_memory():
@@ -1785,6 +1820,82 @@ def phase_swoosh(bw):
     return rows, worst
 
 
+# [3g]: layernorm at the conformer's shapes: conf_offline_longform's batch of
+# 20 x 30 s (T = 767 after the embed, 60 calls), and a streaming step of 16
+# lanes of ConformerConfig(causal=True) (a chunk of 16 frames, 60 calls; the
+# attention's kv of 64 cached + 16, 12 calls); the float32 route (the LSTM,
+# compute_dtype=None) at the batch's shape.  (name, shape, dtype, calls a
+# batch, calls a step)
+NORM_CASES = [("offline", (20, 767, 512), torch.bfloat16, 60, 0),
+              ("offline-f32", (20, 767, 512), torch.float32, 0, 0),
+              ("stream-q", (16, 16, 512), torch.bfloat16, 0, 60),
+              ("stream-kv", (16, 80, 512), torch.bfloat16, 0, 12)]
+NORM_RTOL = NORM_ATOL = 1e-5  # float32 kernel vs plain: the sums' order only
+
+
+def phase_layernorm(bw):
+    """layernorm against its plain version at NORM_CASES: float32 to
+    NORM_RTOL + NORM_ATOL (the same float32 steps but the order of the
+    mean's and the variance's sums), bf16 to one bf16 ulp beyond that.
+    Each case's time (kernel, device, plain) beside its bound, (x's bytes +
+    out's + scale's and bias's) / bandwidth, and ``F.layer_norm``'s (the
+    yardstick the port never calls; its weights in x's dtype)."""
+    rows = []
+    worst = 0.0
+    for name, shape, dtype, layers, stream_layers in NORM_CASES:
+        g = torch.Generator(device="cuda").manual_seed(len(rows))
+        x = (torch.randn(shape, generator=g, device="cuda") * 3 + 0.5).to(dtype)
+        d = shape[-1]
+        scale = 1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+        bias = 0.1 * torch.randn(d, generator=g, device="cuda")
+        out = NORM.layernorm(x, scale, bias)
+        ref = NORM.layernorm_reference(x, scale, bias)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        tol = NORM_ATOL + NORM_RTOL * ref.float().abs()
+        ok = bool((diff <= tol + (_bf16_ulp(ref) if dtype == torch.bfloat16 else 0)).all())
+        err = float(diff.max())
+        if not ok:
+            raise AssertionError(f"layernorm {name}: kernel disagrees with plain (max {err})")
+        worst = max(worst, err)
+        differ = int((out != ref).sum())
+        del out, ref, diff
+
+        def kernel():
+            return NORM.layernorm(x, scale, bias)
+
+        def library(w=scale.to(dtype), b=bias.to(dtype)):
+            return F.layer_norm(x, (d,), w, b, 1e-5)
+
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20)
+        host = host_us(kernel)
+        plain_ms = cuda_ms(lambda: NORM.layernorm_reference(x, scale, bias), reps=5, warm=1)
+        lib_ms = cuda_ms(library, reps=20)
+        lib_dev_ms = device_ms(library, reps=20)
+        n = x.numel()
+        bound_ms, bound_by = bound(2 * n * x.element_size() + 8 * d, 0, torch.float32, bw)
+        rows.append({"case": name, "family": "conformer", "dtype": str(dtype).split(".")[-1],
+                     "shape": list(shape), "layers": layers, "stream_layers": stream_layers,
+                     "max_abs_err": err, "elements_not_equal": differ, "ms": ms,
+                     "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms})
+        log(f"[3g] layernorm {name:12s} {str(tuple(shape)):16s} {rows[-1]['dtype']:8s}: max_err "
+            f"{err:.3e} ok ({differ} of {n} elements not equal) | kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}, host {host:.1f} us) | bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / dev_ms:.1%} of bound by device time | plain {plain_ms:.4f} ms | "
+            f"F.layer_norm {lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
+        del x
+        torch.cuda.empty_cache()
+    head = rows[0]
+    log(f"[3g] layernorm per conf_offline_longform batch: {head['layers']} calls, "
+        f"{head['layers'] * head['device_ms']:.3f} ms device against a bound of "
+        f"{head['layers'] * head['bound_ms']:.3f} ms; plain {head['layers'] * head['plain_ms']:.3f}"
+        f" ms")
+    return rows, worst
+
+
 # [3f]: the benchmark cells' batch of 20 x 30 s (conf_offline_longform,
 # z2_offline_longform) and z2_stream_offpeak's pool of 820 lanes
 CONV_ROWS, CONV_LANES = 20, 820
@@ -2142,9 +2253,9 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     torch.cuda.empty_cache()  # the dumped graph's pool
     log(f"{tag} {name} graph of key (rows, samples) {key}: captured with its first batch in "
         f"{first_ms:.1f} ms (warm-up run, capture, replay); launches per replay "
-        f"{dict(zip(KERNELS, entry.launches))}; a second capture of the key, dumped: "
+        f"{recorded(entry)}; a second capture of the key, dumped: "
         f"{n_nodes} nodes, kernel nodes {nodes}")
-    if nodes != per_batch or dict(zip(KERNELS, entry.launches)) != per_batch:
+    if nodes != per_batch or recorded(entry) != per_batch:
         raise AssertionError(f"{name}: the graph holds kernel nodes {nodes} and records "
                              f"{entry.launches}, expected one batch's {per_batch}")
     reset_peak_memory()
@@ -2159,7 +2270,8 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
-    check_conv_tf32(name, spec, entry.launches[-1], L.conv_tf32.launches - convs, n_batches)
+    check_conv_tf32(name, spec, entry.launches[CONV_TF32_AT], L.conv_tf32.launches - convs,
+                    n_batches)
     ran = counters_since(before)
     if ran.get("program.replays") != n_batches or ran.get("program.captures"):
         raise AssertionError(f"{name}: {n_batches} timed batches ran {ran} (profiling "
@@ -2172,6 +2284,8 @@ def phase_main_path(family, method="greedy_search", n_batches=2, accuracy=None):
         SEARCH_PATHS[search][name] = counts[search]
     if spec["swoosh"]:
         SWOOSH_PATHS[name] = counts["bias_swoosh"]
+    if spec["norm"]:
+        NORM_PATHS[name] = counts["layernorm"]
     ms_batch = wall / n_batches * 1e3
     audio_rate = n_batches * FLAGSHIP_B * 30.0 / wall
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2359,14 +2473,14 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     capture_ms = (time.perf_counter() - t0) * 1e3
     (key, entry), = rec.program.entries.items()
     search = search_kernel(spec, rec.decoding_method)
-    per_step = replay_counts(spec, search)
+    per_step = replay_counts(spec, search, streaming=True)
     with graph_dump() as dumped, torch.inference_mode():
         CudaGraphs(rec.device).capture(rec._step, entry.inputs)  # runs nothing
     nodes, n_nodes = graph_kernel_nodes(dumped[0])
     del dumped
     gc.collect()
     torch.cuda.empty_cache()
-    if nodes != per_step or dict(zip(KERNELS, entry.launches)) != per_step:
+    if nodes != per_step or recorded(entry) != per_step:
         raise AssertionError(f"{name} streaming: the graph holds kernel nodes {nodes} and "
                              f"records {entry.launches}, expected one step's {per_step}")
     busy, traced = device_trace(lambda: rec.get_results(streams), reps=3)
@@ -2395,8 +2509,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
     wall = time.perf_counter() - t_start
     counts = read_counts()
     steps = len(lat)
-    check_conv_tf32(f"{name}/streaming", spec, entry.launches[-1], L.conv_tf32.launches - convs,
-                    steps)
+    check_conv_tf32(f"{name}/streaming", spec, entry.launches[CONV_TF32_AT],
+                    L.conv_tf32.launches - convs, steps)
     ran = counters_since(before)
     if ran.get("program.replays") != steps or ran.get("program.captures"):
         raise AssertionError(f"{name} streaming: {steps} timed steps ran {ran} (profiling "
@@ -2410,6 +2524,8 @@ def phase_streaming_main_path(family, splits, method="greedy_search", seconds=30
         SEARCH_PATHS[search][f"{name}/streaming"] = counts[search]
     if spec["swoosh"]:
         SWOOSH_PATHS[f"{name}/streaming"] = counts["bias_swoosh"]
+    if spec["norm"]:
+        NORM_PATHS[f"{name}/streaming"] = counts["layernorm"]
     hop_s = rec.hop_samples / bundle.frontend_cfg.sample_rate
     lat_ms = np.array(lat) * 1e3
     p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
@@ -2989,7 +3105,8 @@ def stage_splits() -> int:
             s.add_samples(synth_pcm(4 * 16000, 300 + i))
         rec.get_results(streams)  # the capture
         search = search_kernel(spec, rec.decoding_method)
-        out[path_name(rec)] = stream_stage_split(rec, replay_counts(spec, search))
+        out[path_name(rec)] = stream_stage_split(rec, replay_counts(spec, search,
+                                                                    streaming=True))
         del rec, streams, bundle
         gc.collect()
         torch.cuda.empty_cache()
@@ -3576,6 +3693,7 @@ def phase_parallel(tmp) -> dict:
             "rnnt_beam"]
         for path in ("tp_zipformer2", "dp_offline", "dp_beam_offline", "dp_streaming"):
             SWOOSH_PATHS[f"{path}_rank{r['rank']}"] = r[path]["launches"]["bias_swoosh"]
+        NORM_PATHS[f"tp_conformer_rank{r['rank']}"] = r["tp_conformer"]["launches"]["layernorm"]
     return {"relpos_attn_probs": {"tp_offline": total("tp_zipformer2", "relpos_attn_probs"),
                                   "dp_offline": total("dp_offline", "relpos_attn_probs"),
                                   "dp_beam_offline": total("dp_beam_offline",
@@ -3761,6 +3879,7 @@ def main() -> int:
     beam_rows, beam_plans = phase_beam(bw)
     swoosh_rows, swoosh_worst = phase_swoosh(bw)
     conv_rows = phase_conv_tf32(bw)
+    norm_rows, norm_worst = phase_layernorm(bw)
     pins = {family: {"pin_offline": phase_golden(family), "pin_online": phase_online_pin(family)}
             for family in FAMILIES}
     pin_beam = {family: phase_beam_pins(family) for family in BEAM_PINS}
@@ -3862,6 +3981,15 @@ def main() -> int:
                     "zipformer2-CTC path (launches_by_path; 84 per flagship batch or step, "
                     "5 per layer + 4 at the pin dirs' widths); library_ms null: no PyTorch "
                     "call computes a Swoosh"),
+        kernel_line("layernorm", "k2transducerasr_tpu_torch/csrc/layernorm.cu",
+                    "none: XLA fused the LayerNorm's chain on the TPU",
+                    dict(NORM_PATHS), norm_rows, norm_worst,
+                    "one conf_offline_longform batch (20 x 30 s of ConformerConfig(), bf16): "
+                    "60 calls at [20, 767, 512] (five a layer); streaming: one step of 16 "
+                    "lanes of ConformerConfig(causal=True), 72 calls (60 at [16, 16, 512], "
+                    "12 at the attention's kv [16, 80, 512]); launches: every conformer and "
+                    "LSTM path (launches_by_path; the LSTM's one a layer, float32 on its "
+                    "float32 routes); library_ms: F.layer_norm, its weights in x's dtype"),
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

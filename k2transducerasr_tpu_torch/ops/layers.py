@@ -51,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from k2transducerasr_tpu_torch.ops import norm_cuda
 from k2transducerasr_tpu_torch.parallel.sharding import ModelShard, all_gather_dim, all_reduce_sum
 
 NEG_INF = -1e9  # attention mask fill (f32-safe, bf16-safe)
@@ -247,12 +248,9 @@ def apply_biasnorm(p, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 def apply_layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Float32 mean and (population) variance over the last axis, cast back
-    to the input dtype."""
-    x32 = x.float()
-    mean = torch.mean(x32, dim=-1, keepdim=True)
-    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    to the input dtype: one kernel on the card, its plain version on the CPU
+    (``ops/norm_cuda.layernorm``)."""
+    return norm_cuda.layernorm(x, p["scale"], p["bias"], eps)
 
 
 def apply_batchnorm(p, x: torch.Tensor) -> torch.Tensor:

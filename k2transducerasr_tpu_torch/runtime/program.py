@@ -85,17 +85,17 @@ import weakref
 import torch
 
 from k2transducerasr_tpu_torch.decode import rnnt_beam, rnnt_greedy
-from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda, layers
+from k2transducerasr_tpu_torch.ops import activations_cuda, attention_cuda, layers, norm_cuda
 from k2transducerasr_tpu_torch.utils import profiling
 
 
 def kernel_wrappers() -> tuple:
     """The wrappers that count their kernels' launches (``.launches``):
-    K1, K2, G, B, S, and the convolutions run with cuDNN's TF32 allowed
-    (``ops/layers.conv_tf32``)."""
+    K1, K2, G, B, S, the convolutions run with cuDNN's TF32 allowed
+    (``ops/layers.conv_tf32``) and LN (``ops/norm_cuda.layernorm``)."""
     return (attention_cuda.relpos_attn_probs, attention_cuda.relpos_attn_ctx,
             rnnt_greedy.greedy_frames_skip, rnnt_beam.beam_frames_skip,
-            activations_cuda.bias_swoosh, layers.conv_tf32)
+            activations_cuda.bias_swoosh, layers.conv_tf32, norm_cuda.layernorm)
 
 
 @dataclasses.dataclass

@@ -31,6 +31,16 @@ and streaming step: bf16 output to one bf16 ulp, float32 output to two
 float32 ulps (the same float32 steps on both sides, expf and log1pf CUDA's
 on both: they agree exactly unless a compiler orders a step otherwise).
 
+layernorm (the conformer's and the LSTM's LayerNorm) is held against its
+plain version at the conformer cell's shape, the streaming step's q and kv,
+in float32 and at the tails (one row, none, 13 rows, odd and narrow
+widths, a prefix of a wider row, an unaligned pointer), and counted 60
+times a conformer offline replay, 72 a streaming step and 0 a zipformer2
+one: float32 to rtol 1e-5 + atol 1e-5 (the mean and the variance summed
+in another order; every other step rounded as the plain version rounds
+it), bf16 to one bf16 ulp beyond that, with under 1% of the elements
+differing.
+
 The encoders' convolutions over bf16-rounded operands (``ops/layers.py``:
 on the tensor cores through ``conv_tf32`` where they have 32 outputs or
 more) are held against the same products in true float32 at the benchmark
@@ -78,6 +88,7 @@ from k2transducerasr_tpu_torch.models import lstm as TL
 from k2transducerasr_tpu_torch.ops import layers as TLayers
 from k2transducerasr_tpu_torch.ops import activations_cuda as ACT
 from k2transducerasr_tpu_torch.ops import attention_cuda as AC
+from k2transducerasr_tpu_torch.ops import norm_cuda as NORM
 from k2transducerasr_tpu_torch.runtime.checkpoint import params_from_numpy, tree_map
 from k2transducerasr_tpu_torch.runtime.device import exact_f32
 from k2transducerasr_tpu_torch.testing import beam_replay, tie_aware_replay
@@ -1253,7 +1264,8 @@ def test_cli_device_flag_on_the_card(cuda, tmp_path, capsys):
 # -- the offline recognizer's CUDA graphs (runtime/program.py) ----------------
 
 GREEDY, BEAM, CTC = "greedy_search", "modified_beam_search", "greedy_search_ctc"
-SWOOSH, CONV_TF32 = 4, 5  # bias_swoosh's and conv_tf32's places in _counts()
+# bias_swoosh's, conv_tf32's and layernorm's places in _counts()
+SWOOSH, CONV_TF32, NORM_LN = 4, 5, 6
 # (family, method, hotwords): every family and search method on its pin dir
 GRAPH_CASES = [("zipformer2", GREEDY, None), ("conformer", GREEDY, None),
                ("zipformer", GREEDY, None), ("lstm", GREEDY, None),
@@ -1269,7 +1281,7 @@ def _counts():
     """Each counter of ``runtime/program.kernel_wrappers()``, in its order."""
     return (AC.relpos_attn_probs.launches, AC.relpos_attn_ctx.launches,
             TGreedy.greedy_frames_skip.launches, TBeam.beam_frames_skip.launches,
-            ACT.bias_swoosh.launches, TLayers.conv_tf32.launches)
+            ACT.bias_swoosh.launches, TLayers.conv_tf32.launches, NORM.layernorm.launches)
 
 
 def _eager(rec, streams):
@@ -1786,6 +1798,133 @@ def test_graph_replay_counts_conv_tf32_calls_and_leaves_the_flag(cuda, flag, fam
     assert TLayers.conv_tf32.launches - before == want
     (entry,) = rec.program.entries.values()
     assert entry.launches[CONV_TF32] == want
+
+
+# -- LayerNorm (ops/norm_cuda.py) ---------------------------------------------
+
+# (name, shape, dtype, how it lies in memory).  First the conformer's shapes:
+# conf_offline_longform's 20 x 30 s batch (T = 767 after the embed), the
+# streaming flagship's step over 16 lanes (a chunk of 16 frames, the
+# attention's kv of 64 cached + 16), the LSTM's float32 output; then the
+# tails: one row, no row, a row count that is no multiple of 8, odd and
+# narrow widths (the scalar loop), the widest taken, a row that is a prefix
+# of a wider one, and a pointer off a 16-byte boundary.
+LN_CASES = [
+    ("conf-offline", (20, 767, 512), BF16, "dense"),
+    ("conf-stream-q", (16, 16, 512), BF16, "dense"),
+    ("conf-stream-kv", (16, 80, 512), BF16, "dense"),
+    ("f32", (20, 767, 512), F32, "dense"),
+    ("one-row", (1, 512), BF16, "dense"),
+    ("no-row", (0, 512), BF16, "dense"),
+    ("rows-13", (13, 512), BF16, "dense"),
+    ("rows-13-f32", (13, 512), F32, "dense"),
+    ("odd-d", (33, 37), BF16, "dense"),
+    ("odd-d-f32", (33, 37), F32, "dense"),
+    ("pin-d", (7, 40, 64), BF16, "dense"),
+    ("d-24", (9, 24), F32, "dense"),
+    ("d-1000", (11, 1000), BF16, "dense"),
+    ("d-1024", (11, 1024), F32, "dense"),
+    ("prefix", (64, 512), BF16, "prefix"),
+    ("unaligned", (64, 512), BF16, "offset"),
+    ("unaligned-f32", (64, 512), F32, "offset"),
+]
+
+
+def _ln_input(shape, dtype, layout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, d = int(np.prod(shape)), shape[-1]
+    if layout == "prefix":  # each row the first d of 2 d
+        wide = torch.randn(*shape[:-1], 2 * d, generator=g, device="cuda") * 3 + 0.5
+        return wide.to(dtype)[..., :d]
+    flat = (torch.randn(n + 1, generator=g, device="cuda") * 3 + 0.5).to(dtype)
+    return (flat[1:] if layout == "offset" else flat[:n]).view(shape)
+
+
+@pytest.mark.parametrize("name,shape,dtype,layout", LN_CASES, ids=[c[0] for c in LN_CASES])
+def test_layernorm_matches_plain(cuda, name, shape, dtype, layout):
+    """The kernel against its plain version.  float32 to rtol 1e-5 + atol
+    1e-5: the two differ by the summation order of the mean and the
+    variance, each within ~(log2 D + 16) float32 ulps (relative ~2e-6),
+    carried into the output by |(x - mean) rstd scale| of a few units, so
+    the difference is absolute where scale and bias cancel to near 0.
+    bf16 within one bf16 ulp of the plain value beyond that float32
+    difference (each side rounds its float32 value once); about 0.05% of
+    the elements round the other way, asserted under 1%."""
+    x = _ln_input(shape, dtype, layout, seed=len(name))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    scale = torch.randn(shape[-1], generator=g, device="cuda")
+    bias = torch.randn(shape[-1], generator=g, device="cuda")
+    before = NORM.layernorm.launches
+    got = NORM.layernorm(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert NORM.layernorm.launches == before + int(x.numel() > 0)
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    want = NORM.layernorm_reference(x, scale, bias, 1e-5)
+    if dtype == F32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    d = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(torch.finfo(BF16).tiny)
+    ok = d <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * (1 + mag)
+    worst = int(torch.argmax(torch.where(ok, 0.0, d))) if d.numel() else 0
+    assert bool(ok.all()), (f"{int((~ok).sum())} of {d.numel()} past one ulp, e.g. "
+                            f"{got.flatten()[worst]} for {want.flatten()[worst]}")
+    share = float((d > 0).float().mean()) if d.numel() else 0.0
+    print(f"layernorm {name}: {share:.4%} of the elements one bf16 ulp from plain")
+    assert share < 0.01
+
+
+def test_layernorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """On CUDA tensors the wrapper raises, before any launch, on a row
+    wider than 1024, a strided scale or bias and rows that are not at one
+    stride; it never falls back to the plain version."""
+    x = torch.zeros(4, 2048, device="cuda", dtype=BF16)
+    scale, bias = torch.ones(2048, device="cuda"), torch.zeros(2048, device="cuda")
+    before = NORM.layernorm.launches
+    with pytest.raises(ValueError, match="1024"):
+        NORM.layernorm(x, scale, bias)
+    x, wide = torch.zeros(4, 8, device="cuda"), torch.ones(8, 2, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        NORM.layernorm(x, wide[:, 0], torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError, match="one stride"):
+        NORM.layernorm(torch.zeros(3, 4, 8, device="cuda")[:, :2], wide[:, 0].contiguous(),
+                       torch.zeros(8, device="cuda"))
+    assert NORM.layernorm.launches == before
+
+
+@pytest.mark.parametrize("family,route,want", [
+    ("conformer", "offline", 60), ("conformer", "streaming", 72),
+    ("zipformer2", "offline", 0), ("zipformer2", "streaming", 0)])
+def test_graph_replay_counts_the_layernorm_launches(cuda, family, route, want):
+    """At the flagships' widths and depths, a captured offline graph and a
+    captured streaming step each add their LayerNorms to ``layernorm``'s
+    count a replay: the conformer's 12 layers five a layer offline (the two
+    feed-forwards', the conv module's, the attention's, the final one) and
+    six a step (the attention's kv too); zipformer2 none (BiasNorm)."""
+    from k2transducerasr_tpu_torch.models.conformer import ConformerConfig
+    from k2transducerasr_tpu_torch.models.zipformer2 import Zipformer2Config
+
+    config = {"conformer": ConformerConfig, "zipformer2": Zipformer2Config}[family]
+    bundle = ModelBundle.random(family, config(causal=route == "streaming"), vocab_size=500,
+                                seed=5, device="cuda")
+    if route == "offline":
+        rec = OfflineRecognizer(bundle, device="cuda")
+        s = rec.create_offline_stream()
+        s.add_samples(_pcm(5 * 16000))
+        assert _eager(rec, [s])[1][NORM_LN] == want
+        rec.get_result(s)  # captures the batch shape's graph
+        before = NORM.layernorm.launches
+        rec.get_result(s)
+    else:
+        rec = OnlineRecognizer(bundle, max_lanes=4, device="cuda")
+        s = rec.create_online_stream()
+        s.add_samples(_pcm(rec.window_samples + 4 * rec.hop_samples))
+        rec.get_results([s])  # the first step: warm-up on the idle pool, capture, replay
+        before = NORM.layernorm.launches
+        rec.get_results([s])
+    assert NORM.layernorm.launches - before == want
+    (entry,) = rec.program.entries.values()
+    assert entry.launches[NORM_LN] == want
 
 
 def test_capture_refusal_raises_and_never_decodes_eagerly(cuda, monkeypatch):

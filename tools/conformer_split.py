@@ -11,8 +11,10 @@ seed, bf16) and its one batch shape, 20 x 30 s.  Then:
   convolutions and its linear, the linears, K2, the pointwise and depthwise
   convolutions, BatchNorm, Swish, GLU, LayerNorm) in a ``record_function``
   scope of its own named by the module that called it; the device time of
-  the kernels each scope launched, and "other" (the residual adds, the
-  scaling, the masks, fbank) as the rest of the kernels' time;
+  the kernels each scope launched (K2's and the LayerNorm kernel's, which
+  the profiler does not tie to a scope, by their names: ``attn.k2`` and
+  ``layernorm``), and "other" (the residual adds, the scaling, the masks,
+  fbank) as the rest of the kernels' time;
 * **the replay**: the device time of one replay of the batch's graph
   (CUDA events over ``--rounds`` replays queued back to back, after two
   warm decodes).
@@ -130,9 +132,10 @@ def split(rec, streams) -> dict:
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith("split:"):
             parts[e.name[len("split:"):]] += e.device_time_total
-    # K2 is launched through ctypes, outside the profiler's op tree: by name
-    parts["attn.k2"] += sum(e.time_range.elapsed_us() for e in events
-                            if e.device_type == DeviceType.CUDA and "relpos_attn_ctx" in e.name)
+    # K2 and LN are launched through ctypes, outside the profiler's op tree: by name
+    for part, kernel in (("attn.k2", "relpos_attn_ctx"), ("layernorm", "k2t_layernorm")):
+        parts[part] += sum(e.time_range.elapsed_us() for e in events
+                           if e.device_type == DeviceType.CUDA and kernel in e.name)
     parts["other"] = total - sum(parts.values())
     return {"kernels_ms": total / 1e3,
             "parts_ms": {k: v / 1e3 for k, v in sorted(parts.items(), key=lambda kv: -kv[1])}}
