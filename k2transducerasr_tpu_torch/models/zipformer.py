@@ -127,6 +127,15 @@ def output_chunk_len(cfg: ZipformerConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _uniform_std(rng, shape, std: float) -> np.ndarray:
+    """A symmetric uniform draw of standard deviation ``std`` (icefall draws
+    the downsample query and the upsample bias from a normal of that std):
+    only symmetric uniform and standard normal draws are scaled at the
+    draw, as ``asrbench``'s recorder of an init takes them."""
+    a = math.sqrt(3.0) * std
+    return rng.uniform(-a, a, size=shape).astype(np.float32)
+
+
 def init_basicnorm(dim: int) -> dict:
     return {"eps_log": np.asarray(math.log(0.25), np.float32)}
 
@@ -177,7 +186,7 @@ def _init_layer(rng, cfg: ZipformerConfig, si: int) -> dict:
 
 
 def _init_attention_downsample(rng, in_dim: int, out_dim: int, ds: int) -> dict:
-    p = {"query": (rng.standard_normal(in_dim) * in_dim**-0.5).astype(np.float32)}
+    p = {"query": _uniform_std(rng, in_dim, in_dim**-0.5)}
     if in_dim != out_dim:
         p["extra_proj"] = L.init_linear(rng, in_dim * ds, out_dim - in_dim, bias=False)
     return p
@@ -189,7 +198,7 @@ def _init_stack(rng, cfg: ZipformerConfig, si: int) -> dict:
     in_dim = cfg.encoder_dims[si - 1] if si > 0 else cfg.encoder_dims[0]
     if ds > 1:
         p["downsample"] = _init_attention_downsample(rng, in_dim, dim, ds)
-        p["upsample_bias"] = (rng.standard_normal((ds, dim)) * 0.01).astype(np.float32)
+        p["upsample_bias"] = _uniform_std(rng, (ds, dim), 0.01)
         p["out_combiner"] = {"weight1": np.zeros((), np.float32)}
     elif in_dim != dim:
         raise ValueError(f"stack {si}: ds=1 with dim change {in_dim}->{dim} is not an "
@@ -199,7 +208,9 @@ def _init_stack(rng, cfg: ZipformerConfig, si: int) -> dict:
 
 def init_params(rng: np.random.Generator, cfg: ZipformerConfig) -> dict:
     """numpy tree with the reference ``init_params``' structure, shapes,
-    scales and ``None`` entries (other values: another generator)."""
+    scales and ``None`` entries (other values: another generator; the
+    downsample queries and upsample biases uniform, of the reference's
+    normal draws' std)."""
     return {
         "embed": _init_embed(rng, cfg),
         "stacks": [_init_stack(rng, cfg, i) for i in range(cfg.num_stacks)],
@@ -568,7 +579,12 @@ class Zipformer(ParamTree):
     streaming step."""
 
     def __init__(self, cfg: ZipformerConfig, tree: dict, device="cpu"):
-        super().__init__(tree, device)
+        # a stack without a U-Net skip has no combiner: its slot is None,
+        # whatever a tree made elsewhere holds there (``asrbench``'s weights
+        # fill every leaf of the init's tree, None slots included)
+        skips = [None if j is None else c
+                 for j, c in zip(cfg.skip_sources(), tree["skip_combiners"])]
+        super().__init__(dict(tree, skip_combiners=skips), device)
         self.cfg = cfg
 
     def forward(self, x, x_lens, compute_dtype=None):

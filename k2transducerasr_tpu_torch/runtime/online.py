@@ -29,7 +29,8 @@ graph cannot draw from an unregistered generator.  ``_step`` marks its
 stages on the device (``utils/profiling.stage``: fbank, encoder and freeze
 for each window slot, then search and end), marks that a replay carries;
 ``begin_step`` and ``end_step`` record their parts as host spans and count
-the windows and lanes each step takes.
+the windows and lanes each step takes, and the bytes of encoder state its
+freezes pass (``online.freeze_bytes``: the whole pool per window slot).
 
 A recognizer serves one thread: its streams' buffers, its lane list and its
 pool are shared, and a step's readback is queued after the replay outside
@@ -263,6 +264,11 @@ class OnlineRecognizer:
         # the lane pool (this data group's lanes): bound here once and only
         # ever written in place, since a captured step holds its addresses
         self._enc_state = self._enc.init_state(enc_cfg, self._pool_lanes, dev)
+        # the bytes of encoder state a window slot's freeze passes: every
+        # leaf of the pool (``online.freeze_bytes``)
+        leaf_bytes = []
+        tree_map(lambda t: leaf_bytes.append(t.numel() * t.element_size()), self._enc_state)
+        self._freeze_bytes = sum(leaf_bytes)
         self._dec_state = self._init_dec_state(self._pool_lanes)
         self._frame_count = torch.zeros((self._pool_lanes,), dtype=torch.int64, device=dev)
         self._reset_template = None
@@ -357,6 +363,8 @@ class OnlineRecognizer:
                 profiling.count("online.windows", int(wcount.sum()))
                 profiling.count("online.lanes_stepped", lanes)
                 stepped = lanes > 0
+                if stepped:  # each window slot's freeze passes the whole pool
+                    profiling.count("online.freeze_bytes", shape[1] * self._freeze_bytes)
         with profiling.span("begin_step.queue"):
             if stepped:
                 with torch.inference_mode():

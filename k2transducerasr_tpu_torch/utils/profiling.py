@@ -24,12 +24,16 @@ append.  The recognizers open one span of each name per API call:
 Counters (host).  ``count(name, n)`` adds to a process-wide dict:
 ``program.replays``, ``program.captures`` and ``program.capture_s`` (each
 key's eager warm-up plus its capture, host clock) from
-``runtime/program.DecodeProgram``; ``online.windows`` and
+``runtime/program.DecodeProgram``; ``online.windows``,
 ``online.lanes_stepped`` (the windows a step takes and the lanes with one)
-from ``OnlineRecognizer.begin_step``.  The kernels' own ``.launches``
-counters (``runtime/program.kernel_wrappers``) are apart and unchanged.
-What an operator reads from them (a capture while serving, the lanes a
-streaming replay steps) is in README's port section.
+and ``online.freeze_bytes`` (the bytes of encoder state the step's freezes
+pass: every leaf of the pool, once per window slot) from
+``OnlineRecognizer.begin_step``.  The kernels' own ``.launches`` counters
+(``runtime/program.kernel_wrappers``) are apart and unchanged.  What an
+operator reads from them (a capture while serving, the lanes a streaming
+replay steps, ``online.freeze_bytes / program.replays`` against
+``online.lanes_stepped / program.replays``: how much of the pool's state a
+step moves for the lanes that stepped) is in README's port section.
 
 Stage markers (device).  ``stage(name, device)`` launches one empty kernel,
 ``k2t_stage_<name>`` (``csrc/stage_marks.cu``), on the current stream: a

@@ -328,6 +328,24 @@ def test_lanes_stepped_counts_the_nonzero_wcount_entries(bundle):
     assert got["online.windows"] == sum(int(c.sum()) for c in seen) == 1 + 2 + 4
 
 
+@pytest.mark.parametrize("pin", ["zipformer_pin", "zipformer2_pin"])
+def test_freeze_bytes_counts_every_lane_of_the_pool(pin):
+    """One step of a pool of three lanes, one of them stepped: the freeze
+    passes every lane's encoder state, so ``online.freeze_bytes`` adds the
+    lanes times one lane's state bytes (zipformer v1's and zipformer2's)."""
+    pinned = ModelBundle.from_dir(os.path.join(PIN_ROOT, pin), device="cpu")
+    rec = OnlineRecognizer(pinned, max_lanes=3, compute_dtype=None, device="cpu")
+    lane = []
+    tree_map(lambda t: lane.append(t.numel() * t.element_size()),
+             rec._enc.init_state(pinned.encoder_cfg, 1, "cpu"))
+    s = rec.create_online_stream()
+    s.add_samples(_pcm(rec.window_samples, 41))
+    rec.end_step(rec.begin_step([s]))
+    got = profiling.counters()
+    assert got["online.lanes_stepped"] == 1
+    assert got["online.freeze_bytes"] == 3 * sum(lane) > 0
+
+
 def test_decode_and_step_hold_no_profiler_scope_and_profiling_is_the_one_tracing_module():
     for fn in (offline_mod.OfflineRecognizer._decode, online_mod.OnlineRecognizer._step):
         src = inspect.getsource(fn)
